@@ -1,0 +1,52 @@
+"""Plain PyTorch versions of the flash-decode kernels.
+
+Transcriptions of ``repro.kernels.decode_attn.ref``: one query row per
+request, KV cache with per-request valid lengths, grouped queries
+(H = KV * G), asymmetric K/V head dims allowed. The CPU path and the
+kernels' comparisons on the card use them; nothing on the main path calls
+them when a card is present.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.3819763e38
+
+
+def decode_attention_ref(
+    q: torch.Tensor,          # (B, H, Dk)
+    k: torch.Tensor,          # (B, L, KV, Dk)
+    v: torch.Tensor,          # (B, L, KV, Dv)
+    valid_len: torch.Tensor,  # (B,) int32 — attends to kpos < valid_len
+    scale: float,
+) -> torch.Tensor:            # (B, H, Dv)
+    b, h, dk = q.shape
+    l, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, dk)
+    scores = torch.einsum("bkgd,blkd->bkgl", qg.float(), k.float()) * scale
+    kpos = torch.arange(l, device=q.device)
+    mask = (kpos[None, :] < valid_len[:, None])[:, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bkgl,blkd->bkgd", probs, v.float())
+    return ctx.reshape(b, h, v.shape[-1]).to(q.dtype)
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,             # (B, H, Dk)
+    k_pages: torch.Tensor,       # (P, bs, KV, Dk)
+    v_pages: torch.Tensor,       # (P, bs, KV, Dv)
+    block_tables: torch.Tensor,  # (B, nb)
+    valid_len: torch.Tensor,     # (B,)
+    scale: float,
+) -> torch.Tensor:
+    """Gather the pages each request's table names into a contiguous view,
+    then defer to the dense version — paging must be pure layout."""
+    b = q.shape[0]
+    bs, kv = k_pages.shape[1], k_pages.shape[2]
+    nb = block_tables.shape[1]
+    idx = block_tables.long()
+    k = k_pages[idx].reshape(b, nb * bs, kv, k_pages.shape[-1])
+    v = v_pages[idx].reshape(b, nb * bs, kv, v_pages.shape[-1])
+    return decode_attention_ref(q, k, v, valid_len, scale)

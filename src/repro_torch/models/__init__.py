@@ -1,0 +1,37 @@
+"""Model zoo of the port: config schema, layers, attention, assembly
+(``attn``-only stacks so far)."""
+from repro_torch.models.config import (
+    ModelConfig,
+    StageSpec,
+    kv_cache_bytes_per_token,
+    recurrent_state_bytes,
+)
+from repro_torch.models.model import (
+    cache_from_numpy,
+    decode_step,
+    decode_step_paged,
+    init_cache,
+    init_paged_cache,
+    init_params,
+    logits,
+    paged_layout,
+    params_from_numpy,
+    prefill,
+)
+
+__all__ = [
+    "ModelConfig",
+    "StageSpec",
+    "kv_cache_bytes_per_token",
+    "recurrent_state_bytes",
+    "cache_from_numpy",
+    "decode_step",
+    "decode_step_paged",
+    "init_cache",
+    "init_paged_cache",
+    "init_params",
+    "logits",
+    "paged_layout",
+    "params_from_numpy",
+    "prefill",
+]

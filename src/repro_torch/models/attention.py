@@ -1,0 +1,239 @@
+"""GQA/MQA self-attention: prefill, dense decode and paged decode.
+
+Counterpart of ``repro.models.attention`` (self-attention only; cross-
+attention and suffix prefill are not ported yet). Same cache convention: a
+cache is ``{"k": (B, L_max, n_kv, hd), "v": ...}`` plus external per-example
+``lengths: (B,)`` giving the tokens already cached; decode writes the new
+token at ``lengths`` and attends over ``lengths + 1`` entries.
+
+Unlike the JAX functions, the decode paths write the new token into the
+cache IN PLACE and return the same cache dict.
+
+Decode attention goes through the kernel wrappers of
+``repro_torch.kernels.decode_attn`` with ``valid_len = lengths + 1``: the
+model attends ``kpos <= lengths``, the kernels ``kpos < valid_len``. The
+kernels have neither a logit softcap nor a sliding window, so decode raises
+for a config that needs either.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.decode_attn import (
+    decode_attention,
+    decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+)
+from repro_torch.models.layers import (
+    apply_rope,
+    normal_init,
+    rope_tables,
+    rotate,
+    softcap_logits,
+)
+
+NEG_INF = -2.3819763e38  # large negative, safe in bf16/fp32
+
+
+def init_attention(generator, cfg, dtype, device, lead=()) -> Dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = 1.0 / np.sqrt(d)
+    so = 1.0 / np.sqrt(h * hd)
+    return {
+        "wq": normal_init(lead + (d, h, hd), generator, s, dtype, device),
+        "wk": normal_init(lead + (d, kv, hd), generator, s, dtype, device),
+        "wv": normal_init(lead + (d, kv, hd), generator, s, dtype, device),
+        "wo": normal_init(lead + (h, hd, d), generator, so, dtype, device),
+    }
+
+
+def _attn_scale(cfg) -> float:
+    return cfg.attn_scale if cfg.attn_scale else 1.0 / np.sqrt(cfg.head_dim)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out_project(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    h, k, d = wo.shape
+    return ctx.flatten(-2) @ wo.reshape(h * k, d)
+
+
+def attention_prefill(q, k, v, *, scale: float, window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
+    """Causal grouped attention for prefill, in plain PyTorch: the
+    counterpart of ``repro.models.flash.attention_prefill_auto`` (its naive
+    branch; the blocked custom-VJP branch computes the same function).
+    q (B,S,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv) -> (B,S,H,Dv)."""
+    b, s, h, dk = q.shape
+    l, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, dk)
+    sc = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * scale
+    sc = softcap_logits(sc, softcap)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(l, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    ctx = torch.einsum("bkgsl,blkd->bskgd", p.to(v.dtype), v)
+    return ctx.reshape(b, s, h, v.shape[-1])
+
+
+def self_attention_prefill(
+    params: Dict,
+    x: torch.Tensor,                 # (B, S, d)
+    cfg,
+    *,
+    is_global: bool,
+    cache: Optional[Dict] = None,    # written at [0:S] in place when given
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
+    v = _project(x, params["wv"])
+    window = 0 if is_global else cfg.sliding_window
+    ctx = attention_prefill(q, k, v, scale=_attn_scale(cfg), window=window,
+                            softcap=cfg.attn_softcap).to(x.dtype)
+    out = _out_project(ctx, params["wo"])
+    if cache is not None:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+    return out, cache
+
+
+@dataclasses.dataclass
+class DecodeIndex:
+    """What every layer of one decode step shares, computed once per step:
+    the new token's rope tables, the kernels' ``valid_len`` and where the
+    token's K/V row is written. Dense: slot row and position, with ``keep``
+    False where the length already fills the row (nothing is written there,
+    as the reference's mask-select writes nothing). Paged: physical page and
+    offset through the block table, inactive slots routed to the null page
+    0 (their stale table rows may name pages since given to another
+    request)."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    valid_len: torch.Tensor            # (B,) int32 = lengths + 1
+    rows: torch.Tensor                 # (B,) slot row | physical page
+    pos: torch.Tensor                  # (B,) position in the row | page offset
+    keep: Optional[torch.Tensor]       # (B, 1, 1) dense only
+
+
+def decode_index(lengths: torch.Tensor, cfg, *, max_len: int = 0,
+                 block_tables: Optional[torch.Tensor] = None,
+                 active: Optional[torch.Tensor] = None,
+                 block_size: int = 0) -> DecodeIndex:
+    """The ``DecodeIndex`` of a dense (``max_len``) or a paged
+    (``block_tables``, ``active``, ``block_size``) decode step."""
+    cos, sin = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+    ln = lengths.long()
+    if block_tables is None:
+        rows = torch.arange(ln.shape[0], device=ln.device)
+        pos = ln.clamp(max=max_len - 1)
+        keep = (ln < max_len)[:, None, None]
+    else:
+        nb = block_tables.shape[1]
+        blk = (ln // block_size).clamp(0, nb - 1)
+        phys = block_tables.long().gather(1, blk[:, None])[:, 0]
+        rows = torch.where(active, phys, torch.zeros_like(phys))
+        pos = ln % block_size
+        keep = None
+    return DecodeIndex(cos, sin, (lengths + 1).to(torch.int32), rows, pos, keep)
+
+
+def _write_token(buf: torch.Tensor, new: torch.Tensor, index: DecodeIndex) -> None:
+    """Write the new token's row (B,1,...) into ``buf`` IN PLACE: one
+    indexed write where the JAX version rebuilds the buffer (a mask-select
+    for the dense cache, a scatter for the pages)."""
+    val = new[:, 0].to(buf.dtype)
+    if index.keep is not None:
+        val = torch.where(index.keep, val, buf[index.rows, index.pos])
+    buf[index.rows, index.pos] = val
+
+
+def _decode_qkv(params, x, index: DecodeIndex):
+    """Shared decode-step projections: rope'd q and new-token k/v rows."""
+    q = rotate(_project(x, params["wq"]), index.cos, index.sin)
+    k_new = rotate(_project(x, params["wk"]), index.cos, index.sin)
+    v_new = _project(x, params["wv"])
+    return q, k_new, v_new
+
+
+def _check_kernel_features(cfg, is_global: bool) -> None:
+    if cfg.attn_softcap > 0:
+        raise NotImplementedError(
+            "decode attention kernel has no logit softcap (attn_softcap="
+            f"{cfg.attn_softcap}); needed for {cfg.name}")
+    if not is_global and cfg.sliding_window > 0:
+        raise NotImplementedError(
+            "decode attention kernel has no sliding window (sliding_window="
+            f"{cfg.sliding_window}); needed for {cfg.name}")
+
+
+def self_attention_decode(
+    params: Dict,
+    x: torch.Tensor,                 # (B, 1, d)
+    cache: Dict,
+    lengths: torch.Tensor,           # (B,) valid tokens already in cache
+    cfg,
+    *,
+    is_global: bool,
+    plain: bool = False,
+    index: Optional[DecodeIndex] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Dense decode: write the new token at ``lengths``, then attend with
+    the ``decode_attention`` kernel (``plain=True``: its plain version).
+    ``index`` is the step's ``decode_index``, built here when not given."""
+    _check_kernel_features(cfg, is_global)
+    if index is None:
+        index = decode_index(lengths, cfg, max_len=cache["k"].shape[1])
+    q, k_new, v_new = _decode_qkv(params, x, index)
+    _write_token(cache["k"], k_new, index)
+    _write_token(cache["v"], v_new, index)
+    fn = decode_attention_ref if plain else decode_attention
+    ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], index.valid_len,
+             scale=_attn_scale(cfg))
+    return _out_project(ctx[:, None].to(x.dtype), params["wo"]), cache
+
+
+def self_attention_decode_paged(
+    params: Dict,
+    x: torch.Tensor,                 # (B, 1, d)
+    cache: Dict,                     # {"k": (P, bs, KV, hd), "v": ...} pages
+    block_tables: torch.Tensor,      # (B, nb) int32
+    lengths: torch.Tensor,           # (B,)
+    active: torch.Tensor,            # (B,) bool
+    cfg,
+    *,
+    is_global: bool,
+    plain: bool = False,
+    index: Optional[DecodeIndex] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Decode over the PAGED cache: write the new token through the block
+    table, then hand the pages and the table to the paged kernel, which
+    reads exactly the pages the table names (no gather to a contiguous
+    view first)."""
+    _check_kernel_features(cfg, is_global)
+    if index is None:
+        index = decode_index(lengths, cfg, block_tables=block_tables, active=active,
+                             block_size=cache["k"].shape[1])
+    q, k_new, v_new = _decode_qkv(params, x, index)
+    _write_token(cache["k"], k_new, index)
+    _write_token(cache["v"], v_new, index)
+    fn = paged_decode_attention_ref if plain else paged_decode_attention
+    ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], block_tables,
+             index.valid_len, scale=_attn_scale(cfg))
+    return _out_project(ctx[:, None].to(x.dtype), params["wo"]), cache

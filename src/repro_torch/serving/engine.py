@@ -1,0 +1,132 @@
+"""Serving engine: the single-pool facade over the phase-pool machinery.
+
+Counterpart of ``repro.serving.engine``. Phase-aware by construction: every
+prefill and every decode step is accounted separately in ``PhaseStats`` —
+wall time, token counts and (when a ``ClockController`` is attached) joules
+at the pool's current operating point. One pool runs both phases (the
+colocated deployment the paper measures). The public API is the
+reference's: ``submit`` / ``step`` / ``run_to_completion`` / ``stats``.
+``from_spec`` is not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, Callable, Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.controller import ClockController
+from repro_torch.serving.pool import (
+    EOS,
+    PhaseStats,
+    Pool,
+    Request,
+    head_validator,
+    observe_latencies,
+    popleft,
+    requeue_front,
+)
+
+__all__ = ["EOS", "PhaseStats", "Request", "ServingEngine"]
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Any,
+        *,
+        max_batch: int = 8,
+        max_seq_len: int = 4096,
+        rng_seed: int = 0,
+        clock: Callable[[], float] = time.perf_counter,
+        controller: Optional[ClockController] = None,
+        paged: bool = False,
+        kv_block_size: int = 16,
+        kv_blocks: Optional[int] = None,
+        prefix_sharing: bool = False,
+        device="cuda",
+    ):
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq_len = max_seq_len
+        self.clock = clock
+        # "mixed": one pool runs both phases at one lever — the colocated
+        # baseline. A controller prices prefill/decode tokens separately.
+        self.pool = Pool(
+            cfg, params, role="mixed", max_batch=max_batch,
+            max_seq_len=max_seq_len, rng_seed=rng_seed, clock=clock,
+            paged=paged, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+            prefix_sharing=prefix_sharing, device=device,
+        )
+        self.controller = controller
+        self.waiting: Deque[Request] = deque()
+        self._uid = 0
+        self._step_no = 0
+
+    # ------------------------------------------------------------------ api
+    @property
+    def stats(self) -> PhaseStats:
+        return self.pool.stats
+
+    @property
+    def slot_req(self) -> List[Optional[Request]]:
+        return self.pool.slot_req
+
+    def submit(
+        self,
+        prompt: np.ndarray,
+        max_new_tokens: int = 32,
+        *,
+        temperature: float = 0.0,
+        eos_token_id: Optional[int] = None,
+    ) -> Request:
+        req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32),
+                      max_new_tokens=max_new_tokens,
+                      temperature=temperature, eos_token_id=eos_token_id)
+        req.ledger.mark_arrival(self.clock())
+        self._uid += 1
+        self.waiting.append(req)
+        return req
+
+    def _admit(self) -> List[Request]:
+        if not self.waiting:
+            return []
+        validated_head = head_validator(self.waiting, self.pool)
+        validated_head()    # fail fast even when admission is impossible
+        admitted: List[Request] = []
+        while self.waiting and self.pool.can_admit(self.waiting[0]):
+            req = validated_head()
+            popleft(self.waiting)
+            first, cache1 = self.pool.prefill_request(req)
+            self.pool.place(req, cache1, first, len(req.prompt))
+            admitted.append(req)
+        return admitted
+
+    @torch.inference_mode()
+    def step(self) -> List[Request]:
+        """Admit waiting requests, run one decode step, return finished ones."""
+        self._step_no += 1
+        if self.controller is not None:
+            self.controller.tick({"mixed": self.pool}, self._step_no)
+        admitted = self._admit()
+        if self.controller is not None and admitted:
+            # re-resolve at the true post-admission occupancy
+            self.controller.tick({"mixed": self.pool}, self._step_no)
+        finished = self.pool.decode_once()
+        if self.controller is not None:
+            observe_latencies(self.controller, self.pool, admitted, finished)
+        requeue_front(self.waiting, self.pool.take_evicted())
+        return finished
+
+    def run_to_completion(self, max_steps: int = 100000) -> List[Request]:
+        done: List[Request] = []
+        steps = 0
+        while (self.waiting or self.pool.occupancy() > 0) and steps < max_steps:
+            done.extend(self.step())
+            steps += 1
+        return done

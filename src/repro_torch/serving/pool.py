@@ -1,0 +1,822 @@
+"""Phase pool: the slot/cache machinery one serving phase runs on.
+
+Counterpart of ``repro.serving.pool`` in PyTorch. A ``Pool`` owns the slot
+pool, the KV cache on the device and the model calls, plus the energy side:
+``PhaseStats`` with per-phase joules and the configured-vs-actual clock of
+the lever applied to the pool, a power gauge + ``PowerSampler`` metering
+the pool's current operating point, and the ``OperatingPoint`` a
+``ClockController`` writes.
+
+Two cache layouts, as in the reference:
+
+* **dense** — one ``(B, max_len, ...)`` row per slot, preallocated.
+* **paged** (``paged=True``) — K/V live in fixed-size token blocks
+  (``BlockAllocator``) shared by all slots through per-slot block tables;
+  admission is block-bound, growth allocates a block at a time, exhaustion
+  preempts the youngest slot (recompute-style eviction). Every block a
+  decode step touches is metered in the pool's ``TrafficCounter``.
+
+Prefill runs batch-1 with the prompt padded to a power-of-2 bucket into a
+``(1, max_seq_len)`` cache row, and ``place`` moves that row into a slot: a
+slot copy for the dense cache, a page scatter for the paged one. Decode
+runs one step over ALL slots (per-slot lengths, active mask); the
+attention inside it is the hand-written CUDA kernel on a card.
+
+Differences from the reference: caches are updated in place; there is no
+program cache (PyTorch runs eagerly); greedy sampling is ``argmax`` (first
+maximum, as ``jnp.argmax``), and a temperature above 0 samples from the
+pool's own ``torch.Generator``, which gives other bits than
+``jax.random``. Prefix sharing / copy-on-write, the replica ``CacheBank``,
+``place_many`` and the ``Request`` free list are not ported yet
+(``prefix_sharing=True`` raises).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.clock import VirtualClock
+from repro_torch.core.dvfs import OperatingPoint
+from repro_torch.core.energy import joules_from_hbm_traffic
+from repro_torch.core.latency import LatencyLedger
+from repro_torch.core.metering import GaugeSource, PowerSampler
+from repro_torch.core.workload import weight_stream_bytes
+from repro_torch.device import resolve_device
+from repro_torch.models import (
+    decode_step,
+    decode_step_paged,
+    init_cache,
+    init_paged_cache,
+    kv_cache_bytes_per_token,
+    paged_layout,
+    prefill,
+    recurrent_state_bytes,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
+
+# Back-compat default: seed code stopped on token id 0. The real stop id now
+# comes from ``ModelConfig.eos_token_id`` (per-request override on Request).
+EOS = 0
+
+
+def _leaves(cache, layout):
+    """(stage-block dict, key, is_paged) for every cache leaf."""
+    for sc, sl in zip(cache["stages"], layout["stages"]):
+        for name, blk in sc.items():
+            for key in blk:
+                yield blk, key, sl[name][key]
+
+
+# -------------------------------------------------------- queue primitives
+def popleft(waiting) -> "Request":
+    """Pop the queue head from a deque (O(1)) or a list (legacy O(n)) —
+    the one admission-queue pop used by scheduler/engine/validator code so
+    deque-backed queues and user-supplied lists both work."""
+    if isinstance(waiting, deque):
+        return waiting.popleft()
+    return waiting.pop(0)
+
+
+def requeue_front(waiting, evicted: Sequence["Request"]) -> None:
+    """Put preempted requests back at the queue head (oldest first), on a
+    deque or a list alike."""
+    if not evicted:
+        return
+    if isinstance(waiting, deque):
+        waiting.extendleft(reversed(evicted))
+    else:
+        waiting[:0] = evicted
+
+
+@dataclasses.dataclass(slots=True)
+class Request:
+    uid: int
+    prompt: np.ndarray                     # (L,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    eos_token_id: Optional[int] = None     # None -> the pool's ModelConfig id
+    bucket: str = "mixed"                  # trace length-bucket tag (routing)
+    replica: Optional[str] = None          # fleet replica that served it
+    # filled by the pool/scheduler
+    output: List[int] = dataclasses.field(default_factory=list)
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    prefill_j: float = 0.0                 # modelled joules at the pool's op
+    decode_j: float = 0.0
+    decode_read_bytes: int = 0             # paged pools: measured HBM traffic
+    decode_write_bytes: int = 0
+    preemptions: int = 0                   # times evicted + restarted
+    prefix_tokens: int = 0                 # prompt positions served from shared pages
+    saved_prefill_j: float = 0.0           # prefill joules sharing avoided (side-channel:
+                                           # NOT part of energy_j — conservation holds)
+    done: bool = False
+    # event ledger (arrival/admitted/first-token/finish + per-token stamps),
+    # stamped by the pool on the serving clock — wall or virtual alike
+    ledger: LatencyLedger = dataclasses.field(default_factory=LatencyLedger)
+
+    @property
+    def energy_j(self) -> float:
+        return self.prefill_j + self.decode_j
+
+    @property
+    def decode_bytes(self) -> int:
+        return self.decode_read_bytes + self.decode_write_bytes
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        return self.ledger.ttft_s
+
+    @property
+    def tbt_s(self) -> List[float]:
+        return self.ledger.tbt_s
+
+    @property
+    def e2e_s(self) -> Optional[float]:
+        return self.ledger.e2e_s
+
+
+@dataclasses.dataclass
+class PhaseStats:
+    prefill_tokens: int = 0
+    prefill_s: float = 0.0
+    prefill_calls: int = 0
+    decode_tokens: int = 0
+    decode_s: float = 0.0
+    decode_steps: int = 0
+    # energy attribution at the pool's operating point (0 when unmetered)
+    prefill_j: float = 0.0
+    decode_j: float = 0.0
+    # block-level HBM traffic behind decode_j (0 on dense/unmetered pools)
+    decode_read_bytes: int = 0
+    decode_write_bytes: int = 0
+    # lever state last applied to the pool that produced these stats
+    configured_clock_mhz: float = 0.0
+    actual_clock_mhz: float = 0.0
+    lever_engaged: bool = False
+
+    def merge_prefill(self, tokens: int, secs: float, joules: float = 0.0):
+        self.prefill_tokens += tokens
+        self.prefill_s += secs
+        self.prefill_calls += 1
+        self.prefill_j += joules
+
+    def merge_decode(self, tokens: int, secs: float, joules: float = 0.0,
+                     read_bytes: int = 0, write_bytes: int = 0):
+        self.decode_tokens += tokens
+        self.decode_s += secs
+        self.decode_steps += 1
+        self.decode_j += joules
+        self.decode_read_bytes += read_bytes
+        self.decode_write_bytes += write_bytes
+
+    def note_operating_point(self, op: OperatingPoint):
+        self.actual_clock_mhz = float(op.actual_clock_mhz)
+        # OperatingPoint.clock_gap_mhz owns the "configured is only MHz for
+        # locks" rule; don't reimplement it here
+        self.configured_clock_mhz = self.actual_clock_mhz + op.clock_gap_mhz
+        self.lever_engaged = bool(op.engaged)
+
+    @property
+    def clock_gap_mhz(self) -> float:
+        """Configured-vs-actual lock gap (the §5.2 'double disguise')."""
+        return self.configured_clock_mhz - self.actual_clock_mhz
+
+    @property
+    def energy_j(self) -> float:
+        return self.prefill_j + self.decode_j
+
+    @property
+    def decode_bytes(self) -> int:
+        return self.decode_read_bytes + self.decode_write_bytes
+
+    def merged_with(self, other: "PhaseStats") -> "PhaseStats":
+        """Fieldwise token/time/energy sum; clock fields keep ``self``'s."""
+        return PhaseStats(
+            prefill_tokens=self.prefill_tokens + other.prefill_tokens,
+            prefill_s=self.prefill_s + other.prefill_s,
+            prefill_calls=self.prefill_calls + other.prefill_calls,
+            decode_tokens=self.decode_tokens + other.decode_tokens,
+            decode_s=self.decode_s + other.decode_s,
+            decode_steps=self.decode_steps + other.decode_steps,
+            prefill_j=self.prefill_j + other.prefill_j,
+            decode_j=self.decode_j + other.decode_j,
+            decode_read_bytes=self.decode_read_bytes + other.decode_read_bytes,
+            decode_write_bytes=self.decode_write_bytes + other.decode_write_bytes,
+            configured_clock_mhz=self.configured_clock_mhz,
+            actual_clock_mhz=self.actual_clock_mhz,
+            lever_engaged=self.lever_engaged,
+        )
+
+
+def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(2 ** np.ceil(np.log2(n)))
+
+
+def head_validator(waiting: List[Request], pool: "Pool") -> Callable[[], Request]:
+    """The single admission-validation path, shared by ``Scheduler.tick``
+    and ``ServingEngine._admit``: returns a closure that validates the
+    current queue head exactly once, dropping a poison request (one that
+    could never be served, so admission gates would stay closed forever and
+    livelock the queue) before the error surfaces."""
+    validated: Optional[Request] = None
+
+    def validated_head() -> Request:
+        nonlocal validated
+        req = waiting[0]
+        if req is not validated:
+            try:
+                pool.validate(req)
+            except ValueError:
+                popleft(waiting)
+                raise
+            validated = req
+        return req
+
+    return validated_head
+
+
+def observe_latencies(controller, pool: "Pool", admitted: List[Request],
+                      finished: List[Request]) -> None:
+    """Feed one step's measured latencies back to the controller — the slo
+    mode's closed loop, shared by ``Cluster.step`` and
+    ``ServingEngine.step``: TTFT of everything admitted this tick, plus the
+    inter-token gap every request (still live or just finished) saw from
+    this decode step."""
+    live = [r for r in pool.slot_req if r is not None]
+    controller.observe(
+        ttft_s=[r.ledger.ttft_s for r in admitted
+                if r.ledger.ttft_s is not None],
+        tbt_s=[t for r in live + finished
+               if (t := r.ledger.last_tbt_s) is not None],
+    )
+
+
+class Pool:
+    """Slot pool + model calls + phase/energy accounting for one phase."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Any,
+        *,
+        role: str = "decode",              # "prefill" | "decode" | "mixed"
+        max_batch: int = 8,
+        max_seq_len: int = 4096,
+        rng_seed: int = 0,
+        clock: Callable[[], float] = time.perf_counter,
+        meter_interval_s: float = 0.050,
+        paged: bool = False,
+        kv_block_size: int = 16,
+        kv_blocks: Optional[int] = None,   # default: dense-equivalent budget
+        prefix_sharing: bool = False,
+        device="cuda",
+    ):
+        if prefix_sharing:
+            raise NotImplementedError("prefix sharing is not ported yet")
+        self.cfg = cfg
+        self.params = params
+        self.device = resolve_device(device)
+        self.role = role
+        self.max_batch = max_batch
+        self.max_seq_len = max_seq_len
+        self.clock = clock
+        # virtual mode: the clock only moves when this pool advances it by
+        # the modelled duration of each phase call (needs an operating
+        # point, i.e. a ClockController); metering goes synchronous.
+        self.virtual = isinstance(clock, VirtualClock)
+        self.stats = PhaseStats()
+        self.eos_token_id = cfg.eos_token_id
+
+        # energy side: operating point is written by a ClockController; the
+        # gauge feeds this pool's sampler so the metering stack sees the
+        # modelled power of whatever point the pool currently runs at, or
+        # the idle floor while the pool has no work.
+        self.op: Optional[OperatingPoint] = None
+        self.prefill_op: Optional[OperatingPoint] = None
+        self.idle_power_w: float = 0.0
+        self.hbm_bw_eff: float = 0.0       # set by the controller; enables
+                                           # traffic-derived decode joules
+        self.gauge = GaugeSource(0.0)
+        self.sampler = PowerSampler(
+            self.gauge, interval_s=meter_interval_s, clock=clock,
+            synchronous=self.virtual,
+        )
+        self._in_phase_call = False
+        self._metering_active = False
+        self._measured_j_total = 0.0
+
+        # the decode cache allocates lazily on first placement, so a
+        # prefill-role pool never holds an unused stacked KV cache
+        self.cache = None
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self.peak_occupancy = 0
+        # sampling draws (temperature > 0) come from this generator only
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(rng_seed)
+
+        # paged-cache side: allocator + per-slot block tables (host side;
+        # the stacked (B, nb) table goes to the device once per step)
+        self.paged = paged
+        self.kv_block_size = kv_block_size
+        self.allocator: Optional[BlockAllocator] = None
+        self.traffic = TrafficCounter()
+        self.evicted: List[Request] = []
+        self._layout = paged_layout(cfg)
+        if paged:
+            if max_seq_len % kv_block_size:
+                raise ValueError(
+                    f"max_seq_len {max_seq_len} not a multiple of "
+                    f"kv_block_size {kv_block_size}"
+                )
+            n_blocks = kv_blocks if kv_blocks is not None else (
+                max_batch * max_seq_len // kv_block_size
+            )
+            self.allocator = BlockAllocator(n_blocks, kv_block_size)
+            nb_per_slot = max_seq_len // kv_block_size
+            self.block_tables = np.zeros((max_batch, nb_per_slot), np.int32)
+            # byte-accuracy constants (per token / per request / per step)
+            self._kv_token_bytes = kv_cache_bytes_per_token(cfg)
+            self._state_read_bytes = recurrent_state_bytes(cfg)
+            self._state_write_bytes = recurrent_state_bytes(cfg, mutable_only=True)
+            self._weight_bytes = weight_stream_bytes(cfg)
+        self._host_lengths = np.zeros(max_batch, np.int64)
+        self._admit_seq = np.zeros(max_batch, np.int64)
+        self._admit_counter = 0
+        # per-slot sampling temperature (0 = greedy), set at placement so a
+        # mixed batch decodes each slot at its own Request.temperature
+        self._slot_temp = np.zeros(max_batch, np.float32)
+        # host mirror of the current-token vector: placements write here and
+        # ``_decode_begin`` ships the mirrors to the device once per step
+        self._host_cur_token = np.zeros(max_batch, np.int32)
+
+    # ------------------------------------------------------------- internals
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _sample(self, logits: torch.Tensor, temperature: np.ndarray) -> torch.Tensor:
+        """Per-slot sampling: ``temperature`` is a (B,) host vector; slots at
+        0 take the argmax, the rest draw Gumbel-max at their own temperature
+        from ``self.generator``. The all-greedy batch skips the draw."""
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        if not (temperature > 0.0).any():
+            return greedy
+        t = self._tensor(np.maximum(temperature, 1e-6))[:, None]
+        u = torch.rand(logits.shape, generator=self.generator, device=self.device)
+        gumbel = -torch.log(-torch.log(u + 1e-9) + 1e-9)
+        s = torch.argmax(logits / t + gumbel, dim=-1).to(torch.int32)
+        return torch.where(self._tensor(temperature > 0.0), s, greedy)
+
+    # ------------------------------------------------------- energy plumbing
+    def set_operating_point(self, op: OperatingPoint, prefill_op: Optional[OperatingPoint] = None):
+        """Apply a controller-resolved point; ``prefill_op`` prices prefill
+        tokens separately when one pool runs both phases (colocated engine)."""
+        self.op = op
+        self.prefill_op = prefill_op if prefill_op is not None else op
+        self.stats.note_operating_point(op)
+        self._refresh_gauge()
+
+    def _refresh_gauge(self):
+        # inside a prefill call the device burns prefill power; between
+        # ticks a pool holding live slots burns its decode-point power;
+        # an empty pool sits at the idle floor
+        if self._in_phase_call and self.prefill_op is not None:
+            watts = self.prefill_op.power_w
+        elif self.op is not None and self.occupancy() > 0:
+            watts = self.op.power_w
+        else:
+            watts = self.idle_power_w
+        if (self.sampler.synchronous and self._metering_active
+                and watts != self.gauge()):
+            # bracket the step change so the trapezoid integrates the
+            # piecewise-constant power signal exactly: close the old level
+            # at (now, w_old), open the new one at (now, w_new)
+            self.sampler.sample_once()
+            self.gauge.set(watts)
+            self.sampler.sample_once()
+        else:
+            self.gauge.set(watts)
+
+    def set_idle_power(self, watts: float):
+        """Set the no-work power floor this pool idles at and refresh the
+        gauge (bracketed with samples under synchronous metering)."""
+        self.idle_power_w = float(watts)
+        self._refresh_gauge()
+
+    def sample_now(self):
+        """Synchronous-metering hook: record a sample at the current clock
+        (callers advance the shared VirtualClock, then sample each pool)."""
+        if self.sampler.synchronous and self._metering_active:
+            self.sampler.advance()
+
+    def advance_time(self, dt_s: float):
+        """Advance this pool's (virtual) clock by a modelled duration and
+        take a synchronous power sample, so energy integrates over virtual
+        time without threads. No-op on a wall clock."""
+        if not self.virtual or dt_s <= 0:
+            return
+        self.clock.advance(dt_s)
+        self.sample_now()
+
+    @property
+    def current_power_w(self) -> float:
+        return self.gauge()
+
+    def _mj_per_token(self, phase: str = "decode") -> float:
+        op = self.prefill_op if phase == "prefill" else self.op
+        return op.energy_per_token_mj if op is not None else 0.0
+
+    def start_metering(self):
+        if self._metering_active:
+            return
+        self._metering_active = True
+        self.sampler.start()                 # resets the trace for this window
+
+    def stop_metering(self) -> float:
+        """Stop the sampler; bank the window's joules; return the total."""
+        if self._metering_active:
+            self._metering_active = False
+            self.sampler.stop()
+            self._measured_j_total += self.sampler.trace.integrate_trapezoid()
+        return self._measured_j_total
+
+    def measured_energy_j(self) -> float:
+        """Joules across ALL metering windows (plus the live one, if any)."""
+        live = self.sampler.trace.integrate_trapezoid() if self._metering_active else 0.0
+        return self._measured_j_total + live
+
+    # ------------------------------------------------------------- occupancy
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def has_free_slot(self) -> bool:
+        return any(r is None for r in self.slot_req)
+
+    def can_admit(self, req: Request) -> bool:
+        """Admission test: a slot AND (paged) blocks for prompt + first
+        token. Growth past that is served by alloc-or-preempt, so this is
+        the continuous-batching gate: admit whenever blocks are free."""
+        if not self.has_free_slot():
+            return False
+        if not self.paged:
+            return True
+        return self.allocator.can_alloc(
+            self.allocator.blocks_for_tokens(len(req.prompt) + 1))
+
+    def occupancy(self) -> int:
+        return sum(r is not None for r in self.slot_req)
+
+    def mean_context(self) -> float:
+        mask = self.active_mask()
+        if not mask.any():
+            return 0.0
+        return float(self._host_lengths[mask].mean())
+
+    def _ensure_decode_state(self):
+        if self.cache is None:
+            if self.paged:
+                self.cache = init_paged_cache(
+                    self.cfg, self.max_batch,
+                    self.allocator.num_blocks + 1,   # + the null page
+                    self.kv_block_size, device=self.device,
+                )
+            else:
+                self.cache = init_cache(self.cfg, self.max_batch, self.max_seq_len,
+                                        device=self.device)
+
+    def active_mask(self) -> np.ndarray:
+        return np.array([r is not None for r in self.slot_req])
+
+    def validate(self, req: Request):
+        l = len(req.prompt)
+        if l + req.max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"request {req.uid}: prompt {l} + max_new {req.max_new_tokens} "
+                f"exceeds engine max_seq_len {self.max_seq_len}"
+            )
+        if self.paged:
+            need = self.allocator.blocks_for_tokens(l + req.max_new_tokens)
+            if need > self.allocator.num_blocks:
+                raise ValueError(
+                    f"request {req.uid}: needs {need} cache blocks, pool has "
+                    f"{self.allocator.num_blocks} — unservable even alone"
+                )
+
+    # ------------------------------------------------------- paged plumbing
+    def _slot_blocks(self, slot: int) -> List[int]:
+        row = self.block_tables[slot]
+        return [int(b) for b in row[row != NULL_PAGE]]
+
+    def _evict(self, slot: int):
+        """Preempt-by-eviction (recompute style): free the slot's blocks,
+        reset the request, park it on ``self.evicted`` for the scheduler to
+        requeue. Greedy decoding makes the recompute token-identical."""
+        req = self.slot_req[slot]
+        self.allocator.free(self._slot_blocks(slot), owner=req.uid)
+        self.block_tables[slot] = NULL_PAGE
+        self.slot_req[slot] = None
+        self._host_lengths[slot] = 0
+        self._slot_temp[slot] = 0.0
+        req.output = []
+        req.ledger.reset_service()   # TTFT will span the recompute, too
+        req.preemptions += 1
+        self.evicted.append(req)
+        self._refresh_gauge()
+
+    def take_evicted(self) -> List[Request]:
+        out, self.evicted = self.evicted, []
+        return out
+
+    def _youngest_active_slot(self) -> Optional[int]:
+        live = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not live:
+            return None
+        return max(live, key=lambda i: self._admit_seq[i])
+
+    def _grow_tables(self):
+        """Allocate the next block for every slot whose write position has
+        crossed a block boundary; preempt the youngest slot on exhaustion.
+        Oldest-admitted slots grow first, so under contention the pool
+        drains FIFO-ish instead of livelocking."""
+        order = sorted(
+            (i for i, r in enumerate(self.slot_req) if r is not None),
+            key=lambda i: self._admit_seq[i],
+        )
+        bs = self.kv_block_size
+        for slot in order:
+            if self.slot_req[slot] is None:      # evicted by an older slot
+                continue
+            ln = int(self._host_lengths[slot])
+            if ln % bs != 0:
+                continue
+            want = ln // bs
+            if want < len(self._slot_blocks(slot)):
+                continue
+            while True:
+                blk = self.allocator.alloc_one(owner=self.slot_req[slot].uid)
+                if blk is not None:
+                    self.block_tables[slot, want] = blk
+                    break
+                victim = self._youngest_active_slot()
+                self._evict(victim)
+                if victim == slot:
+                    break                         # evicted ourselves; requeued
+
+    # ------------------------------------------------------------ phase work
+    def prefill_tokens(self, req: Request) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The (tokens, true_len, bucket) triple of ``req``'s padded
+        batch-1 prefill."""
+        l = len(req.prompt)
+        bucket = min(_bucket(l), self.max_seq_len)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :l] = req.prompt
+        return toks, np.asarray([l], np.int32), bucket
+
+    @torch.inference_mode()
+    def prefill_request(self, req: Request) -> Tuple[int, Any]:
+        """Run the bucketed batch-1 prefill; returns (first_token, cache row).
+
+        The returned cache row is placed with ``place``."""
+        l = len(req.prompt)
+        self._in_phase_call = True
+        self._refresh_gauge()
+        t0 = self.clock()
+        req.ledger.mark_admitted(t0)
+        try:
+            toks, true_len, _ = self.prefill_tokens(req)
+            cache1 = init_cache(self.cfg, 1, self.max_seq_len, device=self.device)
+            logits, cache1, _ = prefill(self.params, self.cfg, self._tensor(toks),
+                                        cache1, prompt_lengths=self._tensor(true_len))
+            row = logits[0]
+            if req.temperature > 0.0:
+                u = torch.rand(row.shape, generator=self.generator, device=self.device)
+                gumbel = -torch.log(-torch.log(u + 1e-9) + 1e-9)
+                first = int(torch.argmax(row / req.temperature + gumbel))
+            else:
+                first = int(torch.argmax(row))   # waits for the device
+            if self.virtual and self.prefill_op is not None:
+                # modelled prefill duration: the operating point's profile
+                # is per prefill_seq tokens — scale to the prompt
+                prof = self.prefill_op.profile
+                self.advance_time(prof.t_total * l / max(prof.tokens, 1))
+        finally:
+            dt = self.clock() - t0
+            self._in_phase_call = False
+            self._refresh_gauge()
+        joules = self._mj_per_token("prefill") * l / 1e3
+        self.stats.merge_prefill(l, dt, joules)
+        req.prefill_s += dt
+        req.prefill_j += joules
+        return first, cache1
+
+    def _place_bookkeeping(self, req: Request, first_token: int, length: int,
+                           first_token_s: Optional[float]) -> int:
+        """Everything ``place`` does EXCEPT the cache copy: slot choice,
+        host-mirror writes, stamps, gauge."""
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("place() on a full pool — check can_admit() first")
+        self._ensure_decode_state()
+        slot = free[0]
+        self._host_lengths[slot] = length
+        self._host_cur_token[slot] = first_token
+        self._admit_counter += 1
+        self._admit_seq[slot] = self._admit_counter
+        self._slot_temp[slot] = req.temperature
+        req.output.append(first_token)
+        req.ledger.mark_first_token(
+            self.clock() if first_token_s is None else first_token_s)
+        self.slot_req[slot] = req
+        self.peak_occupancy = max(self.peak_occupancy, self.occupancy())
+        self._refresh_gauge()
+        return slot
+
+    @torch.inference_mode()
+    def place(self, req: Request, cache1: Any, first_token: int, length: int,
+              *, first_token_s: Optional[float] = None) -> int:
+        """Move a filled batch-1 cache row into a free slot (migration).
+
+        Dense: the row is copied into the slot. Paged: the request's block
+        table is allocated first and the row's first ``need`` blocks are
+        copied to those pages (copy-on-migrate); the reference also writes
+        the unused blocks to the null page, which holds nothing anyone
+        reads, so they are skipped here."""
+        slot = self._place_bookkeeping(req, first_token, length, first_token_s)
+        if self.paged:
+            bs = self.kv_block_size
+            nb = self.block_tables.shape[1]
+            need = self.allocator.blocks_for_tokens(length + 1)
+            blocks = self.allocator.alloc(need, owner=req.uid)
+            self.block_tables[slot] = NULL_PAGE
+            self.block_tables[slot, :need] = blocks
+            pages = self._tensor(np.asarray(blocks, np.int64))
+            for (big_blk, key, is_paged), (small_blk, _, _) in zip(
+                    _leaves(self.cache, self._layout), _leaves(cache1, self._layout)):
+                small = small_blk[key][:, 0]                   # (n_units, L_max, ...)
+                if is_paged:
+                    rows = small.reshape(small.shape[0], nb, bs, *small.shape[2:])
+                    big_blk[key][:, pages] = rows[:, :need]
+                else:
+                    big_blk[key][:, slot] = small
+            # copy-on-migrate moves the request's blocks of KV into the pool
+            self.traffic.count_writes(
+                need, need * bs * self._kv_token_bytes + self._state_write_bytes,
+            )
+        else:
+            for (big_blk, key, _), (small_blk, _, _) in zip(
+                    _leaves(self.cache, self._layout), _leaves(cache1, self._layout)):
+                big_blk[key][:, slot] = small_blk[key][:, 0]
+        return slot
+
+    def _req_eos(self, req: Request) -> int:
+        return self.eos_token_id if req.eos_token_id is None else req.eos_token_id
+
+    def _decode_begin(self) -> Optional[dict]:
+        """Host-side first half of ``decode_once``: block-table growth,
+        active mask, and the step's device inputs. ``None`` when no slot
+        is live."""
+        if self.paged and any(r is not None for r in self.slot_req):
+            self._grow_tables()
+        active = self.active_mask()
+        if not active.any():
+            return None
+        self._ensure_decode_state()
+        t0 = self.clock()
+        # ship the host mirrors once per step (placements only wrote numpy)
+        pre = {
+            "active": active,
+            "t0": t0,
+            "tokens": self._tensor(self._host_cur_token),
+            "lengths": self._tensor(self._host_lengths.astype(np.int32)),
+            "active_t": self._tensor(active),
+            "temps": self._slot_temp.copy(),
+        }
+        if self.paged:
+            pre["tables"] = self._tensor(self.block_tables)
+        return pre
+
+    @torch.inference_mode()
+    def decode_once(self) -> List[Request]:
+        """One decode step over all slots; returns finished requests.
+
+        Paged pools grow/evict block tables first, then account the step's
+        traffic block-accurately and derive decode joules from it."""
+        pre = self._decode_begin()
+        if pre is None:
+            return []
+        # the host mirror ``_host_lengths`` stays the authority on lengths;
+        # the cache is updated in place
+        if self.paged:
+            logits, _, _ = decode_step_paged(
+                self.params, self.cfg, pre["tokens"], self.cache, pre["lengths"],
+                pre["active_t"], pre["tables"])
+        else:
+            logits, _, _ = decode_step(
+                self.params, self.cfg, pre["tokens"], self.cache, pre["lengths"])
+        return self._decode_finish(pre, self._sample(logits, pre["temps"]))
+
+    def _decode_finish(self, pre: dict, next_tok: torch.Tensor) -> List[Request]:
+        """Second half of ``decode_once``: read the sampled tokens, advance
+        the (virtual) clock by the modelled step duration, and do the
+        per-slot token/energy/EOS accounting."""
+        active = pre["active"]
+        t0 = pre["t0"]
+        finished: List[Request] = []
+        next_np = next_tok.cpu().numpy()         # waits for the device
+        if self.virtual and self.op is not None:
+            # the modelled step duration at the live operating point IS the
+            # virtual-time cost of this decode step
+            self.advance_time(self.op.profile.t_total)
+        dt = self.clock() - t0
+        n_active = int(active.sum())
+        # keep the host mirror in lock-step with the device vector; copy
+        # because placements mutate it in place before the next step
+        self._host_cur_token = np.array(next_np, dtype=np.int32)
+
+        # ---- energy + traffic attribution for this step ------------------
+        mj = self._mj_per_token()
+        per_req_j = {}
+        read_total = write_total = 0
+        if self.paged:
+            bs = self.kv_block_size
+            block_bytes = bs * self._kv_token_bytes
+            blocks_touched = 0
+            power = self.op.power_w if self.op is not None else 0.0
+            for i, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                nb_i = int(self._host_lengths[i]) // bs + 1   # incl. write block
+                read_i = nb_i * block_bytes + self._state_read_bytes \
+                    + self._weight_bytes // n_active           # amortised weights
+                write_i = self._kv_token_bytes + self._state_write_bytes
+                blocks_touched += nb_i
+                read_total += read_i
+                write_total += write_i
+                req.decode_read_bytes += read_i
+                req.decode_write_bytes += write_i
+                if self.hbm_bw_eff > 0 and self.op is not None:
+                    per_req_j[i] = joules_from_hbm_traffic(
+                        power, read_i + write_i, self.hbm_bw_eff
+                    )
+            self.traffic.count_reads(blocks_touched, read_total)
+            self.traffic.count_writes(n_active, write_total)
+            self.traffic.count_step()
+        step_j = sum(per_req_j.values()) if per_req_j else mj * n_active / 1e3
+        self.stats.merge_decode(n_active, dt, step_j, read_total, write_total)
+
+        now = self.clock()
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            self._host_lengths[i] += 1
+            req.decode_s += dt / max(n_active, 1)
+            req.decode_j += per_req_j.get(i, mj / 1e3)
+            tok = int(next_np[i])
+            req.output.append(tok)
+            req.ledger.mark_token(now)
+            if tok == self._req_eos(req) or len(req.output) >= req.max_new_tokens:
+                req.done = True
+                req.ledger.mark_finish(now)
+                finished.append(req)
+                self.slot_req[i] = None
+                self._slot_temp[i] = 0.0
+                if self.paged:
+                    self.allocator.free(self._slot_blocks(i), owner=req.uid)
+                    self.block_tables[i] = NULL_PAGE
+                    self._host_lengths[i] = 0
+        if finished:
+            self._refresh_gauge()
+        return finished
+
+    # --------------------------------------------------------------- defrag
+    @torch.inference_mode()
+    def defrag(self):
+        """Compact live blocks to the lowest page ids: remap every slot's
+        table and physically move the pages in one gather per leaf. Decode
+        output is invariant (paging is pure layout)."""
+        if not self.paged or self.cache is None:
+            return
+        mapping = self.allocator.defrag()
+        remap = np.arange(self.allocator.num_blocks + 1)
+        for old, new in mapping.items():
+            remap[old] = new
+        self.block_tables = np.where(
+            self.block_tables != NULL_PAGE, remap[self.block_tables], NULL_PAGE
+        ).astype(np.int32)
+        # perm[new_page] = old_page; untouched ids map identity (their
+        # contents are dead anyway once the allocator freed them)
+        perm = np.arange(self.allocator.num_blocks + 1)
+        for old, new in mapping.items():
+            perm[new] = old
+        perm_t = self._tensor(perm)
+        for blk, key, is_paged in _leaves(self.cache, self._layout):
+            if is_paged:
+                blk[key] = blk[key][:, perm_t]

@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on a card, against their plain versions.
+
+Marked ``gpu``: each test decides inside itself whether a card is present
+and skips without one. This file imports neither jax nor ``repro``, so it
+runs on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import decode_attention, paged_decode_attention
+from repro_torch.kernels.decode_attn.ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+)
+from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with `pytest -m gpu` on the GPU machine")
+
+
+def _inputs(paged, dtype, b=8, h=8, kv=1, d=256, l=1024, bs=16, seed=3):
+    rng = np.random.default_rng(seed)
+    vl = rng.integers(1, l + 1, (b,)).astype(np.int32)
+    vl[0], vl[-1] = 1, l
+    q = rng.standard_normal((b, h, d), np.float32)
+    if not paged:
+        k = rng.standard_normal((b, l, kv, d), np.float32)
+        v = rng.standard_normal((b, l, kv, d), np.float32)
+        arrays = [q, k, v, vl]
+    else:
+        nb = l // bs
+        n_pages = 1 + b * nb
+        kp = rng.standard_normal((n_pages, bs, kv, d), np.float32)
+        vp = rng.standard_normal((n_pages, bs, kv, d), np.float32)
+        perm = rng.permutation(np.arange(1, n_pages))
+        tables = np.zeros((b, nb), np.int32)
+        used = 0
+        for i, n in enumerate(-(-vl // bs)):
+            tables[i, :n] = perm[used:used + n]
+            used += n
+        arrays = [q, kp, vp, tables, vl]
+    ts = [torch.from_numpy(a).cuda() for a in arrays]
+    ts[:3] = [t.to(dtype) for t in ts[:3]]
+    return ts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain(paged, dtype):
+    _need_card()
+    kernel, plain = ((paged_decode_attention, paged_decode_attention_ref) if paged
+                     else (decode_attention, decode_attention_ref))
+    ts = _inputs(paged, dtype)
+    before = kernel.launches
+    out = kernel(*ts, scale=1 / 16)
+    want = plain(*ts, scale=1 / 16)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_bad_operands():
+    _need_card()
+    q, k, v, vl = _inputs(False, torch.float32, l=64)
+    with pytest.raises(TypeError):
+        decode_attention(q, k, v, vl.long(), scale=0.1)
+    with pytest.raises(ValueError):
+        decode_attention(q, k.transpose(1, 2), v, vl, scale=0.1)
+    with pytest.raises(ValueError):
+        decode_attention(q[..., :250].contiguous(), k[..., :250].contiguous(),
+                         v, vl, scale=0.1)
+
+
+@pytest.mark.gpu
+def test_decode_step_on_card_matches_cpu():
+    """Reduced gemma-2b in fp32: one prefill + decode step on the card
+    (kernel path) against the same weights on the CPU (plain path)."""
+    _need_card()
+    cfg = reduced_config("gemma-2b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = _to(params, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 10)))
+    lens = torch.tensor([10, 6], dtype=torch.int32)
+    outs = []
+    for dev, p in (("cpu", params), ("cuda", gpu_params)):
+        cache = init_cache(cfg, 2, 32, device=dev)
+        logits, cache, _ = prefill(p, cfg, toks.to(dev), cache, prompt_lengths=lens.to(dev))
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, _, _ = decode_step(p, cfg, tok, cache, lens.to(dev))
+        outs.append(logits.cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

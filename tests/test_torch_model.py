@@ -1,0 +1,171 @@
+"""The port's model against ``repro.models`` on reduced configs.
+
+Weights come from ``repro.models.init_params`` and cross through numpy
+(``params_from_numpy``). The same numpy prompts go through both packages:
+prefill logits, then N dense and N paged decode steps, all in fp32. The
+tolerance 1e-4 (atol and rtol) covers summation order only: both sides do
+the same fp32 arithmetic, but XLA and PyTorch block their matmuls and
+reductions differently on the CPU (observed differences are ~1e-6).
+Greedy tokens must be equal, and the port's paged path must give its dense
+path's logits.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models as R
+from repro.configs import reduced_config as jax_reduced_config
+import repro_torch.models as T
+from repro_torch.configs import reduced_config
+from repro_torch.models.config import ModelConfig
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+N_STEPS = 4
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _setup(arch, b=3, l_max=64):
+    jcfg = jax_reduced_config(arch)
+    cfg = reduced_config(arch)
+    jp = R.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = T.params_from_numpy(_np_tree(jp), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab_size, (b, 12)).astype(np.int32)
+    lengths = np.array([12, 7, 9], np.int32)[:b]
+    return jcfg, cfg, jp, tp, prompts, lengths
+
+
+def _paged_from_dense(cache, lengths, bs, nb):
+    """Copy each request's dense rows into shuffled pages; returns the
+    paged cache and the block table (unused entries on null page 0)."""
+    b = len(lengths)
+    rng = np.random.default_rng(1)
+    pages = rng.permutation(np.arange(1, 1 + b * nb)).reshape(b, nb).astype(np.int32)
+    out = {"stages": []}
+    for st in cache["stages"]:
+        blk = {}
+        for name, kv in st.items():
+            blk[name] = {}
+            for key, t in kv.items():
+                n_units = t.shape[0]
+                paged = torch.zeros((n_units, 1 + b * nb, bs) + tuple(t.shape[3:]), dtype=t.dtype)
+                rows = t.reshape(n_units, b, nb, bs, *t.shape[3:])
+                paged[:, torch.from_numpy(pages.reshape(-1)).long()] = rows.reshape(
+                    n_units, b * nb, bs, *t.shape[3:])
+                blk[name][key] = paged
+        out["stages"].append(blk)
+    return out, torch.from_numpy(pages)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-4b"])
+def test_prefill_and_decode_match_reference(arch):
+    jcfg, cfg, jp, tp, prompts, lengths = _setup(arch)
+    b, l_max, bs = len(lengths), 64, 8
+    jl, jc, _ = R.prefill(jp, jcfg, jnp.asarray(prompts), R.init_cache(jcfg, b, l_max),
+                          prompt_lengths=jnp.asarray(lengths))
+    tl, tc, _ = T.prefill(tp, cfg, torch.from_numpy(prompts),
+                          T.init_cache(cfg, b, l_max, device="cpu"),
+                          prompt_lengths=torch.from_numpy(lengths))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(tc["stages"][0]["b0"]["k"].numpy(),
+                               np.asarray(jc["stages"][0]["b0"]["k"]), **TOL)
+
+    pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs)
+    active = torch.ones(b, dtype=torch.bool)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    assert np.array_equal(tok, torch.argmax(tl, -1).numpy())
+    ln = lengths.copy()
+    for _ in range(N_STEPS):
+        jl, jc, _ = R.decode_step(jp, jcfg, jnp.asarray(tok), jc, jnp.asarray(ln))
+        tl, tc, _ = T.decode_step(tp, cfg, torch.from_numpy(tok), tc, torch.from_numpy(ln))
+        pl, pc, _ = T.decode_step_paged(tp, cfg, torch.from_numpy(tok), pc,
+                                        torch.from_numpy(ln), active, tables)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        torch.testing.assert_close(pl, tl, rtol=1e-6, atol=1e-6)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        assert np.array_equal(tok, torch.argmax(tl, -1).numpy())
+        assert np.array_equal(tok, torch.argmax(pl, -1).numpy())
+        ln = ln + 1
+    np.testing.assert_allclose(tc["stages"][0]["b0"]["v"].numpy(),
+                               np.asarray(jc["stages"][0]["b0"]["v"]), **TOL)
+
+
+def test_paged_decode_matches_reference_paged_step():
+    """The reference's own ``decode_step_paged`` on the same paged cache,
+    with one inactive slot routed to the null page."""
+    jcfg, cfg, jp, tp, prompts, lengths = _setup("gemma-2b")
+    b, l_max, bs = len(lengths), 64, 8
+    tl, tc, _ = T.prefill(tp, cfg, torch.from_numpy(prompts),
+                          T.init_cache(cfg, b, l_max, device="cpu"),
+                          prompt_lengths=torch.from_numpy(lengths))
+    pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs)
+    jpc = jax.tree.map(lambda t: jnp.asarray(t.numpy()), pc)
+    active = np.array([True, False, True])
+    tok = torch.argmax(tl, -1).to(torch.int32).numpy()
+    jl, jpc, _ = R.decode_step_paged(jp, jcfg, jnp.asarray(tok), jpc, jnp.asarray(lengths),
+                                     jnp.asarray(active), jnp.asarray(tables.numpy()))
+    pl, pc, _ = T.decode_step_paged(tp, cfg, torch.from_numpy(tok), pc,
+                                    torch.from_numpy(lengths), torch.from_numpy(active), tables)
+    np.testing.assert_allclose(pl.numpy()[active], np.asarray(jl)[active], **TOL)
+    live = tables[active].reshape(-1).long()
+    np.testing.assert_allclose(pc["stages"][0]["b0"]["k"][:, live].numpy(),
+                               np.asarray(jpc["stages"][0]["b0"]["k"])[:, live.numpy()], **TOL)
+
+
+def test_params_and_cache_layout_match_reference():
+    cfg = reduced_config("gemma-2b")
+    jp = R.abstract_params(jax_reduced_config("gemma-2b"))
+    gen = torch.Generator().manual_seed(0)
+    tp = T.init_params(cfg, gen, device="cpu")
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
+    assert shapes(tp) == shapes(jp)
+    jc = R.abstract_cache(jax_reduced_config("gemma-2b"), 2, 32)
+    assert shapes(T.init_cache(cfg, 2, 32, device="cpu")) == shapes(jc)
+    jpc = R.init_paged_cache(jax_reduced_config("gemma-2b"), 2, 9, 8)
+    assert shapes(T.init_paged_cache(cfg, 2, 9, 8, device="cpu")) == shapes(jpc)
+    assert T.paged_layout(cfg) == R.paged_layout(jax_reduced_config("gemma-2b"))
+    # init scales: wq ~ N(0, 1/d), embedding ~ N(0, 0.02^2)
+    full = T.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    assert abs(full["stages"][0]["b0"]["attn"]["wq"].std().item() * 8.0 - 1.0) < 0.1
+    assert abs(full["embed"]["table"].std().item() / 0.02 - 1.0) < 0.1
+
+
+def test_cache_bridge_roundtrips_bf16():
+    jcfg = dataclasses.replace(jax_reduced_config("gemma-2b"), compute_dtype="bfloat16")
+    jc = jax.tree.map(lambda a: a + 1.5, R.init_cache(jcfg, 1, 4))
+    tc = T.cache_from_numpy(_np_tree(jc), device="cpu")
+    assert tc["stages"][0]["b0"]["k"].dtype == torch.bfloat16
+    assert tuple(tc["stages"][0]["b0"]["k"].shape) == tuple(jc["stages"][0]["b0"]["k"].shape)
+    assert bool((tc["stages"][0]["b0"]["v"] == 1.5).all())
+
+
+@pytest.mark.parametrize("arch,what", [("gemma2-9b", "softcap"), ("mamba2-780m", "not ported")])
+def test_unsupported_features_raise(arch, what):
+    cfg = reduced_config(arch)
+    if what == "not ported":
+        with pytest.raises(NotImplementedError):
+            T.init_params(cfg, torch.Generator(), device="cpu")
+        return
+    tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cache = T.init_cache(cfg, 1, 16, device="cpu")
+    with pytest.raises(NotImplementedError, match=what):
+        T.decode_step(tp, cfg, torch.zeros(1, dtype=torch.int32), cache,
+                      torch.zeros(1, dtype=torch.int32))
+
+
+def test_cuda_default_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = reduced_config("gemma-2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 1, 8)
+    assert isinstance(cfg, ModelConfig)
