@@ -5,15 +5,20 @@
 
 Phases; any failure exits non-zero:
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and others, and time kernel, plain version and
+2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
+3. hold each kernel (GQA decode attention, MLA latent decode; dense and
+   paged) against its plain PyTorch version on the card, at the main paths'
+   shapes and others, and time kernel, plain version and
    ``F.scaled_dot_product_attention`` (yardstick only; the port never calls it)
-   beside the byte bound;
-4. serve full-width gemma-2b (random weights from a seeded generator) through
+   beside the bound;
+4. for each served model -- full-width gemma-2b (GQA) and minitron-4b-mla
+   (absorbed MLA), random weights from a seeded generator -- serve through
    ``ServingEngine`` with a lock-mode ``ClockController``, dense then paged,
-   counting kernel launches; compare one decode step's logits kernel vs plain;
-   then an fp32 engine whose dense and paged greedy streams must agree;
+   counting kernel launches (the model's own kernels once per layer and
+   decode step, the other family's never); compare one decode step's logits
+   kernel vs plain; then an fp32 engine whose dense and paged greedy streams
+   must agree;
 5. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
@@ -36,11 +41,30 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
-# bf16 model logits, kernel path vs plain path on the same state: the two
-# attentions round their bf16 outputs differently (fp32 P.V in the kernel),
-# and 18 layers carry the difference to the logits
-LOGIT_ATOL_BF16 = 0.25
+# bf16 model logits, kernel path vs plain path on the same state, per served
+# model: kernel and plain version sum in other orders and round their bf16
+# outputs differently (the GQA plain version also rounds P to bf16 before
+# P.V, the kernel keeps it fp32), and every layer carries the difference on
+# to the logits: 18 layers for gemma-2b, 32 for minitron-4b-mla
+LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5}
 L2_BYTES = 50 * 2**20
+MLA_SCALE = 1.0 / math.sqrt(128 + 64)      # minitron-4b-mla: 1/sqrt(nope + rope)
+# every kernel whose launches a main path counts
+COUNTED = ("decode_attention", "paged_decode_attention",
+           "mla_latent_decode", "mla_paged_latent_decode")
+SOURCES = {
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn/decode_attn.py:162"),
+    "paged_decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                               "src/repro/kernels/decode_attn/decode_attn.py:107"),
+    "mla_latent_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                          "src/repro/kernels/mla_decode/mla_decode.py:164"),
+    "mla_paged_latent_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                                "src/repro/kernels/mla_decode/mla_decode.py:110"),
+}
+# served model -> (dense kernel, paged kernel) of its decode attention
+MODELS = {"gemma-2b": ("decode_attention", "paged_decode_attention"),
+          "minitron-4b-mla": ("mla_latent_decode", "mla_paged_latent_decode")}
 
 
 def nvidia_smi(query: str) -> str:
@@ -115,8 +139,9 @@ def cuda_time_ms(torch, fn, arg_sets, reps: int = 40) -> tuple:
     return start.elapsed_time(end) / (3 * reps), eager
 
 
-# (name, paged, B, H, KV, Dk, Dv, L, bs, main): the first of each kind is the
-# gemma-2b decode shape at batch 8 and max_seq_len 1024, the one timed
+# GQA decode attention: (name, paged, B, H, KV, Dk, Dv, L, bs, main); the
+# first of each kind is the gemma-2b decode shape at batch 8 and
+# max_seq_len 1024, the one timed
 KERNEL_CASES = (
     ("decode_attention", False, 8, 8, 1, 256, 256, 1024, 0, True),
     ("decode_attention", False, 2, 8, 2, 32, 16, 128, 0, False),     # GQA, Dk != Dv
@@ -127,18 +152,47 @@ KERNEL_CASES = (
     ("paged_decode_attention", True, 2, 8, 2, 32, 16, 48, 16, False),
     ("paged_decode_attention", True, 3, 6, 6, 16, 16, 32, 8, False),
 )
+# MLA latent decode: (name, paged, B, H, rank, rope, L, bs, main); the first
+# of each kind is the minitron-4b-mla decode shape at batch 8 and
+# max_seq_len 1024, the one timed
+MLA_CASES = (
+    ("mla_latent_decode", False, 8, 24, 512, 64, 1024, 0, True),
+    ("mla_latent_decode", False, 8, 4, 32, 8, 128, 0, False),        # reduced config
+    ("mla_latent_decode", False, 8, 16, 512, 64, 512, 0, False),     # deepseek-v2-lite heads
+    ("mla_latent_decode", False, 4, 128, 512, 64, 256, 0, False),    # deepseek-v2-236b heads
+    ("mla_paged_latent_decode", True, 8, 24, 512, 64, 1024, 16, True),
+    ("mla_paged_latent_decode", True, 8, 4, 32, 8, 128, 16, False),
+    ("mla_paged_latent_decode", True, 8, 16, 512, 64, 512, 16, False),
+    ("mla_paged_latent_decode", True, 4, 128, 512, 64, 256, 16, False),
+)
 
 
-def make_inputs(torch, case, dtype, seed):
-    """Seeded inputs of one case; ragged valid_len including 1 and L."""
-    _, paged, b, h, kv, dk, dv, l, bs, _ = case
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
-    valid = torch.randint(1, l + 1, (b,), generator=g, device=dev)
+def _valid_lens(torch, g, b, l):
+    """Ragged valid_len including 1 and L."""
+    valid = torch.randint(1, l + 1, (b,), generator=g, device="cuda")
     valid[0] = 1
     if b > 1:
         valid[1] = l
-    valid = valid.to(torch.int32)
+    return valid.to(torch.int32)
+
+
+def _tables(torch, g, valid, bs, nb, n_pages):
+    """Distinct live pages per request, shuffled; null page 0 past valid_len."""
+    perm = torch.randperm(n_pages - 1, generator=g, device="cuda") + 1
+    tables = torch.zeros((valid.shape[0], nb), dtype=torch.int32, device="cuda")
+    used = 0
+    for i, n in enumerate(((valid + bs - 1) // bs).tolist()):
+        tables[i, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    return tables
+
+
+def make_inputs(torch, case, dtype, seed):
+    """Seeded inputs of one GQA case, in the kernel's argument order."""
+    _, paged, b, h, kv, dk, dv, l, bs, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    valid = _valid_lens(torch, g, b, l)
     q = torch.randn((b, h, dk), generator=g, device=dev).to(dtype)
     if not paged:
         k = torch.randn((b, l, kv, dk), generator=g, device=dev).to(dtype)
@@ -148,79 +202,142 @@ def make_inputs(torch, case, dtype, seed):
     n_pages = 1 + b * nb
     kp = torch.randn((n_pages, bs, kv, dk), generator=g, device=dev).to(dtype)
     vp = torch.randn((n_pages, bs, kv, dv), generator=g, device=dev).to(dtype)
-    # distinct live pages per request, shuffled; null page 0 past valid_len
-    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
-    tables = torch.zeros((b, nb), dtype=torch.int32, device=dev)
-    used = 0
-    for i, n in enumerate(((valid + bs - 1) // bs).tolist()):
-        tables[i, :n] = perm[used:used + n].to(torch.int32)
-        used += n
-    return (q, kp, vp, tables, valid)
+    return (q, kp, vp, _tables(torch, g, valid, bs, nb, n_pages), valid)
+
+
+def make_mla_inputs(torch, case, dtype, seed):
+    """Seeded inputs of one MLA case, in the kernel's argument order."""
+    _, paged, b, h, rank, rope, l, bs, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    valid = _valid_lens(torch, g, b, l)
+    q_lat = torch.randn((b, h, rank), generator=g, device=dev).to(dtype)
+    q_rope = torch.randn((b, h, rope), generator=g, device=dev).to(dtype)
+    rows = (1 + b * (l // bs), bs) if paged else (b, l)
+    ckv = torch.randn(rows + (rank,), generator=g, device=dev).to(dtype)
+    kr = torch.randn(rows + (rope,), generator=g, device=dev).to(dtype)
+    if not paged:
+        return (q_lat, q_rope, ckv, kr, valid)
+    return (q_lat, q_rope, ckv, kr, _tables(torch, g, valid, bs, l // bs, rows[0]), valid)
+
+
+def _bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bound(torch, case, dtype, inputs, elem):
-    """(bound_ms, bound_by): bytes this call must move (q, the K/V rows below
-    valid_len, valid_len, table entries read, output) over HBM bandwidth,
-    against its multiply-adds over the peak rate for the input type."""
+    """(bound_ms, bound_by) of a GQA case: bytes this call must move (q, the
+    K/V rows below valid_len, valid_len, table entries read, output) over
+    HBM bandwidth, against its multiply-adds over the peak rate for the
+    input type."""
     _, paged, b, h, kv, dk, dv, l, bs, _ = case
     valid = inputs[-1].clamp(max=l).to(torch.int64)
     keys = int(valid.sum())
     nbytes = b * h * dk * elem + keys * kv * (dk + dv) * elem + 4 * b + b * h * dv * elem
     if paged:
         nbytes += 4 * int(((valid + bs - 1) // bs).sum())
-    ops = 2 * keys * (h // kv) * kv * (dk + dv)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, 2 * keys * (h // kv) * kv * (dk + dv), dtype)
 
 
-def check_kernels(torch, F, kmod, ref):
+def mla_bound(torch, case, dtype, inputs, elem):
+    """(bound_ms, bound_by) of an MLA case: q_lat and q_rope, the ckv and kr
+    rows below valid_len, valid_len, table entries read and the output, over
+    HBM bandwidth; against 2 * H * (rank + rope + rank) flops per key (scores
+    over [ckv; kr], context over ckv) over the peak rate for the input type."""
+    _, paged, b, h, rank, rope, l, bs, _ = case
+    valid = inputs[-1].clamp(max=l).to(torch.int64)
+    keys = int(valid.sum())
+    nbytes = (b * h * (rank + rope) * elem + keys * (rank + rope) * elem + 4 * b
+              + b * h * rank * elem)
+    if paged:
+        nbytes += 4 * int(((valid + bs - 1) // bs).sum())
+    return _bound(nbytes, 2 * keys * h * (rank + rope + rank), dtype)
+
+
+def gqa_sdpa(torch, F, l, scale):
+    """One ``F.scaled_dot_product_attention`` call computing the dense GQA
+    kernel's function (yardstick only)."""
+    kpos = torch.arange(l, device="cuda")
+
+    def sdpa(q, k, v, valid):
+        mask = (kpos[None, :] < valid[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=scale, enable_gqa=True)
+
+    return sdpa
+
+
+def mla_sdpa(torch, F, l, scale):
+    """One ``F.scaled_dot_product_attention`` call computing the dense MLA
+    kernel's function (yardstick only): MQA of ``[q_lat; q_rope]`` over one
+    head ``[ckv; kr]`` with V = ``ckv``. Both concatenations are made once
+    per input set, OUTSIDE the timed call, which therefore times the
+    attention alone."""
+    kpos = torch.arange(l, device="cuda")
+
+    def prepare(q_lat, q_rope, ckv, kr, valid):
+        return (torch.cat([q_lat, q_rope], -1)[:, :, None],
+                torch.cat([ckv, kr], -1)[:, None], ckv[:, None], valid)
+
+    def sdpa(q_cat, k_cat, v, valid):
+        mask = (kpos[None, :] < valid[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q_cat, k_cat, v, attn_mask=mask, scale=scale,
+                                              enable_gqa=True)
+
+    return prepare, sdpa
+
+
+def check_kernels(torch, F, kmod):
     """Phase 3: every case in fp32 and bf16 against the plain version; time
     the main-path cases. Returns {kernel name: record of its main case}."""
     records = {}
-    for ci, case in enumerate(KERNEL_CASES):
-        name, paged, b, h, kv, dk, dv, l, bs, main = case
+    cases = ([(c, make_inputs, bound) for c in KERNEL_CASES]
+             + [(c, make_mla_inputs, mla_bound) for c in MLA_CASES])
+    for ci, (case, make, bound_fn) in enumerate(cases):
+        name, paged, main, l = case[0], case[1], case[-1], case[-3]
+        mla = name.startswith("mla")
         kernel = getattr(kmod, name)
-        plain = getattr(ref, name + "_ref")
-        scale = 1.0 / math.sqrt(dk)
+        plain = getattr(kmod, name + "_ref")
+        scale = MLA_SCALE if mla else 1.0 / math.sqrt(case[5])
+        shape = " ".join(f"{k}={v}" for k, v in zip(
+            ("B", "H", "rank", "rope", "L") if mla else ("B", "H", "KV", "Dk", "Dv", "L"),
+            case[2:-2]))
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
-            inputs = make_inputs(torch, case, dtype, seed=100 + ci)
+            inputs = make(torch, case, dtype, seed=100 + ci)
             out = kernel(*inputs, scale=scale)
             want = plain(*inputs, scale=scale)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
             ok = torch.allclose(out.float(), want.float(), **TOL[dname])
-            print(f"[kernels] {name} B={b} H={h} KV={kv} Dk={dk} Dv={dv} L={l}"
-                  f"{f' bs={bs}' if paged else ''} {dname}: max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
+            print(f"[kernels] {name} {shape}{f' bs={case[-2]}' if paged else ''} {dname}: "
+                  f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version ({dname})")
             if not (main and dname == "bfloat16"):
                 continue
             elem = out.element_size()
-            per_set = sum(t.numel() * t.element_size() for t in inputs[:3])
+            big = [t for t in inputs if t.is_floating_point()]
+            per_set = sum(t.numel() * t.element_size() for t in big)
             n_sets = max(2, -(-2 * L2_BYTES // per_set))
             sets = [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n_sets - 1)]
             ms, ms_eager = cuda_time_ms(torch, lambda *a: kernel(*a, scale=scale), sets)
             plain_ms, plain_eager = cuda_time_ms(torch, lambda *a: plain(*a, scale=scale), sets)
             library_ms = lib_eager = None
-            if not paged:
-                kpos = torch.arange(l, device="cuda")
-
-                def sdpa(q, k, v, valid):
-                    mask = (kpos[None, :] < valid[:, None])[:, None, None, :]
-                    return F.scaled_dot_product_attention(
-                        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                        attn_mask=mask, scale=scale, enable_gqa=True)
-
-                library_ms, lib_eager = cuda_time_ms(torch, sdpa, sets)
-            bound_ms, bound_by = bound(torch, case, dname, inputs, elem)
+            if not paged and mla:
+                prepare, sdpa = mla_sdpa(torch, F, l, scale)
+                lib_sets = [prepare(*a) for a in sets]
+                library_ms, lib_eager = cuda_time_ms(torch, sdpa, lib_sets)
+                del lib_sets
+            elif not paged:
+                library_ms, lib_eager = cuda_time_ms(torch, gqa_sdpa(torch, F, l, scale), sets)
+            bound_ms, bound_by = bound_fn(torch, case, dname, inputs, elem)
+            source, replaces = SOURCES[name]
             records[name] = {
-                "name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
-                "replaces": ("src/repro/kernels/decode_attn/decode_attn.py:107" if paged
-                             else "src/repro/kernels/decode_attn/decode_attn.py:162"),
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
@@ -228,15 +345,20 @@ def check_kernels(torch, F, kmod, ref):
                   f"plain {plain_ms:.5f}, sdpa {library_ms}, bound {bound_ms:.5f} ({bound_by}); "
                   f"eager ms per call: kernel {ms_eager:.5f}, plain {plain_eager:.5f}, "
                   f"sdpa {lib_eager}; valid_len={inputs[-1].tolist()}")
+            del sets
     return records
 
 
-def serve(torch, ServingEngine, ClockController, EnergyModel, H200_SXM, cfg, params,
-          prompts, *, paged, max_new, kmod, profile=False):
+def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, profile=False):
     """One engine run over ``prompts`` through ``ServingEngine.step``;
-    returns (engine, requests, info). With ``profile``, five full-batch
-    decode steps run under ``torch.profiler`` (and are left out of the
-    step times) to split their wall time into device busy and idle."""
+    returns (engine, requests, info). Every kernel's launch count is set to
+    0 just before the run and read just after it. With ``profile``, five
+    full-batch decode steps run under ``torch.profiler`` (and are left out
+    of the step times) to split their wall time into device busy and idle."""
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.hw.chips import H200_SXM
+    from repro_torch.serving import ClockController, ServingEngine
+
     controller = ClockController(EnergyModel(H200_SXM), cfg, mode="lock")
     engine = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, controller=controller,
                            paged=paged, kv_block_size=16, device="cuda")
@@ -244,8 +366,8 @@ def serve(torch, ServingEngine, ClockController, EnergyModel, H200_SXM, cfg, par
     step_ms, prof_info = [], None
     n_full = 0
     torch.cuda.synchronize()
-    kmod.decode_attention.launches = 0
-    kmod.paged_decode_attention.launches = 0
+    for name in COUNTED:
+        getattr(kmod, name).launches = 0
     with SmiSampler() as smi:
         while engine.waiting or engine.pool.occupancy() > 0:
             full = engine.pool.occupancy() == 8 and not engine.waiting
@@ -259,8 +381,7 @@ def serve(torch, ServingEngine, ClockController, EnergyModel, H200_SXM, cfg, par
             if full:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
     info = {
-        "dense_launches": kmod.decode_attention.launches,
-        "paged_launches": kmod.paged_decode_attention.launches,
+        "launches": {name: getattr(kmod, name).launches for name in COUNTED},
         "decode_steps": engine.stats.decode_steps,
         "step_ms_batch8": step_ms,
         "smi": smi.summary(),
@@ -298,9 +419,11 @@ def profile_steps(torch, engine, n: int) -> dict:
                     for ms, c, k in rows[:12]]}
 
 
-def logits_kernel_vs_plain(torch, ServingEngine, decode_step, decode_step_paged, cfg,
-                           params, prompts, paged):
+def logits_kernel_vs_plain(torch, cfg, params, prompts, paged):
     """One decode step on the same admitted state, kernel path vs plain path."""
+    from repro_torch.models import decode_step, decode_step_paged
+    from repro_torch.serving import ServingEngine
+
     engine = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, paged=paged,
                            kv_block_size=16, device="cuda")
     for p in prompts:
@@ -345,13 +468,7 @@ def main() -> int:
 
     from repro_torch import kernels as kmod
     from repro_torch.configs import get_config
-    from repro_torch.core.energy import EnergyModel
-    from repro_torch.hw.chips import H200_SXM
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attn import ref
-    from repro_torch.models import decode_step, decode_step_paged, init_params
-    from repro_torch.serving import ClockController, ServingEngine
-    from repro_torch.training import make_prompts
 
     t_start = time.perf_counter()
     # ---- 1. device
@@ -372,45 +489,61 @@ def main() -> int:
                 print(f"[build]   {line.strip()}")
 
     # ---- 3. kernels vs plain versions
-    records = check_kernels(torch, F, kmod, ref)
+    records = check_kernels(torch, F, kmod)
 
-    # ---- 4. full-width gemma-2b through ServingEngine
-    cfg = get_config("gemma-2b")
+    # ---- 4. full-width models through ServingEngine
+    for arch in MODELS:
+        serve_model(torch, kmod, get_config(arch), records)
+
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(nvidia_smi("name,power.limit"))
+    print(json.dumps({"kernels": [records[name] for name in COUNTED]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+def serve_model(torch, kmod, cfg, records) -> None:
+    """Phase 4 for one full-width model: bf16 serving dense then paged (the
+    model's own kernel launched once per layer and decode step, the others
+    never), bf16 logits kernel vs plain, fp32 dense == paged greedy streams.
+    Writes each main-path launch count into ``records``."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import make_prompts
+
+    arch = cfg.name
     n_layers = sum(s.n_units * len(s.unit) for s in cfg.stages)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] gemma-2b {cfg.param_dtype}: {n_params / 1e9:.3f} B params, init "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[serve] {arch} {cfg.param_dtype}: {n_params / 1e9:.3f} B params, "
+          f"{n_layers} layers, init {time.perf_counter() - t0:.1f} s")
     prompts = make_prompts(cfg, 8, 64, 512, seed=0)
     warm = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, device="cuda")
     warm.submit(prompts[0], max_new_tokens=4)
     warm.run_to_completion()              # cuBLAS and allocator warm-up
     del warm
     torch.cuda.reset_peak_memory_stats()
-    runs = {}
     for paged in (False, True):
         tag = "paged" if paged else "dense"
-        engine, reqs, info = serve(torch, ServingEngine, ClockController, EnergyModel,
-                                   H200_SXM, cfg, params, prompts, paged=paged,
-                                   max_new=32, kmod=kmod, profile=not paged)
+        engine, reqs, info = serve(torch, cfg, params, prompts, paged=paged, max_new=32,
+                                   kmod=kmod, profile=not paged)
         st = engine.stats
         eos = cfg.eos_token_id
         for r in reqs:
             if not (r.done and (len(r.output) == 32 or r.output[-1] == eos)):
-                raise SystemExit(f"{tag}: request {r.uid} did not finish: {r.output}")
-        own, other = (("paged_launches", "dense_launches") if paged
-                      else ("dense_launches", "paged_launches"))
-        want = n_layers * info["decode_steps"]
-        if info[own] != want or info[other] != 0:
-            raise SystemExit(f"{tag}: launches {info[own]}/{info[other]} != {want}/0 "
+                raise SystemExit(f"{arch} {tag}: request {r.uid} did not finish: {r.output}")
+        own = MODELS[arch][paged]
+        want = {name: n_layers * info["decode_steps"] if name == own else 0
+                for name in COUNTED}
+        if info["launches"] != want:
+            raise SystemExit(f"{arch} {tag}: launches {info['launches']} != {want} "
                              f"({n_layers} layers x {info['decode_steps']} steps)")
-        name = "paged_decode_attention" if paged else "decode_attention"
-        records[name]["launches"] = info[own]
+        records[own]["launches"] = info["launches"][own]
         steps = info["step_ms_batch8"]
-        runs[tag] = {
+        run = {
             "requests": len(reqs), "prefill_tokens": st.prefill_tokens,
             "decode_tokens": st.decode_tokens, "decode_steps": st.decode_steps,
             "prefill_tok_s": st.prefill_tokens / st.prefill_s,
@@ -420,23 +553,23 @@ def main() -> int:
             "modelled_decode_j": st.decode_j, "modelled_prefill_j": st.prefill_j,
             "lock_clock_mhz": st.actual_clock_mhz,
             "smi_during_run": info["smi"],
-            "kernel_launches": info[own],
+            "kernel_launches": info["launches"][own],
             "profile": info["profile"],
         }
         if paged:
-            runs[tag]["traffic_bytes"] = engine.pool.traffic.total_bytes
-        print(f"[serve] {tag}: " + json.dumps(runs[tag]))
+            run["traffic_bytes"] = engine.pool.traffic.total_bytes
+        print(f"[serve] {arch} {tag}: " + json.dumps(run))
         del engine
-    print(f"[serve] max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    print(f"[serve] {arch} max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
 
+    atol = LOGIT_ATOL_BF16[arch]
     for paged in (False, True):
-        err, agree, scale = logits_kernel_vs_plain(
-            torch, ServingEngine, decode_step, decode_step_paged, cfg, params, prompts, paged)
+        err, agree, scale = logits_kernel_vs_plain(torch, cfg, params, prompts, paged)
         tag = "paged" if paged else "dense"
-        print(f"[serve] {tag} bf16 logits kernel vs plain: max_abs_err={err:.4e} "
-              f"(max |logit| {scale:.3f}, atol {LOGIT_ATOL_BF16}), argmax agreement {agree:.3f}")
-        if not err <= LOGIT_ATOL_BF16:
-            raise SystemExit(f"{tag}: kernel-path logits disagree with the plain path")
+        print(f"[serve] {arch} {tag} bf16 logits kernel vs plain: max_abs_err={err:.4e} "
+              f"(max |logit| {scale:.3f}, atol {atol}), argmax agreement {agree:.3f}")
+        if not err <= atol:
+            raise SystemExit(f"{arch} {tag}: kernel-path logits disagree with the plain path")
 
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     params32 = _map(lambda t: t.float(), params)
@@ -444,24 +577,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     streams = {}
     for paged in (False, True):
-        engine, reqs, info = serve(torch, ServingEngine, ClockController, EnergyModel,
-                                   H200_SXM, cfg32, params32, prompts, paged=paged,
-                                   max_new=8, kmod=kmod)
+        engine, reqs, info = serve(torch, cfg32, params32, prompts, paged=paged, max_new=8,
+                                   kmod=kmod)
         streams[paged] = [r.output for r in reqs]
-        print(f"[serve] fp32 {'paged' if paged else 'dense'}: launches "
-              f"{info['paged_launches'] if paged else info['dense_launches']}, "
-              f"first stream {streams[paged][0]}")
+        print(f"[serve] {arch} fp32 {'paged' if paged else 'dense'}: launches "
+              f"{info['launches'][MODELS[arch][paged]]}, first stream {streams[paged][0]}")
         del engine
     if streams[False] != streams[True]:
-        raise SystemExit("fp32 dense and paged greedy streams differ")
-    print("[serve] fp32 dense == paged greedy streams: ok")
-
-    print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(nvidia_smi("name,power.limit"))
-    print(json.dumps({"kernels": [records["decode_attention"],
-                                  records["paged_decode_attention"]]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
-    return 0
+        raise SystemExit(f"{arch}: fp32 dense and paged greedy streams differ")
+    print(f"[serve] {arch} fp32 dense == paged greedy streams: ok")
+    del params32
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):

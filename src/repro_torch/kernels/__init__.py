@@ -3,10 +3,13 @@ PyTorch version.
 
 * decode_attn — flash decode over a dense or a paged KV cache (GQA/MQA);
                 the counterpart of ``repro.kernels.decode_attn``.
+* mla_decode  — absorbed-MLA latent decode over a dense or a paged
+                compressed cache, and the fused decode attention around it;
+                the counterpart of ``repro.kernels.mla_decode``.
 
 Sources live in ``csrc/``; ``build.py`` compiles them with ``nvcc`` at first
-use. The other Pallas kernels of ``repro.kernels`` (ssd, mla_decode, gdn)
-are not ported yet.
+use. The other Pallas kernels of ``repro.kernels`` (ssd, gdn) are not ported
+yet.
 """
 from repro_torch.kernels.decode_attn import (
     decode_attention,
@@ -14,8 +17,19 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.mla_decode import (
+    mla_fused_decode,
+    mla_latent_decode,
+    mla_latent_decode_ref,
+    mla_paged_fused_decode,
+    mla_paged_latent_decode,
+    mla_paged_latent_decode_ref,
+)
 
 __all__ = [
     "decode_attention", "decode_attention_ref",
     "paged_decode_attention", "paged_decode_attention_ref",
+    "mla_latent_decode", "mla_latent_decode_ref",
+    "mla_paged_latent_decode", "mla_paged_latent_decode_ref",
+    "mla_fused_decode", "mla_paged_fused_decode",
 ]

@@ -1,5 +1,5 @@
-"""Model zoo of the port: config schema, layers, attention, assembly
-(``attn``-only stacks so far)."""
+"""Model zoo of the port: config schema, layers, attention (GQA and
+absorbed MLA), assembly (``attn`` and ``mla`` stacks so far)."""
 from repro_torch.models.config import (
     ModelConfig,
     StageSpec,

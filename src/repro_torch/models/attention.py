@@ -129,21 +129,23 @@ class DecodeIndex:
     valid_len: torch.Tensor            # (B,) int32 = lengths + 1
     rows: torch.Tensor                 # (B,) slot row | physical page
     pos: torch.Tensor                  # (B,) position in the row | page offset
-    keep: Optional[torch.Tensor]       # (B, 1, 1) dense only
+    keep: Optional[torch.Tensor]       # (B,) dense only
 
 
-def decode_index(lengths: torch.Tensor, cfg, *, max_len: int = 0,
+def decode_index(lengths: torch.Tensor, cfg, *, rope_dim: int, max_len: int = 0,
                  block_tables: Optional[torch.Tensor] = None,
                  active: Optional[torch.Tensor] = None,
                  block_size: int = 0) -> DecodeIndex:
     """The ``DecodeIndex`` of a dense (``max_len``) or a paged
-    (``block_tables``, ``active``, ``block_size``) decode step."""
-    cos, sin = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+    (``block_tables``, ``active``, ``block_size``) decode step, with rope
+    tables ``rope_dim`` wide (``cfg.head_dim`` for GQA, the shared rope
+    width ``cfg.qk_rope_head_dim`` for MLA)."""
+    cos, sin = rope_tables(lengths[:, None], rope_dim, cfg.rope_theta)
     ln = lengths.long()
     if block_tables is None:
         rows = torch.arange(ln.shape[0], device=ln.device)
         pos = ln.clamp(max=max_len - 1)
-        keep = (ln < max_len)[:, None, None]
+        keep = ln < max_len
     else:
         nb = block_tables.shape[1]
         blk = (ln // block_size).clamp(0, nb - 1)
@@ -160,7 +162,8 @@ def _write_token(buf: torch.Tensor, new: torch.Tensor, index: DecodeIndex) -> No
     for the dense cache, a scatter for the pages)."""
     val = new[:, 0].to(buf.dtype)
     if index.keep is not None:
-        val = torch.where(index.keep, val, buf[index.rows, index.pos])
+        keep = index.keep.view((-1,) + (1,) * (val.dim() - 1))
+        val = torch.where(keep, val, buf[index.rows, index.pos])
     buf[index.rows, index.pos] = val
 
 
@@ -199,7 +202,7 @@ def self_attention_decode(
     ``index`` is the step's ``decode_index``, built here when not given."""
     _check_kernel_features(cfg, is_global)
     if index is None:
-        index = decode_index(lengths, cfg, max_len=cache["k"].shape[1])
+        index = decode_index(lengths, cfg, rope_dim=cfg.head_dim, max_len=cache["k"].shape[1])
     q, k_new, v_new = _decode_qkv(params, x, index)
     _write_token(cache["k"], k_new, index)
     _write_token(cache["v"], v_new, index)
@@ -228,8 +231,8 @@ def self_attention_decode_paged(
     view first)."""
     _check_kernel_features(cfg, is_global)
     if index is None:
-        index = decode_index(lengths, cfg, block_tables=block_tables, active=active,
-                             block_size=cache["k"].shape[1])
+        index = decode_index(lengths, cfg, rope_dim=cfg.head_dim, block_tables=block_tables,
+                             active=active, block_size=cache["k"].shape[1])
     q, k_new, v_new = _decode_qkv(params, x, index)
     _write_token(cache["k"], k_new, index)
     _write_token(cache["v"], v_new, index)

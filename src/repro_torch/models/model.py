@@ -1,13 +1,13 @@
-"""Decoder assembly for ``attn``-only stacks: stages of looped units.
+"""Decoder assembly: stages of looped units.
 
-Counterpart of ``repro.models.model`` for configs whose blocks are all
-``attn`` / ``attn_global``; other block kinds raise ``NotImplementedError``.
-The param and cache trees keep the JAX layout, so the tests compare like
-with like:
+Counterpart of ``repro.models.model`` for configs whose blocks are
+``attn`` / ``attn_global`` (GQA) or ``mla`` (absorbed MLA); other block
+kinds raise ``NotImplementedError``. The param and cache trees keep the JAX
+layout, so the tests compare like with like:
 
     params = {"embed": {"table"}, "final_norm": {"scale"},
               "stages": [{"b0": {...}, ...}, ...]}   # leaves (n_units, ...)
-    cache  = {"stages": [{"b0": {"k", "v"}, ...}, ...]}
+    cache  = {"stages": [{"b0": {"k", "v"} | {"ckv", "kr"}, ...}, ...]}
 
 The stage ``lax.scan`` becomes a loop over units, indexing the stacked
 leaves. Prefill and decode write the caches IN PLACE (the JAX functions
@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     dt,
@@ -45,15 +46,16 @@ from repro_torch.models.layers import (
 )
 
 ATTN_KINDS = ("attn", "attn_global")
+PORTED_KINDS = ATTN_KINDS + ("mla",)
 # Block kinds whose cache grows per token and therefore lives in pages.
 PAGED_KINDS = ("attn", "attn_global", "shared_attn", "mla", "mla_moe")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
-    bad = sorted(set(k for k in cfg.block_kinds_flat() if k not in ATTN_KINDS))
+    bad = sorted(set(k for k in cfg.block_kinds_flat() if k not in PORTED_KINDS))
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet (attn only)")
+            f"{cfg.name}: block kinds {bad} are not ported yet ({', '.join(PORTED_KINDS)})")
     if cfg.input_is_embeddings:
         raise NotImplementedError(f"{cfg.name}: embedding inputs are not ported yet")
 
@@ -70,9 +72,11 @@ def _map(fn, tree):
 def _init_block(kind: str, cfg: ModelConfig, generator, dtype, device, n: int) -> Dict:
     d = cfg.d_model
     lead = (n,)
+    mixer = ({"mla": mla_mod.init_mla(generator, cfg, dtype, device, lead)} if kind == "mla"
+             else {"attn": attn.init_attention(generator, cfg, dtype, device, lead)})
     return {
         "norm1": {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)},
-        "attn": attn.init_attention(generator, cfg, dtype, device, lead),
+        **mixer,
         "norm2": {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)},
         "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp_type, dtype, device, lead),
     }
@@ -122,43 +126,44 @@ def cache_from_numpy(tree, *, device="cuda") -> Dict:
 
 
 # -------------------------------------------------------------------- cache
-def _kv_pair(shape, cfg: ModelConfig, n: int, device) -> Dict:
+def _cache_rows(kind: str, cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each cache leaf of a ``kind`` block -> the shape of one token's row."""
+    if kind == "mla":
+        return {"ckv": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_head_dim,)}
+    return {"k": (cfg.n_kv_heads, cfg.head_dim), "v": (cfg.n_kv_heads, cfg.head_dim)}
+
+
+def _stacked_cache(cfg: ModelConfig, lead: tuple, device) -> Dict:
+    """Zero caches of every block, leaves (n_units,) + ``lead`` + row."""
     cd = dt(cfg.compute_dtype)
-    return {"k": torch.zeros((n,) + shape, dtype=cd, device=device),
-            "v": torch.zeros((n,) + shape, dtype=cd, device=device)}
+    return {"stages": [
+        {f"b{i}": {key: torch.zeros((stage.n_units,) + lead + row, dtype=cd, device=device)
+                   for key, row in _cache_rows(kind, cfg).items()}
+         for i, kind in enumerate(stage.unit)}
+        for stage in cfg.stages
+    ]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> Dict:
     _check_kinds(cfg)
-    device = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"stages": [
-        {f"b{i}": _kv_pair(shape, cfg, stage.n_units, device)
-         for i in range(len(stage.unit))}
-        for stage in cfg.stages
-    ]}
+    return _stacked_cache(cfg, (batch, max_len), resolve_device(device))
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, block_size: int,
                      *, device="cuda") -> Dict:
-    """Paged decode cache: K/V live in ``n_pages`` physical pages of
-    ``block_size`` tokens (page 0 reserved as the null page), shared by all
-    requests through per-request block tables. Same tree as ``init_cache``."""
+    """Paged decode cache: per-token caches live in ``n_pages`` physical
+    pages of ``block_size`` tokens (page 0 reserved as the null page),
+    shared by all requests through per-request block tables. Same tree as
+    ``init_cache``."""
     _check_kinds(cfg)
-    device = resolve_device(device)
-    shape = (n_pages, block_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"stages": [
-        {f"b{i}": _kv_pair(shape, cfg, stage.n_units, device)
-         for i in range(len(stage.unit))}
-        for stage in cfg.stages
-    ]}
+    return _stacked_cache(cfg, (n_pages, block_size), resolve_device(device))
 
 
 def paged_layout(cfg: ModelConfig) -> Dict:
     """Boolean tree matching the cache: True leaves are paged (block-table
     indexed), False leaves slot indexed."""
     return {"stages": [
-        {f"b{i}": {"k": kind in PAGED_KINDS, "v": kind in PAGED_KINDS}
+        {f"b{i}": {key: kind in PAGED_KINDS for key in _cache_rows(kind, cfg)}
          for i, kind in enumerate(stage.unit)}
         for stage in cfg.stages
     ]}
@@ -172,35 +177,56 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
                 plain: bool = False) -> torch.Tensor:
     """Run every unit of every stage over ``x``; caches update in place.
     A decode step's rope tables, write positions and ``valid_len`` are the
-    same for every layer and are computed once (``attn.decode_index``)."""
-    index = None
-    if mode == "decode":
-        first = cache["stages"][0]["b0"]["k"]          # (n_units, B|P, L|bs, ...)
-        if block_tables is None:
-            index = attn.decode_index(lengths, cfg, max_len=first.shape[2])
-        else:
-            index = attn.decode_index(lengths, cfg, block_tables=block_tables,
-                                      active=active, block_size=first.shape[2])
+    same for every layer of one kind and are computed once per kind
+    (``attn.decode_index``), from that block's own cache leaves."""
+    indexes: Dict[bool, attn.DecodeIndex] = {}
+
+    def step_index(kind: str, bc: Dict) -> attn.DecodeIndex:
+        mla = kind == "mla"             # attn and attn_global share one index
+        if mla not in indexes:
+            rope, leaf = ((cfg.qk_rope_head_dim, bc["ckv"]) if mla
+                          else (cfg.head_dim, bc["k"]))   # leaf (B|P, L|bs, ...)
+            if block_tables is None:
+                indexes[mla] = attn.decode_index(lengths, cfg, rope_dim=rope,
+                                                 max_len=leaf.shape[1])
+            else:
+                indexes[mla] = attn.decode_index(lengths, cfg, rope_dim=rope,
+                                                 block_tables=block_tables, active=active,
+                                                 block_size=leaf.shape[1])
+        return indexes[mla]
+
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][si]
         sc = cache["stages"][si]
         for u in range(stage.n_units):
             for i, kind in enumerate(stage.unit):
                 bp = _map(lambda a, _u=u: a[_u], sp[f"b{i}"])
-                bc = {"k": sc[f"b{i}"]["k"][u], "v": sc[f"b{i}"]["v"][u]}
-                is_global = kind == "attn_global"
+                bc = {key: t[u] for key, t in sc[f"b{i}"].items()}
                 h = rmsnorm(bp["norm1"], x, cfg.rms_eps)
-                if mode == "prefill":
-                    a_out, _ = attn.self_attention_prefill(
-                        bp["attn"], h, cfg, is_global=is_global, cache=bc)
-                elif block_tables is not None:
-                    a_out, _ = attn.self_attention_decode_paged(
-                        bp["attn"], h, bc, block_tables, lengths, active, cfg,
-                        is_global=is_global, plain=plain, index=index)
+                if kind == "mla":
+                    if mode == "prefill":
+                        a_out, _ = mla_mod.mla_prefill(bp["mla"], h, cfg, cache=bc)
+                    elif block_tables is not None:
+                        a_out, _ = mla_mod.mla_decode_paged(
+                            bp["mla"], h, bc, block_tables, lengths, active, cfg,
+                            plain=plain, index=step_index(kind, bc))
+                    else:
+                        a_out, _ = mla_mod.mla_decode(
+                            bp["mla"], h, bc, lengths, cfg, plain=plain,
+                            index=step_index(kind, bc))
                 else:
-                    a_out, _ = attn.self_attention_decode(
-                        bp["attn"], h, bc, lengths, cfg, is_global=is_global,
-                        plain=plain, index=index)
+                    is_global = kind == "attn_global"
+                    if mode == "prefill":
+                        a_out, _ = attn.self_attention_prefill(
+                            bp["attn"], h, cfg, is_global=is_global, cache=bc)
+                    elif block_tables is not None:
+                        a_out, _ = attn.self_attention_decode_paged(
+                            bp["attn"], h, bc, block_tables, lengths, active, cfg,
+                            is_global=is_global, plain=plain, index=step_index(kind, bc))
+                    else:
+                        a_out, _ = attn.self_attention_decode(
+                            bp["attn"], h, bc, lengths, cfg, is_global=is_global,
+                            plain=plain, index=step_index(kind, bc))
                 x = x + a_out
                 h = rmsnorm(bp["norm2"], x, cfg.rms_eps)
                 x = x + mlp(bp["mlp"], h, cfg.mlp_type)
@@ -245,8 +271,8 @@ def decode_step_paged(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                       cache: Dict, lengths: torch.Tensor, active: torch.Tensor,
                       block_tables: torch.Tensor, *, plain: bool = False
                       ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """One decode step over the PAGED cache: K/V are written and read
-    through the block table. Paging is pure layout, so logits equal
+    """One decode step over the PAGED cache: per-token caches are written
+    and read through the block table. Paging is pure layout, so logits equal
     ``decode_step``'s on the equivalent dense cache."""
     x = _embed_inputs(params, cfg, token[:, None])
     x = _run_stages(params, cfg, x, "decode", cache, lengths,

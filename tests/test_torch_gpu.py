@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a card, against their plain versions.
+"""The port's CUDA kernels on a card, against their plain versions:
+decode attention (GQA) and MLA latent decode, dense and paged.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -11,7 +12,14 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
-from repro_torch.kernels import decode_attention, paged_decode_attention
+from repro_torch.kernels import (
+    decode_attention,
+    mla_latent_decode,
+    mla_latent_decode_ref,
+    mla_paged_latent_decode,
+    mla_paged_latent_decode_ref,
+    paged_decode_attention,
+)
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -81,12 +89,84 @@ def test_cuda_kernel_rejects_bad_operands():
                          v, vl, scale=0.1)
 
 
+def _tables(rng, vl, bs, nb, n_pages):
+    """Distinct live pages per request, shuffled; null page 0 past them."""
+    perm = rng.permutation(np.arange(1, n_pages))
+    tables = np.zeros((len(vl), nb), np.int32)
+    used = 0
+    for i, n in enumerate(-(-vl // bs)):
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    return tables
+
+
+def _mla_inputs(paged, dtype, b, h, rank, rope, l, bs=16, seed=5):
+    rng = np.random.default_rng(seed)
+    vl = rng.integers(1, l + 1, (b,)).astype(np.int32)
+    vl[0], vl[-1] = 1, l
+    q_lat = rng.standard_normal((b, h, rank), np.float32)
+    q_rope = rng.standard_normal((b, h, rope), np.float32)
+    rows = (1 + b * (l // bs), bs) if paged else (b, l)
+    ckv = rng.standard_normal(rows + (rank,), np.float32)
+    kr = rng.standard_normal(rows + (rope,), np.float32)
+    arrays = [q_lat, q_rope, ckv, kr]
+    if paged:
+        arrays.append(_tables(rng, vl, bs, l // bs, rows[0]))
+    ts = [torch.from_numpy(a).cuda() for a in arrays + [vl]]
+    ts[:4] = [t.to(dtype) for t in ts[:4]]
+    return ts
+
+
 @pytest.mark.gpu
-def test_decode_step_on_card_matches_cpu():
-    """Reduced gemma-2b in fp32: one prefill + decode step on the card
-    (kernel path) against the same weights on the CPU (plain path)."""
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,rank,rope,l", [
+    (24, 512, 64, 1024),      # minitron-4b-mla at max_seq_len 1024
+    (4, 32, 8, 128),          # reduced minitron-4b-mla
+    (16, 512, 64, 256),       # deepseek-v2-lite heads
+    (128, 512, 64, 96),       # deepseek-v2-236b heads
+])
+def test_mla_cuda_kernel_matches_plain(paged, dtype, h, rank, rope, l):
     _need_card()
-    cfg = reduced_config("gemma-2b")
+    kernel, plain = ((mla_paged_latent_decode, mla_paged_latent_decode_ref) if paged
+                     else (mla_latent_decode, mla_latent_decode_ref))
+    ts = _mla_inputs(paged, dtype, 8, h, rank, rope, l)
+    scale = 1 / np.sqrt(192)
+    before = kernel.launches
+    out = kernel(*ts, scale=scale)
+    want = plain(*ts, scale=scale)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_mla_cuda_kernel_rejects_bad_operands():
+    _need_card()
+    q_lat, q_rope, ckv, kr, vl = _mla_inputs(False, torch.float32, 2, 4, 32, 8, 64)
+    with pytest.raises(TypeError):
+        mla_latent_decode(q_lat, q_rope, ckv, kr, vl.long(), scale=0.1)
+    with pytest.raises(TypeError):
+        mla_latent_decode(q_lat, q_rope, ckv.bfloat16(), kr, vl, scale=0.1)
+    with pytest.raises(ValueError):
+        mla_latent_decode(q_lat, q_rope, ckv.transpose(0, 1), kr.transpose(0, 1), vl,
+                          scale=0.1)
+    with pytest.raises(ValueError):                      # rope 6 is not a 16-byte multiple
+        mla_latent_decode(q_lat, q_rope[..., :6].contiguous(), ckv, kr[..., :6].contiguous(),
+                          vl, scale=0.1)
+    big = torch.zeros((2, 129, 32), device="cuda")
+    with pytest.raises(ValueError):                      # H = 129 > 128
+        mla_latent_decode(big, torch.zeros((2, 129, 8), device="cuda"), ckv, kr, vl,
+                          scale=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "minitron-4b-mla"])
+def test_decode_step_on_card_matches_cpu(arch):
+    """Reduced model in fp32: one prefill + decode step on the card (kernel
+    path) against the same weights on the CPU (plain path)."""
+    _need_card()
+    cfg = reduced_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     gpu_params = _to(params, "cuda")
     toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 10)))

@@ -7,7 +7,8 @@ tolerance 1e-4 (atol and rtol) covers summation order only: both sides do
 the same fp32 arithmetic, but XLA and PyTorch block their matmuls and
 reductions differently on the CPU (observed differences are ~1e-6).
 Greedy tokens must be equal, and the port's paged path must give its dense
-path's logits.
+path's logits. ``minitron-4b-mla`` runs the absorbed MLA block (latent cache
+``{"ckv", "kr"}``), also with a low-rank query (``q_lora_rank``).
 """
 import dataclasses
 
@@ -25,6 +26,22 @@ from repro_torch.models.config import ModelConfig
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 N_STEPS = 4
+# "<arch>+q_lora": the reduced config with a low-rank query projection
+Q_LORA = 24
+
+
+def _configs(arch):
+    base, _, variant = arch.partition("+")
+    jcfg, cfg = jax_reduced_config(base), reduced_config(base)
+    if variant == "q_lora":
+        jcfg = dataclasses.replace(jcfg, q_lora_rank=Q_LORA)
+        cfg = dataclasses.replace(cfg, q_lora_rank=Q_LORA)
+    return jcfg, cfg
+
+
+def _cache_keys(cfg):
+    """The cache leaf names of the first block: ("k", "v") or ("ckv", "kr")."""
+    return tuple(T.paged_layout(cfg)["stages"][0]["b0"])
 
 
 def _np_tree(tree):
@@ -32,8 +49,7 @@ def _np_tree(tree):
 
 
 def _setup(arch, b=3, l_max=64):
-    jcfg = jax_reduced_config(arch)
-    cfg = reduced_config(arch)
+    jcfg, cfg = _configs(arch)
     jp = R.init_params(jcfg, jax.random.PRNGKey(0))
     tp = T.params_from_numpy(_np_tree(jp), cfg, device="cpu")
     rng = np.random.default_rng(0)
@@ -64,9 +80,11 @@ def _paged_from_dense(cache, lengths, bs, nb):
     return out, torch.from_numpy(pages)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-4b", "minitron-4b-mla",
+                                  "minitron-4b-mla+q_lora"])
 def test_prefill_and_decode_match_reference(arch):
     jcfg, cfg, jp, tp, prompts, lengths = _setup(arch)
+    first, last = _cache_keys(cfg)
     b, l_max, bs = len(lengths), 64, 8
     jl, jc, _ = R.prefill(jp, jcfg, jnp.asarray(prompts), R.init_cache(jcfg, b, l_max),
                           prompt_lengths=jnp.asarray(lengths))
@@ -74,8 +92,8 @@ def test_prefill_and_decode_match_reference(arch):
                           T.init_cache(cfg, b, l_max, device="cpu"),
                           prompt_lengths=torch.from_numpy(lengths))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    np.testing.assert_allclose(tc["stages"][0]["b0"]["k"].numpy(),
-                               np.asarray(jc["stages"][0]["b0"]["k"]), **TOL)
+    np.testing.assert_allclose(tc["stages"][0]["b0"][first].numpy(),
+                               np.asarray(jc["stages"][0]["b0"][first]), **TOL)
 
     pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs)
     active = torch.ones(b, dtype=torch.bool)
@@ -93,14 +111,24 @@ def test_prefill_and_decode_match_reference(arch):
         assert np.array_equal(tok, torch.argmax(tl, -1).numpy())
         assert np.array_equal(tok, torch.argmax(pl, -1).numpy())
         ln = ln + 1
-    np.testing.assert_allclose(tc["stages"][0]["b0"]["v"].numpy(),
-                               np.asarray(jc["stages"][0]["b0"]["v"]), **TOL)
+    np.testing.assert_allclose(tc["stages"][0]["b0"][last].numpy(),
+                               np.asarray(jc["stages"][0]["b0"][last]), **TOL)
 
 
 def test_paged_decode_matches_reference_paged_step():
     """The reference's own ``decode_step_paged`` on the same paged cache,
     with one inactive slot routed to the null page."""
-    jcfg, cfg, jp, tp, prompts, lengths = _setup("gemma-2b")
+    _check_reference_paged_step("gemma-2b")
+
+
+def test_mla_paged_decode_matches_reference_paged_step():
+    """The same for absorbed MLA: the latent pages ``ckv`` and ``kr``."""
+    _check_reference_paged_step("minitron-4b-mla")
+
+
+def _check_reference_paged_step(arch):
+    jcfg, cfg, jp, tp, prompts, lengths = _setup(arch)
+    first = _cache_keys(cfg)[0]
     b, l_max, bs = len(lengths), 64, 8
     tl, tc, _ = T.prefill(tp, cfg, torch.from_numpy(prompts),
                           T.init_cache(cfg, b, l_max, device="cpu"),
@@ -115,22 +143,39 @@ def test_paged_decode_matches_reference_paged_step():
                                     torch.from_numpy(lengths), torch.from_numpy(active), tables)
     np.testing.assert_allclose(pl.numpy()[active], np.asarray(jl)[active], **TOL)
     live = tables[active].reshape(-1).long()
-    np.testing.assert_allclose(pc["stages"][0]["b0"]["k"][:, live].numpy(),
-                               np.asarray(jpc["stages"][0]["b0"]["k"])[:, live.numpy()], **TOL)
+    np.testing.assert_allclose(pc["stages"][0]["b0"][first][:, live].numpy(),
+                               np.asarray(jpc["stages"][0]["b0"][first])[:, live.numpy()],
+                               **TOL)
+
+
+def _check_layout(arch):
+    """Params, cache and paged-cache shapes and ``paged_layout`` as JAX's."""
+    jcfg, cfg = _configs(arch)
+    jp = R.abstract_params(jcfg)
+    tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
+    assert shapes(tp) == shapes(jp)
+    jc = R.abstract_cache(jcfg, 2, 32)
+    assert shapes(T.init_cache(cfg, 2, 32, device="cpu")) == shapes(jc)
+    jpc = R.init_paged_cache(jcfg, 2, 9, 8)
+    assert shapes(T.init_paged_cache(cfg, 2, 9, 8, device="cpu")) == shapes(jpc)
+    assert T.paged_layout(cfg) == R.paged_layout(jcfg)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b-mla", "minitron-4b-mla+q_lora"])
+def test_mla_params_and_cache_layout_match_reference(arch):
+    _check_layout(arch)
+    # init scales: w_dkv ~ N(0, 1/d), w_uk ~ N(0, 1/rank) (reduced d 64, rank 32)
+    _, cfg = _configs(arch)
+    mla = T.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")["stages"][0]["b0"]
+    assert set(mla) == {"norm1", "mla", "norm2", "mlp"}
+    assert abs(mla["mla"]["w_dkv"].std().item() * 8.0 - 1.0) < 0.1
+    assert abs(mla["mla"]["w_uk"].std().item() * np.sqrt(32) - 1.0) < 0.1
 
 
 def test_params_and_cache_layout_match_reference():
     cfg = reduced_config("gemma-2b")
-    jp = R.abstract_params(jax_reduced_config("gemma-2b"))
-    gen = torch.Generator().manual_seed(0)
-    tp = T.init_params(cfg, gen, device="cpu")
-    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
-    assert shapes(tp) == shapes(jp)
-    jc = R.abstract_cache(jax_reduced_config("gemma-2b"), 2, 32)
-    assert shapes(T.init_cache(cfg, 2, 32, device="cpu")) == shapes(jc)
-    jpc = R.init_paged_cache(jax_reduced_config("gemma-2b"), 2, 9, 8)
-    assert shapes(T.init_paged_cache(cfg, 2, 9, 8, device="cpu")) == shapes(jpc)
-    assert T.paged_layout(cfg) == R.paged_layout(jax_reduced_config("gemma-2b"))
+    _check_layout("gemma-2b")
     # init scales: wq ~ N(0, 1/d), embedding ~ N(0, 0.02^2)
     full = T.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     assert abs(full["stages"][0]["b0"]["attn"]["wq"].std().item() * 8.0 - 1.0) < 0.1
@@ -146,11 +191,21 @@ def test_cache_bridge_roundtrips_bf16():
     assert bool((tc["stages"][0]["b0"]["v"] == 1.5).all())
 
 
-@pytest.mark.parametrize("arch,what", [("gemma2-9b", "softcap"), ("mamba2-780m", "not ported")])
+@pytest.mark.parametrize("arch,what", [("gemma2-9b", "softcap"), ("mamba2-780m", "not ported"),
+                                       ("deepseek-v2-lite-16b", "not ported"),
+                                       ("minitron-4b-mla", "ported")])
 def test_unsupported_features_raise(arch, what):
+    """ssm and mla_moe blocks raise; mla (absorbed) is ported."""
     cfg = reduced_config(arch)
+    if what == "ported":
+        tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        cache = T.init_cache(cfg, 1, 16, device="cpu")
+        logits, _, _ = T.decode_step(tp, cfg, torch.zeros(1, dtype=torch.int32), cache,
+                                     torch.zeros(1, dtype=torch.int32))
+        assert tuple(logits.shape) == (1, cfg.vocab_size)
+        return
     if what == "not ported":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="not ported"):
             T.init_params(cfg, torch.Generator(), device="cpu")
         return
     tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

@@ -1,6 +1,6 @@
 """Greedy serving replays: the port's ``ServingEngine`` against the JAX one.
 
-Reduced gemma-2b, weights from ``repro.models.init_params`` through numpy,
+Reduced gemma-2b and reduced minitron-4b-mla (absorbed MLA, latent cache), weights from ``repro.models.init_params`` through numpy,
 the same ``make_prompts`` set, dense and paged (with a block budget tight
 enough to force preemption). Token streams, ``PhaseStats`` token, step,
 byte and (under a lock-mode ``ClockController``) joule counts, preemptions
@@ -40,13 +40,22 @@ ANALYTIC = ("decode_power_w", "decode_mj_per_tok", "prefill_mj_per_tok",
             "recommended_decode_clock_mhz", "lever")
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jcfg = jax_reduced_config("gemma-2b")
+def _weights(arch):
+    jcfg = jax_reduced_config(arch)
     jp = R.init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = reduced_config("gemma-2b")
+    cfg = reduced_config(arch)
     tp = T.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return jcfg, jp, cfg, tp
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights("gemma-2b")
+
+
+@pytest.fixture(scope="module")
+def mla_weights():
+    return _weights("minitron-4b-mla")
 
 
 def _replay(engine_cls, controller, cfg, params, prompts, **kw):
@@ -74,6 +83,19 @@ def _replay(engine_cls, controller, cfg, params, prompts, **kw):
     (True, 9, False),          # 9 blocks of 16 for 3 slots: forces preemption
 ])
 def test_engine_replay_matches_reference(weights, paged, kv_blocks, metered):
+    _check_replay(weights, paged, kv_blocks, metered)
+
+
+@pytest.mark.parametrize("paged,kv_blocks,metered", [
+    (False, None, True),
+    (True, None, True),
+    (True, 9, True),           # 9 blocks of 16 for 3 slots: forces preemption
+])
+def test_mla_engine_replay_matches_reference(mla_weights, paged, kv_blocks, metered):
+    _check_replay(mla_weights, paged, kv_blocks, metered)
+
+
+def _check_replay(weights, paged, kv_blocks, metered):
     jcfg, jp, cfg, tp = weights
     prompts = make_prompts(jcfg, 6, 5, 40, seed=1)
     kw = dict(paged=paged, kv_block_size=16, kv_blocks=kv_blocks)
@@ -165,7 +187,15 @@ def test_defrag_keeps_paged_decode_invariant(weights):
 
 
 def test_run_serving_analytic_fields_match_reference():
-    kw = dict(arch="gemma-2b", n_requests=2, max_new=4, max_batch=2)
+    _check_run_serving("gemma-2b")
+
+
+def test_mla_run_serving_analytic_fields_match_reference():
+    _check_run_serving("minitron-4b-mla")
+
+
+def _check_run_serving(arch):
+    kw = dict(arch=arch, n_requests=2, max_new=4, max_batch=2)
     ref = jax_run_serving(chip="h200-sxm", **kw)
     got = run_serving(device="cpu", **kw)
     assert {k: got[k] for k in ANALYTIC} == {k: ref[k] for k in ANALYTIC}
