@@ -7,18 +7,22 @@ Phases; any failure exits non-zero:
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
-3. hold each kernel (GQA decode attention, MLA latent decode; dense and
-   paged) against its plain PyTorch version on the card, at the main paths'
-   shapes and others, and time kernel, plain version and
-   ``F.scaled_dot_product_attention`` (yardstick only; the port never calls it)
-   beside the bound;
-4. for each served model -- full-width gemma-2b (GQA) and minitron-4b-mla
-   (absorbed MLA), random weights from a seeded generator -- serve through
+3. hold each kernel (GQA decode attention, MLA latent decode, dense and
+   paged; the SSD and gated-delta-rule prefill scans) against its plain
+   PyTorch version on the card, at the main paths' shapes and others, and
+   time kernel, plain version and, where one PyTorch call computes the same
+   function, that call (``F.scaled_dot_product_attention``; yardstick only,
+   the port never calls it) beside the bound;
+4. for each served model -- full-width gemma-2b (GQA), minitron-4b-mla
+   (absorbed MLA), mamba2-4b (Mamba2 SSD) and gdn-4b (Gated DeltaNet),
+   random weights from a seeded generator -- serve through
    ``ServingEngine`` with a lock-mode ``ClockController``, dense then paged,
-   counting kernel launches (the model's own kernels once per layer and
-   decode step, the other family's never); compare one decode step's logits
-   kernel vs plain; then an fp32 engine whose dense and paged greedy streams
-   must agree;
+   counting kernel launches (a model's decode kernel once per layer and
+   decode step, its prefill scan once per layer and prefill call, every
+   other kernel never); compare kernel path and plain path (a decode step's
+   logits; for the recurrent models the prefill logits, the final states
+   and one decode step after them); then an fp32 engine whose dense and
+   paged greedy streams must agree;
 5. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
@@ -41,17 +45,32 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# the SSD and GDN scans: tests/test_kernels.py's tolerances for them
+SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # bf16 model logits, kernel path vs plain path on the same state, per served
 # model: kernel and plain version sum in other orders and round their bf16
 # outputs differently (the GQA plain version also rounds P to bf16 before
 # P.V, the kernel keeps it fp32), and every layer carries the difference on
 # to the logits: 18 layers for gemma-2b, 32 for minitron-4b-mla
-LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5}
+LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5}
+# The recurrent models' kernels sit in prefill, where a difference at one
+# position is carried by the state to every later one, at every layer. In
+# bf16 these random-weight stacks amplify any rounding difference: a plain
+# prefill whose layer-0 scan output is perturbed by a quarter of a bf16 ulp
+# ends at least as far from the unperturbed one as the kernel path does (the noise
+# floor, measured in each run). So at bf16 the kernel is held against its
+# plain version at every layer, on the same inputs (``ScanTee``, at
+# SCAN_TOL), and the end-to-end logits within max(LOGIT_ATOL_BF16, twice the
+# noise floor); end to end the paths are held in fp32, where the stack does
+# not amplify: logits and one decode step after within LOGIT_ATOL_FP32
+# (two summation orders over 36 / 64 layers), argmax equal, final states
+# within LOGIT_ATOL_FP32 x the largest state entry.
+LOGIT_ATOL_FP32 = 1e-3
 L2_BYTES = 50 * 2**20
 MLA_SCALE = 1.0 / math.sqrt(128 + 64)      # minitron-4b-mla: 1/sqrt(nope + rope)
 # every kernel whose launches a main path counts
 COUNTED = ("decode_attention", "paged_decode_attention",
-           "mla_latent_decode", "mla_paged_latent_decode")
+           "mla_latent_decode", "mla_paged_latent_decode", "ssd_scan", "gdn_scan")
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn/decode_attn.py:162"),
@@ -61,10 +80,21 @@ SOURCES = {
                           "src/repro/kernels/mla_decode/mla_decode.py:164"),
     "mla_paged_latent_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                                 "src/repro/kernels/mla_decode/mla_decode.py:110"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd/ssd.py:73"),
+    "gdn_scan": ("src/repro_torch/kernels/csrc/gdn_scan.cu", "src/repro/kernels/gdn/gdn.py:62"),
 }
-# served model -> (dense kernel, paged kernel) of its decode attention
-MODELS = {"gemma-2b": ("decode_attention", "paged_decode_attention"),
-          "minitron-4b-mla": ("mla_latent_decode", "mla_paged_latent_decode")}
+# served model -> its kernels: "decode" (dense kernel, paged kernel), launched
+# once per layer and decode step; "prefill", launched once per layer and
+# prefill call
+MODELS = {
+    "gemma-2b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
+    "minitron-4b-mla": {"decode": ("mla_latent_decode", "mla_paged_latent_decode"),
+                        "prefill": None},
+    "mamba2-4b": {"decode": None, "prefill": "ssd_scan"},
+    "gdn-4b": {"decode": None, "prefill": "gdn_scan"},
+}
+# the scans' plain versions run ~10 PyTorch ops per token: time fewer calls
+PLAIN_SCAN_REPS = 3
 
 
 def nvidia_smi(query: str) -> str:
@@ -167,6 +197,26 @@ MLA_CASES = (
 )
 
 
+# SSD scan: (B, S, H, P, N, main); the first is the mamba2-4b prefill of a
+# 512-token bucket, the one timed (bf16, the model's compute dtype)
+SSD_CASES = (
+    (1, 512, 80, 64, 128, True),
+    (2, 128, 4, 32, 16, False),      # reduced mamba2-4b
+    (1, 300, 80, 64, 128, False),    # not a chunk multiple: ssd_prefill pads
+    (2, 256, 80, 64, 128, False),    # B = 2
+)
+# GDN scan: (B, S, H, K, main); the first is the gdn-4b prefill of a
+# 512-token bucket, the one timed (fp32, as the model calls it)
+GDN_CASES = (
+    (1, 512, 20, 128, True),
+    (2, 64, 2, 16, False),           # reduced gdn-4b
+    (1, 300, 20, 128, False),        # not a chunk multiple: gdn_prefill pads
+    (2, 256, 20, 128, False),        # B = 2
+)
+SCAN_TIMED_DTYPE = {"ssd_scan": "bfloat16", "gdn_scan": "float32"}
+SCAN_NO_LIBRARY = "no single PyTorch call computes a selective scan or a delta rule"
+
+
 def _valid_lens(torch, g, b, l):
     """Ragged valid_len including 1 and L."""
     valid = torch.randint(1, l + 1, (b,), generator=g, device="cuda")
@@ -219,6 +269,53 @@ def make_mla_inputs(torch, case, dtype, seed):
     if not paged:
         return (q_lat, q_rope, ckv, kr, valid)
     return (q_lat, q_rope, ckv, kr, _tables(torch, g, valid, bs, l // bs, rows[0]), valid)
+
+
+def make_ssd_inputs(torch, shape, dtype, seed):
+    """Seeded SSD inputs (x, dt, a, b, c), scaled as tests/test_kernels.py's."""
+    b, s, h, p, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((b, s, h, p), generator=g, device="cuda") * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device="cuda"))
+    a = -torch.exp(torch.linspace(-2, 0.5, h, device="cuda"))
+    bm = (torch.randn((b, s, n), generator=g, device="cuda") * 0.3).to(dtype)
+    cm = (torch.randn((b, s, n), generator=g, device="cuda") * 0.3).to(dtype)
+    return (x, dt, a, bm, cm)
+
+
+def make_gdn_inputs(torch, shape, dtype, seed):
+    """Seeded GDN inputs (q, k, v, beta, alpha): unit-norm q and k, as the
+    model's L2 norm makes them, gates as tests/test_kernels.py draws them."""
+    b, s, h, k = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    unit = lambda t: t / t.norm(dim=-1, keepdim=True)
+    q = unit(torch.randn((b, s, h, k), generator=g, device="cuda")).to(dtype)
+    kk = unit(torch.randn((b, s, h, k), generator=g, device="cuda")).to(dtype)
+    v = (torch.randn((b, s, h, k), generator=g, device="cuda") * 0.5).to(dtype)
+    beta = torch.sigmoid(torch.randn((b, s, h), generator=g, device="cuda"))
+    alpha = torch.sigmoid(torch.randn((b, s, h), generator=g, device="cuda") + 2)
+    return (q, kk, v, beta, alpha)
+
+
+def scan_bound(name, shape, elem, chunk):
+    """(bound_ms, bound_by) of a scan call. Bytes: every input read once and
+    y and the fp32 final state written once. Operations, over the fp32 rate
+    (both scans do their arithmetic in fp32 around an fp32 state):
+    SSD, the chunked form at the kernel's chunk Q, per token 2 Q N for c.b
+    (shared by the heads) and per token and head (Q + 1) P for the causal
+    intra-chunk term, 2 N P for the inter-chunk term and 2 N P for the state
+    pass; GDN, per token and head 7 K^2 (2 K^2 for k^T S, 3 K^2 for the
+    rank-1 update, 2 K^2 for S^T q)."""
+    if name == "ssd_scan":
+        b, s, h, p, n = shape
+        nbytes = 2 * b * s * h * p * elem + 4 * b * s * h + 4 * h + 2 * b * s * n * elem \
+            + 4 * b * h * p * n
+        ops = b * s * (2 * chunk * n + h * ((chunk + 1) * p + 4 * n * p))
+    else:
+        b, s, h, k = shape
+        nbytes = 4 * b * s * h * k * elem + 8 * b * s * h + 4 * b * h * k * k
+        ops = 7 * b * s * h * k * k
+    return _bound(nbytes, ops, "float32")
 
 
 def _bound(nbytes, ops, dtype):
@@ -349,6 +446,72 @@ def check_kernels(torch, F, kmod):
     return records
 
 
+def check_scan_kernels(torch, kmod, records) -> None:
+    """Phase 3 for the prefill scans: every case in fp32 and bf16 through
+    ``ssd_prefill`` / ``gdn_prefill`` (the kernel, after padding to its chunk
+    where S is not a multiple) against the plain version on the unpadded
+    inputs, y and the final state; time the main case. Adds a record per
+    kernel to ``records``."""
+    from repro_torch.kernels.gdn.gdn import CHUNK as GDN_CHUNK
+    from repro_torch.kernels.ssd.ssd import CHUNK as SSD_CHUNK
+
+    specs = (("ssd_scan", SSD_CASES, make_ssd_inputs, kmod.ssd_prefill, kmod.ssd_scan_ref,
+              ("B", "S", "H", "P", "N"), SSD_CHUNK),
+             ("gdn_scan", GDN_CASES, make_gdn_inputs, kmod.gdn_prefill, kmod.gdn_scan_ref,
+              ("B", "S", "H", "K"), GDN_CHUNK))
+    for name, cases, make, prefill_fn, plain, dims, chunk in specs:
+        for ci, case in enumerate(cases):
+            shape, main = case[:-1], case[-1]
+            label = " ".join(f"{k}={v}" for k, v in zip(dims, shape))
+            for dname in ("float32", "bfloat16"):
+                dtype = getattr(torch, dname)
+                inputs = make(torch, shape, dtype, seed=200 + ci)
+                y, fs = prefill_fn(*inputs)
+                want_y, want_fs = plain(*inputs)
+                torch.cuda.synchronize()
+                err = max((y.float() - want_y).abs().max().item(),
+                          (fs - want_fs).abs().max().item())
+                ok = (y.dtype == dtype and tuple(y.shape) == tuple(want_y.shape)
+                      and torch.allclose(y.float(), want_y, **SCAN_TOL[dname])
+                      and torch.allclose(fs, want_fs, **SCAN_TOL[dname]))
+                print(f"[kernels] {name} {label} {dname}: max_abs_err={err:.3e} (y and final "
+                      f"state, max |y| {want_y.abs().max().item():.3f}) tol={SCAN_TOL[dname]} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{name} disagrees with its plain version ({dname})")
+                if not (main and dname == SCAN_TIMED_DTYPE[name]):
+                    continue
+                kernel = getattr(kmod, name)
+                per_set = sum(t.numel() * t.element_size() for t in inputs)
+                n_sets = max(2, -(-2 * L2_BYTES // per_set))
+                sets = [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n_sets - 1)]
+                ms, ms_eager = cuda_time_ms(torch, kernel, sets)
+                plain_ms, plain_eager = cuda_time_ms(torch, plain, sets, reps=PLAIN_SCAN_REPS)
+                bound_ms, bound_by = scan_bound(name, shape, inputs[0].element_size(), chunk)
+                source, replaces = SOURCES[name]
+                records[name] = {
+                    "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                }
+                print(f"[kernels] {name} main shape {dname}, device ms (CUDA graph): kernel "
+                      f"{ms:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by}), "
+                      f"library null ({SCAN_NO_LIBRARY}); eager ms per call: kernel "
+                      f"{ms_eager:.5f}, plain {plain_eager:.5f}")
+                del sets
+
+
+def expected_launches(arch, paged, n_layers, stats) -> dict:
+    """Each counted kernel's launches in one serving run of ``arch``."""
+    want = dict.fromkeys(COUNTED, 0)
+    kernels = MODELS[arch]
+    if kernels["decode"]:
+        want[kernels["decode"][paged]] = n_layers * stats.decode_steps
+    if kernels["prefill"]:
+        want[kernels["prefill"]] = n_layers * stats.prefill_calls
+    return want
+
+
 def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, profile=False):
     """One engine run over ``prompts`` through ``ServingEngine.step``;
     returns (engine, requests, info). Every kernel's launch count is set to
@@ -383,11 +546,27 @@ def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, profile=False):
     info = {
         "launches": {name: getattr(kmod, name).launches for name in COUNTED},
         "decode_steps": engine.stats.decode_steps,
+        "prefill_calls": engine.stats.prefill_calls,
         "step_ms_batch8": step_ms,
         "smi": smi.summary(),
         "profile": prof_info,
     }
     return engine, reqs, info
+
+
+def _device_rows(prof, n: int) -> list:
+    """(device ms, calls, name) per device kernel of a profile, divided by
+    ``n`` (steps), largest first."""
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0 and getattr(e, "device_type", None) is not None and \
+                "CUDA" in str(e.device_type):
+            rows.append((dev / 1e3 / n, e.count / n, e.key))
+    rows.sort(reverse=True)
+    return rows
 
 
 def profile_steps(torch, engine, n: int) -> dict:
@@ -402,21 +581,163 @@ def profile_steps(torch, engine, n: int) -> dict:
             engine.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0 and getattr(e, "device_type", None) is not None and \
-                "CUDA" in str(e.device_type):
-            rows.append((dev / 1e3 / n, e.count / n, e.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof, n)
     busy = sum(r[0] for r in rows)
     return {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "kernels_per_step": sum(r[1] for r in rows),
             "top": [{"kernel": k[:90], "ms_per_step": ms, "calls_per_step": c}
                     for ms, c, k in rows[:12]]}
+
+
+def _padded(torch, pool, prompt):
+    """(tokens (1, bucket), prompt_lengths (1,)) on the card, padded with
+    token 0 to the pool's bucket exactly as the pool pads a prefill."""
+    from repro_torch.serving.pool import Request
+
+    toks, true_len, _ = pool.prefill_tokens(Request(uid=0, prompt=prompt))
+    return torch.from_numpy(toks).cuda(), torch.from_numpy(true_len).cuda()
+
+
+def profile_prefill(torch, cfg, params, prompt) -> dict:
+    """One batch-1 prefill of ``prompt`` (padded to its bucket, as the pool
+    runs it) under torch.profiler, after one unprofiled warm-up: wall ms,
+    device busy ms (sum of kernel self time), the top kernels by device
+    time. Launch counts are not read here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(cfg, params, max_batch=1, max_seq_len=1024, device="cuda")
+    toks, ln = _padded(torch, engine.pool, prompt)
+    with torch.inference_mode():
+        prefill(params, cfg, toks, init_cache(cfg, 1, 1024, device="cuda"), prompt_lengths=ln)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, cfg, toks, init_cache(cfg, 1, 1024, device="cuda"), prompt_lengths=ln)
+        torch.cuda.synchronize()
+        wall_unprofiled = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, cfg, toks, init_cache(cfg, 1, 1024, device="cuda"),
+                    prompt_lengths=ln)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    return {"prompt_tokens": len(prompt), "bucket": int(toks.shape[1]),
+            "wall_ms": wall, "wall_ms_unprofiled": wall_unprofiled, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if wall else None,
+            "kernels": sum(r[1] for r in rows),
+            "top": [{"kernel": k[:90], "ms": ms, "calls": c} for ms, c, k in rows[:10]]}
+
+
+class ScanTee:
+    """While active, every prefill scan of a recurrent model (``ssd_prefill``
+    as ``models/ssm.py`` calls it, ``gdn_prefill`` as ``models/gdn.py`` does)
+    runs both ways on the same inputs -- the kernel and its plain version --
+    and records how far they part; the walk goes on with the plain result,
+    so every layer's scan sees the plain path's own activations. With
+    ``perturb`` instead, the plain scan runs alone and the first call's y is
+    scaled by (1 + 1e-3 noise): a quarter of a bf16 ulp, as a noise floor."""
+
+    def __init__(self, torch, cfg, *, perturb=None):
+        from repro_torch.models import gdn as gdn_mod
+        from repro_torch.models import ssm as ssm_mod
+
+        self.torch, self.perturb = torch, perturb
+        self.mod, self.attr = ((ssm_mod, "ssd_prefill") if cfg.stages[0].unit[0] == "ssm"
+                               else (gdn_mod, "gdn_scan_prefill"))
+        self.real = getattr(self.mod, self.attr)
+        self.calls, self.ok = 0, True
+        self.y_err = self.y_max = self.state_err = self.state_max = 0.0
+
+    def __call__(self, *args, plain=False):
+        torch = self.torch
+        y, fs = self.real(*args, plain=True)
+        if self.perturb is not None:
+            if self.calls == 0:
+                noise = torch.randn(y.shape, generator=self.perturb, device=y.device)
+                y = (y.float() * (1 + 1e-3 * noise)).to(y.dtype)
+        else:
+            yk, fsk = self.real(*args)
+            tol = SCAN_TOL["bfloat16" if y.dtype == torch.bfloat16 else "float32"]
+            self.ok &= bool(torch.allclose(yk.float(), y.float(), **tol)
+                            and torch.allclose(fsk, fs, **SCAN_TOL["float32"]))
+            self.y_err = max(self.y_err, (yk.float() - y.float()).abs().max().item())
+            self.y_max = max(self.y_max, y.float().abs().max().item())
+            self.state_err = max(self.state_err, (fsk - fs).abs().max().item())
+            self.state_max = max(self.state_max, fs.abs().max().item())
+        self.calls += 1
+        return y, fs
+
+    def __enter__(self):
+        setattr(self.mod, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.real)
+        return False
+
+
+def prefill_kernel_vs_plain(torch, cfg, params, prompts) -> dict:
+    """For each prompt, padded to its bucket as the pool pads it: the
+    prefill kernel path against the plain path (last-token logits and every
+    final state), then one decode step from each path's state with the
+    kernel path's greedy token. At bf16 also: every layer's scan, kernel
+    against plain on the same inputs (``ScanTee``), and the noise floor of
+    the plain path itself (layer 0's scan output perturbed by a quarter of
+    a bf16 ulp)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(cfg, params, max_batch=1, max_seq_len=1024, device="cuda")
+    bf16 = cfg.compute_dtype == "bfloat16"
+    out = {"logits_err": 0.0, "decode_err": 0.0, "state_err": 0.0, "state_max": 0.0,
+           "logit_max": 0.0, "argmax_equal": True, "buckets": []}
+    if bf16:
+        out.update(noise_floor_logits_err=0.0, layers_ok=True, layer_y_err=0.0,
+                   layer_y_max=0.0, layer_state_err=0.0, layer_state_max=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.inference_mode():
+        for prompt in prompts:
+            toks, ln = _padded(torch, engine.pool, prompt)
+            fresh = lambda: init_cache(cfg, 1, 1024, device="cuda")
+            runs = []
+            for plain in (False, True):
+                lg, cache, _ = prefill(params, cfg, toks, fresh(), prompt_lengths=ln, plain=plain)
+                runs.append((lg.float(), cache))
+            tok = torch.argmax(runs[0][0], -1).to(torch.int32)
+            decoded = [decode_step(params, cfg, tok, cache, ln)[0].float() for _, cache in runs]
+            if bf16:
+                with ScanTee(torch, cfg) as tee:
+                    prefill(params, cfg, toks, fresh(), prompt_lengths=ln)
+                with ScanTee(torch, cfg, perturb=gen):
+                    noisy = prefill(params, cfg, toks, fresh(), prompt_lengths=ln)[0].float()
+                out["noise_floor_logits_err"] = max(out["noise_floor_logits_err"],
+                                                    (noisy - runs[1][0]).abs().max().item())
+                out["layers_ok"] &= tee.ok and tee.calls == _n_layers(cfg)
+                for key in ("y_err", "y_max", "state_err", "state_max"):
+                    out["layer_" + key] = max(out["layer_" + key], getattr(tee, key))
+            torch.cuda.synchronize()
+            for lg in [r[0] for r in runs] + decoded:
+                if lg.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+                    raise SystemExit(f"prefill logits: shape {tuple(lg.shape)} or non-finite")
+            out["buckets"].append(int(toks.shape[1]))
+            out["logits_err"] = max(out["logits_err"], (runs[0][0] - runs[1][0]).abs().max().item())
+            out["decode_err"] = max(out["decode_err"], (decoded[0] - decoded[1]).abs().max().item())
+            out["logit_max"] = max(out["logit_max"], runs[1][0].abs().max().item())
+            out["argmax_equal"] &= bool((runs[0][0].argmax(-1) == runs[1][0].argmax(-1)).all()
+                                        and (decoded[0].argmax(-1) == decoded[1].argmax(-1)).all())
+            for a, b in zip(_leaves(runs[0][1]), _leaves(runs[1][1])):
+                out["state_err"] = max(out["state_err"], (a.float() - b.float()).abs().max().item())
+                out["state_max"] = max(out["state_max"], b.float().abs().max().item())
+    return out
+
+
+def _n_layers(cfg) -> int:
+    return sum(s.n_units * len(s.unit) for s in cfg.stages)
 
 
 def logits_kernel_vs_plain(torch, cfg, params, prompts, paged):
@@ -490,6 +811,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions
     records = check_kernels(torch, F, kmod)
+    check_scan_kernels(torch, kmod, records)
 
     # ---- 4. full-width models through ServingEngine
     for arch in MODELS:
@@ -504,15 +826,16 @@ def main() -> int:
 
 def serve_model(torch, kmod, cfg, records) -> None:
     """Phase 4 for one full-width model: bf16 serving dense then paged (the
-    model's own kernel launched once per layer and decode step, the others
-    never), bf16 logits kernel vs plain, fp32 dense == paged greedy streams.
-    Writes each main-path launch count into ``records``."""
+    model's decode kernel launched once per layer and decode step, its
+    prefill scan once per layer and prefill call, the others never), bf16
+    kernel path vs plain path, fp32 dense == paged greedy streams. Adds each
+    main-path launch count (the bf16 dense and paged runs) to ``records``."""
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
     from repro_torch.training import make_prompts
 
     arch = cfg.name
-    n_layers = sum(s.n_units * len(s.unit) for s in cfg.stages)
+    n_layers = _n_layers(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device="cuda")
@@ -535,13 +858,13 @@ def serve_model(torch, kmod, cfg, records) -> None:
         for r in reqs:
             if not (r.done and (len(r.output) == 32 or r.output[-1] == eos)):
                 raise SystemExit(f"{arch} {tag}: request {r.uid} did not finish: {r.output}")
-        own = MODELS[arch][paged]
-        want = {name: n_layers * info["decode_steps"] if name == own else 0
-                for name in COUNTED}
+        want = expected_launches(arch, paged, n_layers, st)
         if info["launches"] != want:
             raise SystemExit(f"{arch} {tag}: launches {info['launches']} != {want} "
-                             f"({n_layers} layers x {info['decode_steps']} steps)")
-        records[own]["launches"] = info["launches"][own]
+                             f"({n_layers} layers x {info['decode_steps']} decode steps, "
+                             f"x {info['prefill_calls']} prefill calls)")
+        for name, n in info["launches"].items():
+            records[name]["launches"] += n
         steps = info["step_ms_batch8"]
         run = {
             "requests": len(reqs), "prefill_tokens": st.prefill_tokens,
@@ -553,7 +876,8 @@ def serve_model(torch, kmod, cfg, records) -> None:
             "modelled_decode_j": st.decode_j, "modelled_prefill_j": st.prefill_j,
             "lock_clock_mhz": st.actual_clock_mhz,
             "smi_during_run": info["smi"],
-            "kernel_launches": info["launches"][own],
+            "prefill_calls": info["prefill_calls"],
+            "kernel_launches": {k: n for k, n in info["launches"].items() if n},
             "profile": info["profile"],
         }
         if paged:
@@ -561,9 +885,21 @@ def serve_model(torch, kmod, cfg, records) -> None:
         print(f"[serve] {arch} {tag}: " + json.dumps(run))
         del engine
     print(f"[serve] {arch} max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    longest = max(prompts, key=len)
+    print(f"[serve] {arch} prefill profile: "
+          + json.dumps(profile_prefill(torch, cfg, params, longest)))
 
     atol = LOGIT_ATOL_BF16[arch]
-    for paged in (False, True):
+    short_long = [min(prompts, key=len), longest]      # buckets 64 and 512
+    if MODELS[arch]["prefill"]:
+        cmp = prefill_kernel_vs_plain(torch, cfg, params, short_long)
+        print(f"[serve] {arch} bf16 prefill kernel vs plain: " + json.dumps(cmp)
+              + f" (every layer's scan at {SCAN_TOL}; logits within max({atol}, 2 x the "
+              f"noise floor))")
+        if not (cmp["layers_ok"]
+                and cmp["logits_err"] <= max(atol, 2 * cmp["noise_floor_logits_err"])):
+            raise SystemExit(f"{arch}: kernel-path prefill disagrees with the plain path")
+    for paged in (False, True) if MODELS[arch]["decode"] else ():
         err, agree, scale = logits_kernel_vs_plain(torch, cfg, params, prompts, paged)
         tag = "paged" if paged else "dense"
         print(f"[serve] {arch} {tag} bf16 logits kernel vs plain: max_abs_err={err:.4e} "
@@ -580,14 +916,27 @@ def serve_model(torch, kmod, cfg, records) -> None:
         engine, reqs, info = serve(torch, cfg32, params32, prompts, paged=paged, max_new=8,
                                    kmod=kmod)
         streams[paged] = [r.output for r in reqs]
+        want = expected_launches(arch, paged, n_layers, engine.stats)
+        if info["launches"] != want:
+            raise SystemExit(f"{arch} fp32: launches {info['launches']} != {want}")
         print(f"[serve] {arch} fp32 {'paged' if paged else 'dense'}: launches "
-              f"{info['launches'][MODELS[arch][paged]]}, first stream {streams[paged][0]}")
+              f"{ {k: n for k, n in info['launches'].items() if n} }, "
+              f"first stream {streams[paged][0]}")
         del engine
     if streams[False] != streams[True]:
         raise SystemExit(f"{arch}: fp32 dense and paged greedy streams differ")
     print(f"[serve] {arch} fp32 dense == paged greedy streams: ok")
+    if MODELS[arch]["prefill"]:
+        cmp = prefill_kernel_vs_plain(torch, cfg32, params32, short_long)
+        print(f"[serve] {arch} fp32 prefill kernel vs plain: " + json.dumps(cmp)
+              + f" (atol {LOGIT_ATOL_FP32}, states within {LOGIT_ATOL_FP32} x max |state|)")
+        if not (cmp["logits_err"] <= LOGIT_ATOL_FP32 and cmp["decode_err"] <= LOGIT_ATOL_FP32
+                and cmp["state_err"] <= LOGIT_ATOL_FP32 * cmp["state_max"]
+                and cmp["argmax_equal"]):
+            raise SystemExit(f"{arch}: fp32 kernel-path prefill disagrees with the plain path")
     del params32
     torch.cuda.empty_cache()
+    print(f"[serve] {arch} phase done in {time.perf_counter() - t0:.1f} s")
 
 
 def _leaves(tree):

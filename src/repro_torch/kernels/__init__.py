@@ -6,10 +6,13 @@ PyTorch version.
 * mla_decode  — absorbed-MLA latent decode over a dense or a paged
                 compressed cache, and the fused decode attention around it;
                 the counterpart of ``repro.kernels.mla_decode``.
+* ssd         — the chunked Mamba2 SSD prefill scan, and the padded prefill
+                around it; the counterpart of ``repro.kernels.ssd``.
+* gdn         — the gated-delta-rule prefill scan, and the padded prefill
+                around it; the counterpart of ``repro.kernels.gdn``.
 
 Sources live in ``csrc/``; ``build.py`` compiles them with ``nvcc`` at first
-use. The other Pallas kernels of ``repro.kernels`` (ssd, gdn) are not ported
-yet.
+use. Every Pallas kernel of ``repro.kernels`` has its counterpart here.
 """
 from repro_torch.kernels.decode_attn import (
     decode_attention,
@@ -17,6 +20,7 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.gdn import gdn_prefill, gdn_scan, gdn_scan_ref
 from repro_torch.kernels.mla_decode import (
     mla_fused_decode,
     mla_latent_decode,
@@ -25,6 +29,7 @@ from repro_torch.kernels.mla_decode import (
     mla_paged_latent_decode,
     mla_paged_latent_decode_ref,
 )
+from repro_torch.kernels.ssd import ssd_prefill, ssd_scan, ssd_scan_ref
 
 __all__ = [
     "decode_attention", "decode_attention_ref",
@@ -32,4 +37,6 @@ __all__ = [
     "mla_latent_decode", "mla_latent_decode_ref",
     "mla_paged_latent_decode", "mla_paged_latent_decode_ref",
     "mla_fused_decode", "mla_paged_fused_decode",
+    "ssd_scan", "ssd_scan_ref", "ssd_prefill",
+    "gdn_scan", "gdn_scan_ref", "gdn_prefill",
 ]

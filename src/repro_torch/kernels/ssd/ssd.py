@@ -1,0 +1,96 @@
+"""SSD scan wrapper: the CUDA kernels of ``csrc/ssd_scan.cu`` on a CUDA
+tensor, the plain PyTorch version of ``ref.py`` on a CPU tensor.
+
+Counterpart of the Pallas kernel ``repro.kernels.ssd.ssd.ssd_scan``. On a
+CUDA tensor the wrapper launches its kernels (a c.b pass, then the scan) or
+raises; there is no fallback. It counts its launches in
+``ssd_scan.launches`` (the CPU path does not count).
+
+Contract (as the Pallas kernel): x (B,S,H,P) and b, c (B,S,N) in one dtype
+(fp32 or bf16), dt (B,S,H) and a (H,) fp32, S a multiple of ``CHUNK``
+(``ops.ssd_prefill`` pads); returns y (B,S,H,P) in x's dtype and the final
+state (B,H,P,N) fp32. The kernel takes P a multiple of ``ROWS_PER_CTA`` and
+N in ``STATE_DIMS``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.common import check_launch, cuda_operand
+from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+CHUNK = 64                    # tokens per chunk of the kernel (Q in the source)
+ROWS_PER_CTA = 32             # state rows per CTA (PS in the source)
+STATE_DIMS = (16, 32, 64, 128)
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LAUNCHERS = {}
+
+
+def _launcher(dtype: torch.dtype):
+    """The C launcher ``ssd_scan_<f32|bf16>``, built and bound on first use."""
+    fn = _LAUNCHERS.get(dtype)
+    if fn is None:
+        from repro_torch.kernels.build import library
+
+        fn = getattr(library("ssd_scan"), f"ssd_scan_{_SUFFIX[dtype]}")
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[dtype] = fn
+    return fn
+
+
+def _check(x, dt, a, b, c) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 3 or c.dim() != 3:
+        raise ValueError("ssd_scan: x (B,S,H,P), dt (B,S,H), a (H,), b and c (B,S,N)")
+    bsz, s, h, _ = x.shape
+    if dt.shape != (bsz, s, h) or a.shape != (h,):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)} / a {tuple(a.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if b.shape[:2] != (bsz, s) or c.shape != b.shape:
+        raise ValueError(f"ssd_scan: b {tuple(b.shape)} and c {tuple(c.shape)} must be "
+                         f"({bsz}, {s}, N)")
+    if s % CHUNK:
+        raise ValueError(f"ssd_scan: S={s} not a multiple of the chunk {CHUNK} "
+                         f"(ops.ssd_prefill pads)")
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"ssd_scan: dtype {x.dtype} not supported (fp32, bf16)")
+    for t, what in ((b, "b"), (c, "c")):
+        if t.dtype != x.dtype:
+            raise TypeError(f"ssd_scan: {what} dtype {t.dtype} != x dtype {x.dtype}")
+    for t, what in ((dt, "dt"), (a, "a")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {what} dtype {t.dtype}, expected torch.float32")
+
+
+def ssd_scan(x, dt, a, b, c):
+    """x (B,S,H,P), dt (B,S,H), a (H,), b, c (B,S,N) -> (y (B,S,H,P) in
+    x's dtype, final state (B,H,P,N) fp32)."""
+    _check(x, dt, a, b, c)
+    if x.device.type == "cpu":
+        y, fs = ssd_scan_ref(x, dt, a, b, c)
+        return y.to(x.dtype), fs
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if p % ROWS_PER_CTA or n not in STATE_DIMS:
+        raise ValueError(f"ssd_scan: P={p} must be a multiple of {ROWS_PER_CTA} and "
+                         f"N={n} one of {STATE_DIMS}")
+    dev = x.device
+    # the kernel reads its inputs one element at a time
+    operands = [cuda_operand(t, what, "ssd_scan", dev, align=t.element_size())
+                for t, what in ((x, "x"), (dt, "dt"), (a, "a"), (b, "b"), (c, "c"))]
+    cb = torch.empty((bsz, s // CHUNK, CHUNK, CHUNK), dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    fs = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _launcher(x.dtype)(*operands, cb.data_ptr(), y.data_ptr(), fs.data_ptr(),
+                            bsz, s, h, p, n, stream)
+    check_launch(rc, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, fs
+
+
+ssd_scan.launches = 0

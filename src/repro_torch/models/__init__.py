@@ -1,5 +1,6 @@
 """Model zoo of the port: config schema, layers, attention (GQA and
-absorbed MLA), assembly (``attn`` and ``mla`` stacks so far)."""
+absorbed MLA), the recurrent blocks (Mamba2 SSD, Gated DeltaNet), assembly
+(``attn``, ``mla``, ``ssm`` and ``gdn`` stacks so far)."""
 from repro_torch.models.config import (
     ModelConfig,
     StageSpec,

@@ -1,13 +1,19 @@
 """Decoder assembly: stages of looped units.
 
 Counterpart of ``repro.models.model`` for configs whose blocks are
-``attn`` / ``attn_global`` (GQA) or ``mla`` (absorbed MLA); other block
-kinds raise ``NotImplementedError``. The param and cache trees keep the JAX
-layout, so the tests compare like with like:
+``attn`` / ``attn_global`` (GQA), ``mla`` (absorbed MLA), ``ssm`` (Mamba2)
+or ``gdn`` (Gated DeltaNet); other block kinds raise
+``NotImplementedError``. The param and cache trees keep the JAX layout, so
+the tests compare like with like:
 
     params = {"embed": {"table"}, "final_norm": {"scale"},
               "stages": [{"b0": {...}, ...}, ...]}   # leaves (n_units, ...)
-    cache  = {"stages": [{"b0": {"k", "v"} | {"ckv", "kr"}, ...}, ...]}
+    cache  = {"stages": [{"b0": {"k", "v"} | {"ckv", "kr"}      # per token
+                               | {"ssm", "conv"} | {"gdn"}, ...}, ...]}  # state
+
+Per-token leaves are (n_units, B, L, ...) dense or (n_units, P, bs, ...)
+paged; the O(1) state leaves of ``ssm`` and ``gdn`` are (n_units, B, ...)
+in both layouts (slot indexed).
 
 The stage ``lax.scan`` becomes a loop over units, indexing the stacked
 leaves. Prefill and decode write the caches IN PLACE (the JAX functions
@@ -19,7 +25,7 @@ return new ones); they still return the cache so call sites read alike.
     init_cache(cfg, batch, max_len, device=)
     init_paged_cache(cfg, batch, n_pages, block_size, device=)
     paged_layout(cfg)
-    prefill(params, cfg, tokens, cache, prompt_lengths=)  -> (logits, cache, lengths)
+    prefill(params, cfg, tokens, cache, prompt_lengths=, plain=)  -> (logits, cache, lengths)
     decode_step(params, cfg, token, cache, lengths)       -> (logits, cache, lengths+1)
     decode_step_paged(params, cfg, token, cache, lengths, active, block_tables)
 """
@@ -32,7 +38,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import gdn as gdn_mod
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     dt,
@@ -46,9 +54,9 @@ from repro_torch.models.layers import (
 )
 
 ATTN_KINDS = ("attn", "attn_global")
-PORTED_KINDS = ATTN_KINDS + ("mla",)
-# Block kinds whose cache grows per token and therefore lives in pages.
-PAGED_KINDS = ("attn", "attn_global", "shared_attn", "mla", "mla_moe")
+PORTED_KINDS = ATTN_KINDS + ("mla", "ssm", "gdn")
+# fp32 leaves at every param dtype, as the JAX init makes them
+FP32_PARAMS = ("a_log", "d_skip", "dt_bias")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -60,22 +68,31 @@ def _check_kinds(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: embedding inputs are not ported yet")
 
 
-def _map(fn, tree):
+def _map(fn, tree, name: str = ""):
+    """``fn(leaf, name)`` over a nested dict/list tree; ``name`` is the
+    leaf's dict key (or its parent's, inside a list)."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: _map(fn, v, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+        return [_map(fn, v, name) for v in tree]
+    return fn(tree, name)
 
 
 # ------------------------------------------------------------------- params
 def _init_block(kind: str, cfg: ModelConfig, generator, dtype, device, n: int) -> Dict:
     d = cfg.d_model
     lead = (n,)
-    mixer = ({"mla": mla_mod.init_mla(generator, cfg, dtype, device, lead)} if kind == "mla"
-             else {"attn": attn.init_attention(generator, cfg, dtype, device, lead)})
+    norm1 = {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+    if kind == "ssm":                 # no MLP: the mixer is the whole block
+        return {"norm1": norm1, "ssm": ssm_mod.init_ssm(generator, cfg, dtype, device, lead)}
+    if kind == "mla":
+        mixer = {"mla": mla_mod.init_mla(generator, cfg, dtype, device, lead)}
+    elif kind == "gdn":
+        mixer = {"gdn": gdn_mod.init_gdn(generator, cfg, dtype, device, lead)}
+    else:
+        mixer = {"attn": attn.init_attention(generator, cfg, dtype, device, lead)}
     return {
-        "norm1": {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)},
+        "norm1": norm1,
         **mixer,
         "norm2": {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)},
         "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp_type, dtype, device, lead),
@@ -104,12 +121,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda") -> Dict:
     """The weight bridge: a JAX ``init_params`` tree converted leaf by leaf
-    to numpy arrays (same nesting) -> this package's params, same layout."""
+    to numpy arrays (same nesting) -> this package's params, same layout,
+    in ``param_dtype`` except the fp32 leaves of ``FP32_PARAMS``."""
     _check_kinds(cfg)
     device = resolve_device(device)
     dtype = dt(cfg.param_dtype)
-    return _map(lambda a: torch.from_numpy(np.asarray(a, np.float32).copy())
-                .to(device=device, dtype=dtype), tree)
+    return _map(lambda a, name: torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+        device=device, dtype=torch.float32 if name in FP32_PARAMS else dtype), tree)
 
 
 def cache_from_numpy(tree, *, device="cuda") -> Dict:
@@ -122,23 +140,35 @@ def cache_from_numpy(tree, *, device="cuda") -> Dict:
             return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
         return torch.from_numpy(a.copy()).to(device)
 
-    return _map(conv, tree)
+    return _map(lambda a, _: conv(a), tree)
 
 
 # -------------------------------------------------------------------- cache
-def _cache_rows(kind: str, cfg: ModelConfig) -> Dict[str, tuple]:
-    """Each cache leaf of a ``kind`` block -> the shape of one token's row."""
-    if kind == "mla":
-        return {"ckv": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_head_dim,)}
-    return {"k": (cfg.n_kv_heads, cfg.head_dim), "v": (cfg.n_kv_heads, cfg.head_dim)}
-
-
-def _stacked_cache(cfg: ModelConfig, lead: tuple, device) -> Dict:
-    """Zero caches of every block, leaves (n_units,) + ``lead`` + row."""
+def _cache_leaves(kind: str, cfg: ModelConfig) -> Dict[str, Tuple[tuple, bool, torch.dtype]]:
+    """Each cache leaf of a ``kind`` block -> (its trailing shape, whether it
+    holds one row per token, dtype). Per-token leaves live in pages in a
+    paged cache; the O(1) state of ssm / gdn stays slot indexed there too."""
     cd = dt(cfg.compute_dtype)
+    if kind == "ssm":
+        d_inner, heads, p, n, g, conv_dim = ssm_mod._dims(cfg)
+        return {"ssm": ((heads, p, n), False, torch.float32),
+                "conv": ((cfg.ssm_conv_kernel - 1, conv_dim), False, cd)}
+    if kind == "gdn":
+        return {"gdn": ((cfg.gdn_heads, cfg.gdn_head_dim, cfg.gdn_head_dim), False,
+                        torch.float32)}
+    if kind == "mla":
+        return {"ckv": ((cfg.kv_lora_rank,), True, cd), "kr": ((cfg.qk_rope_head_dim,), True, cd)}
+    row = (cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (row, True, cd), "v": (row, True, cd)}
+
+
+def _stacked_cache(cfg: ModelConfig, batch: int, token_lead: tuple, device) -> Dict:
+    """Zero caches of every block: per-token leaves (n_units,) + ``token_lead``
+    + row, state leaves (n_units, batch) + state shape."""
     return {"stages": [
-        {f"b{i}": {key: torch.zeros((stage.n_units,) + lead + row, dtype=cd, device=device)
-                   for key, row in _cache_rows(kind, cfg).items()}
+        {f"b{i}": {key: torch.zeros((stage.n_units,) + (token_lead if per_token else (batch,))
+                                    + shape, dtype=dtype, device=device)
+                   for key, (shape, per_token, dtype) in _cache_leaves(kind, cfg).items()}
          for i, kind in enumerate(stage.unit)}
         for stage in cfg.stages
     ]}
@@ -146,24 +176,24 @@ def _stacked_cache(cfg: ModelConfig, lead: tuple, device) -> Dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> Dict:
     _check_kinds(cfg)
-    return _stacked_cache(cfg, (batch, max_len), resolve_device(device))
+    return _stacked_cache(cfg, batch, (batch, max_len), resolve_device(device))
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, block_size: int,
                      *, device="cuda") -> Dict:
     """Paged decode cache: per-token caches live in ``n_pages`` physical
     pages of ``block_size`` tokens (page 0 reserved as the null page),
-    shared by all requests through per-request block tables. Same tree as
-    ``init_cache``."""
+    shared by all requests through per-request block tables; O(1) state
+    stays a dense ``batch``-row array. Same tree as ``init_cache``."""
     _check_kinds(cfg)
-    return _stacked_cache(cfg, (n_pages, block_size), resolve_device(device))
+    return _stacked_cache(cfg, batch, (n_pages, block_size), resolve_device(device))
 
 
 def paged_layout(cfg: ModelConfig) -> Dict:
     """Boolean tree matching the cache: True leaves are paged (block-table
     indexed), False leaves slot indexed."""
     return {"stages": [
-        {f"b{i}": {key: kind in PAGED_KINDS for key in _cache_rows(kind, cfg)}
+        {f"b{i}": {key: per_token for key, (_, per_token, _) in _cache_leaves(kind, cfg).items()}
          for i, kind in enumerate(stage.unit)}
         for stage in cfg.stages
     ]}
@@ -200,10 +230,22 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
         sc = cache["stages"][si]
         for u in range(stage.n_units):
             for i, kind in enumerate(stage.unit):
-                bp = _map(lambda a, _u=u: a[_u], sp[f"b{i}"])
+                bp = _map(lambda a, _, _u=u: a[_u], sp[f"b{i}"])
                 bc = {key: t[u] for key, t in sc[f"b{i}"].items()}
                 h = rmsnorm(bp["norm1"], x, cfg.rms_eps)
-                if kind == "mla":
+                if kind == "ssm":             # no MLP
+                    if mode == "prefill":
+                        s_out, _ = ssm_mod.ssm_prefill(bp["ssm"], h, cfg, cache=bc, plain=plain)
+                    else:
+                        s_out, _ = ssm_mod.ssm_decode(bp["ssm"], h, bc, cfg)
+                    x = x + s_out
+                    continue
+                if kind == "gdn":             # state slot indexed: dense and paged alike
+                    if mode == "prefill":
+                        a_out, _ = gdn_mod.gdn_prefill(bp["gdn"], h, cfg, cache=bc, plain=plain)
+                    else:
+                        a_out, _ = gdn_mod.gdn_decode(bp["gdn"], h, bc, cfg)
+                elif kind == "mla":
                     if mode == "prefill":
                         a_out, _ = mla_mod.mla_prefill(bp["mla"], h, cfg, cache=bc)
                     elif block_tables is not None:
@@ -243,14 +285,17 @@ def logits(params: Dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor
 
 
 def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *,
-            prompt_lengths: Optional[torch.Tensor] = None
+            prompt_lengths: Optional[torch.Tensor] = None, plain: bool = False
             ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """Process the prompt, fill caches, return last-valid-token logits."""
+    """Process the prompt, fill caches, return last-valid-token logits.
+    ``plain=True`` scans (ssm, gdn) with the kernels' plain versions. As in
+    the reference, a recurrent block runs every position, padding past
+    ``prompt_lengths`` included, so its state holds the padding too."""
     b, s = inputs.shape[0], inputs.shape[1]
     if prompt_lengths is None:
         prompt_lengths = torch.full((b,), s, dtype=torch.int32, device=inputs.device)
     x = _embed_inputs(params, cfg, inputs)
-    x = _run_stages(params, cfg, x, "prefill", cache, None)
+    x = _run_stages(params, cfg, x, "prefill", cache, None, plain=plain)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     last = x[torch.arange(b, device=x.device), prompt_lengths.long() - 1]
     return logits(params, cfg, last[:, None])[:, 0], cache, prompt_lengths
@@ -260,7 +305,8 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor, cache: Dict
                 lengths: torch.Tensor, *, plain: bool = False
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """One decode step: append token, return (logits (B,V), cache, lengths+1).
-    ``plain=True`` attends with the kernels' plain versions."""
+    ``plain=True`` attends with the kernels' plain versions (the recurrent
+    steps of ssm and gdn have no kernel)."""
     x = _embed_inputs(params, cfg, token[:, None])
     x = _run_stages(params, cfg, x, "decode", cache, lengths, plain=plain)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)

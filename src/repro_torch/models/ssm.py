@@ -1,0 +1,146 @@
+"""Mamba2 / SSD block.
+
+Counterpart of ``repro.models.ssm``. Prefill runs the chunked SSD scan of
+``repro_torch.kernels.ssd`` (the hand-written CUDA kernel on a card, its
+plain version on the CPU or with ``plain=True``), where the JAX model runs
+its jnp ``ssd_chunked``; decode is the O(1) recurrent step ``ssd_step`` in
+plain PyTorch, as the JAX model computes it outside any Pallas kernel.
+
+State cache: ``{"ssm": (B, H, P, N) fp32, "conv": (B, K-1, conv_dim)}`` in
+the compute dtype, constant size. Prefill and decode write it IN PLACE.
+
+At bf16 the scan returns y in x's dtype, as the Pallas kernel writes it;
+the JAX model keeps the chunked y in fp32 until ``d_skip * x`` is added, so
+the port rounds y to bf16 once more. At fp32 the two agree to rounding.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd import ssd_prefill
+from repro_torch.models.layers import normal_init, rmsnorm
+
+
+def _dims(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    heads = cfg.ssm_heads
+    p = d_inner // heads
+    n = cfg.ssm_state
+    g = cfg.ssm_groups
+    conv_dim = d_inner + 2 * g * n
+    return d_inner, heads, p, n, g, conv_dim
+
+
+def init_ssm(generator, cfg, dtype, device, lead=()) -> Dict:
+    """``a_log``, ``d_skip`` and ``dt_bias`` are fp32 at every param dtype,
+    as in the JAX init."""
+    d = cfg.d_model
+    d_inner, heads, p, n, g, conv_dim = _dims(cfg)
+    proj_dim = 2 * d_inner + 2 * g * n + heads  # [z, x, B, C, dt]
+    f32 = dict(dtype=torch.float32, device=device)
+    a_log = torch.log(torch.linspace(1.0, 16.0, heads, **f32))
+    return {
+        "w_in": normal_init(lead + (d, proj_dim), generator, 1.0 / np.sqrt(d), dtype, device),
+        "conv_w": normal_init(lead + (cfg.ssm_conv_kernel, conv_dim), generator, 0.2, dtype,
+                              device),
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=device),
+        "a_log": a_log.expand(lead + (heads,)).clone(),
+        "d_skip": torch.ones(lead + (heads,), **f32),
+        "dt_bias": torch.zeros(lead + (heads,), **f32),
+        "norm": {"scale": torch.zeros(lead + (d_inner,), dtype=dtype, device=device)},
+        "w_out": normal_init(lead + (d_inner, d), generator, 1.0 / np.sqrt(d_inner), dtype,
+                             device),
+    }
+
+
+def _split_proj(cfg, proj):
+    d_inner, heads, p, n, g, _ = _dims(cfg)
+    return torch.split(proj, [d_inner, d_inner, g * n, g * n, heads], dim=-1)
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor]):
+    """Depthwise causal conv1d as the reference's window sum. u: (B,S,C),
+    w: (K,C). Returns (silu(y), new_state (B, K-1, C))."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+    else:
+        pad = state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)                     # (B, S+K-1, C)
+    y = sum(full[:, j:j + u.shape[1], :] * w[j] for j in range(k)) + b
+    return F.silu(y), full[:, full.shape[1] - (k - 1):, :]
+
+
+def ssd_step(x, dt, a, b, c, state):
+    """Single-token recurrent step (decode).
+
+    x: (B,H,P), dt: (B,H), b,c: (B,G,N), state: (B,H,P,N) fp32.
+    -> y (B,H,P) fp32, new state."""
+    rep = x.shape[1] // b.shape[1]
+    bh = b.repeat_interleave(rep, dim=1).float()          # (B,H,N)
+    ch = c.repeat_interleave(rep, dim=1).float()
+    dt32 = dt.float()
+    decay = torch.exp(dt32 * a[None, :])                  # (B,H)
+    upd = (dt32[:, :, None] * x.float())[..., None] * bh[:, :, None, :]
+    new_state = state * decay[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, ch)
+    return y, new_state
+
+
+def _gates(params, x, cfg):
+    """In-projection of x (B,S,d) -> z, the conv input [x; B; C], dt (fp32)."""
+    z, xs, b, c, dtp = _split_proj(cfg, x @ params["w_in"])
+    return z, torch.cat([xs, b, c], dim=-1), F.softplus(dtp.float() + params["dt_bias"])
+
+
+def _finish(params, y, xs, z, x, cfg):
+    """y (B,S,H,P) + d_skip * x in fp32 -> gated RMSNorm -> out-projection."""
+    bsz, s = x.shape[0], x.shape[1]
+    d_inner = y.shape[2] * y.shape[3]
+    y = y.float() + params["d_skip"][None, None, :, None] * xs.float()
+    y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    y = rmsnorm(params["norm"], y * F.silu(z), cfg.rms_eps)
+    return y @ params["w_out"]
+
+
+def ssm_prefill(params: Dict, x: torch.Tensor, cfg, *, cache: Optional[Dict] = None,
+                plain: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The whole (padded) prompt; the final SSM and conv states are written
+    into ``cache`` in place. ``plain=True`` scans with the kernel's plain
+    version."""
+    bsz, s, _ = x.shape
+    d_inner, heads, p, n, g, conv_dim = _dims(cfg)
+    z, conv_in, dtv = _gates(params, x, cfg)
+    conv_out, conv_state = _causal_conv(conv_in, params["conv_w"], params["conv_b"], None)
+    xs, b, c = torch.split(conv_out, [d_inner, g * n, g * n], dim=-1)
+    xs = xs.reshape(bsz, s, heads, p)
+    y, final_state = ssd_prefill(xs, dtv, -torch.exp(params["a_log"]),
+                                 b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n), plain=plain)
+    out = _finish(params, y, xs, z, x, cfg)
+    if cache is not None:
+        cache["ssm"].copy_(final_state)
+        cache["conv"].copy_(conv_state)
+    return out, cache
+
+
+def ssm_decode(params: Dict, x: torch.Tensor, cache: Dict, cfg
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One token (B, 1, d) for every row; the states update in place."""
+    bsz = x.shape[0]
+    d_inner, heads, p, n, g, conv_dim = _dims(cfg)
+    z, conv_in, dtv = _gates(params, x, cfg)                  # conv_in (B,1,conv_dim)
+    conv_out, conv_state = _causal_conv(conv_in, params["conv_w"], params["conv_b"],
+                                        cache["conv"])
+    xs, b, c = torch.split(conv_out[:, 0], [d_inner, g * n, g * n], dim=-1)
+    xs = xs.reshape(bsz, heads, p)
+    y, new_state = ssd_step(xs, dtv[:, 0], -torch.exp(params["a_log"]),
+                            b.reshape(bsz, g, n), c.reshape(bsz, g, n), cache["ssm"])
+    out = _finish(params, y[:, None], xs[:, None], z, x, cfg)
+    cache["ssm"].copy_(new_state)
+    cache["conv"].copy_(conv_state)
+    return out, cache

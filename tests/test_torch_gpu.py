@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card, against their plain versions:
-decode attention (GQA) and MLA latent decode, dense and paged.
+decode attention (GQA) and MLA latent decode, dense and paged; the SSD and
+gated-delta-rule prefill scans.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -14,11 +15,17 @@ import torch
 from repro_torch.configs import reduced_config
 from repro_torch.kernels import (
     decode_attention,
+    gdn_prefill,
+    gdn_scan,
+    gdn_scan_ref,
     mla_latent_decode,
     mla_latent_decode_ref,
     mla_paged_latent_decode,
     mla_paged_latent_decode_ref,
     paged_decode_attention,
+    ssd_prefill,
+    ssd_scan,
+    ssd_scan_ref,
 )
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
@@ -27,6 +34,7 @@ from repro_torch.kernels.decode_attn.ref import (
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # tests/test_kernels.py, SSD / GDN
 
 
 def _need_card():
@@ -160,11 +168,101 @@ def test_mla_cuda_kernel_rejects_bad_operands():
                           scale=0.1)
 
 
+def _ssd_inputs(dtype, b, s, h, p, n, seed=7):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h), np.float32)))
+    a = -np.exp(np.linspace(-2, 0.5, h)).astype(np.float32)
+    bm = rng.standard_normal((b, s, n), np.float32) * 0.3
+    cm = rng.standard_normal((b, s, n), np.float32) * 0.3
+    x, dt, a, bm, cm = (torch.from_numpy(t).cuda() for t in (x, dt, a, bm, cm))
+    return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
+
+
+def _gdn_inputs(dtype, b, s, h, k, seed=8):
+    rng = np.random.default_rng(seed)
+    unit = lambda t: t / np.linalg.norm(t, axis=-1, keepdims=True)
+    q = unit(rng.standard_normal((b, s, h, k))).astype(np.float32)
+    kk = unit(rng.standard_normal((b, s, h, k))).astype(np.float32)
+    v = (rng.standard_normal((b, s, h, k)) * 0.5).astype(np.float32)
+    beta = (1 / (1 + np.exp(-rng.standard_normal((b, s, h))))).astype(np.float32)
+    alpha = (1 / (1 + np.exp(-rng.standard_normal((b, s, h)) - 2))).astype(np.float32)
+    q, kk, v, beta, alpha = (torch.from_numpy(t).cuda() for t in (q, kk, v, beta, alpha))
+    return q.to(dtype), kk.to(dtype), v.to(dtype), beta, alpha
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["gemma-2b", "minitron-4b-mla"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (1, 512, 80, 64, 128),    # mamba2-4b prefill, 512-token bucket
+    (2, 128, 4, 32, 16),      # reduced mamba2-4b
+    (1, 100, 8, 64, 64),      # not a chunk multiple (through ssd_prefill)
+])
+def test_ssd_cuda_kernel_matches_plain(dtype, b, s, h, p, n):
+    _need_card()
+    ts = _ssd_inputs(dtype, b, s, h, p, n)
+    before = ssd_scan.launches
+    y, fs = ssd_prefill(*ts)
+    want_y, want_fs = ssd_scan_ref(*ts)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1 and y.dtype == dtype
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(fs, want_fs, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,k", [
+    (1, 512, 20, 128),        # gdn-4b prefill, 512-token bucket
+    (2, 64, 2, 16),           # reduced gdn-4b
+    (1, 50, 3, 64),           # not a chunk multiple (through gdn_prefill)
+])
+def test_gdn_cuda_kernel_matches_plain(dtype, b, s, h, k):
+    _need_card()
+    ts = _gdn_inputs(dtype, b, s, h, k)
+    before = gdn_scan.launches
+    y, fs = gdn_prefill(*ts)
+    want_y, want_fs = gdn_scan_ref(*ts)
+    torch.cuda.synchronize()
+    assert gdn_scan.launches == before + 1 and y.dtype == dtype
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(fs, want_fs, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_reject_bad_operands():
+    _need_card()
+    x, dt, a, bm, cm = _ssd_inputs(torch.float32, 1, 64, 2, 32, 16)
+    with pytest.raises(TypeError):                       # dt must be fp32
+        ssd_scan(x, dt.bfloat16(), a, bm, cm)
+    with pytest.raises(TypeError):                       # b, c in x's dtype
+        ssd_scan(x, dt, a, bm.bfloat16(), cm.bfloat16())
+    with pytest.raises(NotImplementedError):             # ssm_groups > 1
+        ssd_prefill(x, dt, a, torch.stack([bm, bm], 2), torch.stack([cm, cm], 2))
+    with pytest.raises(ValueError):                      # a CPU operand for the kernel
+        ssd_scan(x, dt.cpu(), a, bm, cm)
+    with pytest.raises(ValueError):                      # P = 16: not a multiple of 32
+        ssd_scan(x[..., :16].contiguous(), dt, a, bm, cm)
+    q, k, v, beta, alpha = _gdn_inputs(torch.float32, 1, 32, 2, 16)
+    with pytest.raises(TypeError):
+        gdn_scan(q, k, v, beta.bfloat16(), alpha)
+    with pytest.raises(TypeError):
+        gdn_scan(q, k.bfloat16(), v, beta, alpha)
+    with pytest.raises(ValueError):
+        gdn_scan(q, k, v.cpu(), beta, alpha)
+    with pytest.raises(ValueError):                      # K = 8: no instance
+        gdn_scan(*(t[..., :8].contiguous() for t in (q, k, v)), beta, alpha)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "minitron-4b-mla", "mamba2-4b", "gdn-4b"])
 def test_decode_step_on_card_matches_cpu(arch):
     """Reduced model in fp32: one prefill + decode step on the card (kernel
-    path) against the same weights on the CPU (plain path)."""
+    path: the scan kernels in prefill for mamba2-4b and gdn-4b, the decode
+    kernels for the others) against the same weights on the CPU (plain
+    path)."""
     _need_card()
     cfg = reduced_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

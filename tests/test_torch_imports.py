@@ -15,6 +15,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the wrappers and plain versions of every kernel and the blocks that call
+# them: the walk must reach each of them
+KERNEL_MODULES = (
+    "repro_torch.kernels.decode_attn.decode_attn", "repro_torch.kernels.decode_attn.ref",
+    "repro_torch.kernels.mla_decode.mla_decode", "repro_torch.kernels.mla_decode.ref",
+    "repro_torch.kernels.ssd.ssd", "repro_torch.kernels.ssd.ref",
+    "repro_torch.kernels.gdn.gdn", "repro_torch.kernels.gdn.ref",
+    "repro_torch.models.attention", "repro_torch.models.mla",
+    "repro_torch.models.ssm", "repro_torch.models.gdn",
+)
 
 
 def _port_sources():
@@ -29,8 +39,9 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n"
+        f"missing = sorted(set({KERNEL_MODULES!r}) - set(mods))\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -8,7 +8,11 @@ the same fp32 arithmetic, but XLA and PyTorch block their matmuls and
 reductions differently on the CPU (observed differences are ~1e-6).
 Greedy tokens must be equal, and the port's paged path must give its dense
 path's logits. ``minitron-4b-mla`` runs the absorbed MLA block (latent cache
-``{"ckv", "kr"}``), also with a low-rank query (``q_lora_rank``).
+``{"ckv", "kr"}``), also with a low-rank query (``q_lora_rank``);
+``mamba2-4b`` and ``gdn-4b`` run the recurrent blocks, whose O(1) state
+(``{"ssm", "conv"}``, ``{"gdn"}``) stays slot indexed in the paged cache
+(the JAX ``ssd_chunked`` against the port's sequential plain scan, the same
+math in another order: still within 1e-4).
 """
 import dataclasses
 
@@ -40,7 +44,8 @@ def _configs(arch):
 
 
 def _cache_keys(cfg):
-    """The cache leaf names of the first block: ("k", "v") or ("ckv", "kr")."""
+    """The cache leaf names of the first block: ("k", "v"), ("ckv", "kr"),
+    ("ssm", "conv") or ("gdn",)."""
     return tuple(T.paged_layout(cfg)["stages"][0]["b0"])
 
 
@@ -58,18 +63,22 @@ def _setup(arch, b=3, l_max=64):
     return jcfg, cfg, jp, tp, prompts, lengths
 
 
-def _paged_from_dense(cache, lengths, bs, nb):
-    """Copy each request's dense rows into shuffled pages; returns the
-    paged cache and the block table (unused entries on null page 0)."""
+def _paged_from_dense(cache, lengths, bs, nb, layout):
+    """Copy each request's dense rows into shuffled pages (per-token leaves;
+    the slot-indexed state leaves are copied as they are); returns the paged
+    cache and the block table (unused entries on null page 0)."""
     b = len(lengths)
     rng = np.random.default_rng(1)
     pages = rng.permutation(np.arange(1, 1 + b * nb)).reshape(b, nb).astype(np.int32)
     out = {"stages": []}
-    for st in cache["stages"]:
+    for st, sl in zip(cache["stages"], layout["stages"]):
         blk = {}
         for name, kv in st.items():
             blk[name] = {}
             for key, t in kv.items():
+                if not sl[name][key]:
+                    blk[name][key] = t.clone()
+                    continue
                 n_units = t.shape[0]
                 paged = torch.zeros((n_units, 1 + b * nb, bs) + tuple(t.shape[3:]), dtype=t.dtype)
                 rows = t.reshape(n_units, b, nb, bs, *t.shape[3:])
@@ -81,10 +90,10 @@ def _paged_from_dense(cache, lengths, bs, nb):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-4b", "minitron-4b-mla",
-                                  "minitron-4b-mla+q_lora"])
+                                  "minitron-4b-mla+q_lora", "mamba2-4b", "gdn-4b"])
 def test_prefill_and_decode_match_reference(arch):
     jcfg, cfg, jp, tp, prompts, lengths = _setup(arch)
-    first, last = _cache_keys(cfg)
+    keys = _cache_keys(cfg)
     b, l_max, bs = len(lengths), 64, 8
     jl, jc, _ = R.prefill(jp, jcfg, jnp.asarray(prompts), R.init_cache(jcfg, b, l_max),
                           prompt_lengths=jnp.asarray(lengths))
@@ -92,10 +101,10 @@ def test_prefill_and_decode_match_reference(arch):
                           T.init_cache(cfg, b, l_max, device="cpu"),
                           prompt_lengths=torch.from_numpy(lengths))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    np.testing.assert_allclose(tc["stages"][0]["b0"][first].numpy(),
-                               np.asarray(jc["stages"][0]["b0"][first]), **TOL)
+    np.testing.assert_allclose(tc["stages"][0]["b0"][keys[0]].numpy(),
+                               np.asarray(jc["stages"][0]["b0"][keys[0]]), **TOL)
 
-    pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs)
+    pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs, T.paged_layout(cfg))
     active = torch.ones(b, dtype=torch.bool)
     tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     assert np.array_equal(tok, torch.argmax(tl, -1).numpy())
@@ -111,8 +120,8 @@ def test_prefill_and_decode_match_reference(arch):
         assert np.array_equal(tok, torch.argmax(tl, -1).numpy())
         assert np.array_equal(tok, torch.argmax(pl, -1).numpy())
         ln = ln + 1
-    np.testing.assert_allclose(tc["stages"][0]["b0"][last].numpy(),
-                               np.asarray(jc["stages"][0]["b0"][last]), **TOL)
+    np.testing.assert_allclose(tc["stages"][0]["b0"][keys[-1]].numpy(),
+                               np.asarray(jc["stages"][0]["b0"][keys[-1]]), **TOL)
 
 
 def test_paged_decode_matches_reference_paged_step():
@@ -133,7 +142,7 @@ def _check_reference_paged_step(arch):
     tl, tc, _ = T.prefill(tp, cfg, torch.from_numpy(prompts),
                           T.init_cache(cfg, b, l_max, device="cpu"),
                           prompt_lengths=torch.from_numpy(lengths))
-    pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs)
+    pc, tables = _paged_from_dense(tc, lengths, bs, l_max // bs, T.paged_layout(cfg))
     jpc = jax.tree.map(lambda t: jnp.asarray(t.numpy()), pc)
     active = np.array([True, False, True])
     tok = torch.argmax(tl, -1).to(torch.int32).numpy()
@@ -146,6 +155,17 @@ def _check_reference_paged_step(arch):
     np.testing.assert_allclose(pc["stages"][0]["b0"][first][:, live].numpy(),
                                np.asarray(jpc["stages"][0]["b0"][first])[:, live.numpy()],
                                **TOL)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-4b", "gdn-4b"])
+def test_recurrent_params_and_cache_layout_match_reference(arch):
+    """State leaves (n_units, B, ...) in both layouts, never paged."""
+    _check_layout(arch)
+    _, cfg = _configs(arch)
+    layout = T.paged_layout(cfg)["stages"][0]["b0"]
+    assert not any(layout.values())
+    paged = T.init_paged_cache(cfg, 3, 9, 8, device="cpu")["stages"][0]["b0"]
+    assert all(t.shape[:2] == (cfg.stages[0].n_units, 3) for t in paged.values())
 
 
 def _check_layout(arch):
@@ -191,11 +211,13 @@ def test_cache_bridge_roundtrips_bf16():
     assert bool((tc["stages"][0]["b0"]["v"] == 1.5).all())
 
 
-@pytest.mark.parametrize("arch,what", [("gemma2-9b", "softcap"), ("mamba2-780m", "not ported"),
+@pytest.mark.parametrize("arch,what", [("gemma2-9b", "softcap"), ("zamba2-1.2b", "not ported"),
                                        ("deepseek-v2-lite-16b", "not ported"),
-                                       ("minitron-4b-mla", "ported")])
+                                       ("minitron-4b-mla", "ported"),
+                                       ("mamba2-780m", "ported"), ("gdn-4b", "ported")])
 def test_unsupported_features_raise(arch, what):
-    """ssm and mla_moe blocks raise; mla (absorbed) is ported."""
+    """shared_attn and mla_moe blocks raise; mla (absorbed), ssm and gdn are
+    ported."""
     cfg = reduced_config(arch)
     if what == "ported":
         tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

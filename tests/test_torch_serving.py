@@ -1,6 +1,8 @@
 """Greedy serving replays: the port's ``ServingEngine`` against the JAX one.
 
-Reduced gemma-2b and reduced minitron-4b-mla (absorbed MLA, latent cache), weights from ``repro.models.init_params`` through numpy,
+Reduced gemma-2b, reduced minitron-4b-mla (absorbed MLA, latent cache) and
+the reduced recurrent models mamba2-4b (Mamba2 SSD) and gdn-4b (Gated
+DeltaNet), weights from ``repro.models.init_params`` through numpy,
 the same ``make_prompts`` set, dense and paged (with a block budget tight
 enough to force preemption). Token streams, ``PhaseStats`` token, step,
 byte and (under a lock-mode ``ClockController``) joule counts, preemptions
@@ -58,6 +60,11 @@ def mla_weights():
     return _weights("minitron-4b-mla")
 
 
+@pytest.fixture(scope="module", params=["mamba2-4b", "gdn-4b"])
+def recurrent_weights(request):
+    return _weights(request.param)
+
+
 def _replay(engine_cls, controller, cfg, params, prompts, **kw):
     engine = engine_cls(cfg, params, max_batch=3, max_seq_len=128, controller=controller, **kw)
     reqs = [engine.submit(p, max_new_tokens=20) for p in prompts]
@@ -93,6 +100,20 @@ def test_engine_replay_matches_reference(weights, paged, kv_blocks, metered):
 ])
 def test_mla_engine_replay_matches_reference(mla_weights, paged, kv_blocks, metered):
     _check_replay(mla_weights, paged, kv_blocks, metered)
+
+
+@pytest.mark.parametrize("paged,kv_blocks,metered", [
+    (False, None, True),
+    (True, None, True),
+    (True, 9, True),           # 9 blocks of 16 for 3 slots: forces preemption
+])
+def test_recurrent_engine_replay_matches_reference(recurrent_weights, paged, kv_blocks,
+                                                   metered):
+    """O(1)-state models: the state rides in its slot (dense and paged),
+    paged admission still gates on token blocks, and the prompt's bucket
+    padding runs through the recurrence as in the reference, so the streams
+    after the first token match the reference's only if the port pads alike."""
+    _check_replay(recurrent_weights, paged, kv_blocks, metered)
 
 
 def _check_replay(weights, paged, kv_blocks, metered):
@@ -201,3 +222,8 @@ def _check_run_serving(arch):
     assert {k: got[k] for k in ANALYTIC} == {k: ref[k] for k in ANALYTIC}
     assert got["completed"] == ref["completed"] == 2
     assert got["prefill_tokens"] == ref["prefill_tokens"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-4b", "gdn-4b"])
+def test_recurrent_run_serving_analytic_fields_match_reference(arch):
+    _check_run_serving(arch)
