@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
 
 Phases; any failure exits non-zero:
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together), and check with
+   ``cuobjdump -sass`` that the tensor-core kernels hold tensor-core
+   instructions;
 3. hold each kernel (GQA decode attention, MLA latent decode, dense and
    paged; the SSD and gated-delta-rule prefill scans) against its plain
    PyTorch version on the card, at the main paths' shapes and others, and
@@ -25,6 +27,11 @@ Phases; any failure exits non-zero:
    paged greedy streams must agree;
 5. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
+
+With ``--against DIR`` it runs none of these phases: it builds the kernels
+of this checkout and of the checkout in DIR (another commit, unpacked with
+``git archive``) and times each kernel's main case for both on the same
+inputs, in turns, one JSON line per kernel.
 
 Imports neither ``jax`` nor ``repro``. Exits 2 without a CUDA card or outside
 a checkout of the repository.
@@ -49,9 +56,10 @@ TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=2e-2, rtol=2
 SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # bf16 model logits, kernel path vs plain path on the same state, per served
 # model: kernel and plain version sum in other orders and round their bf16
-# outputs differently (the GQA plain version also rounds P to bf16 before
-# P.V, the kernel keeps it fp32), and every layer carries the difference on
-# to the logits: 18 layers for gemma-2b, 32 for minitron-4b-mla
+# outputs differently (the dense GQA kernel rounds P to bf16 for P.V, as
+# the JAX model does, where its plain version keeps it fp32), and every
+# layer carries the difference on to the logits: 18 layers for gemma-2b, 32
+# for minitron-4b-mla
 LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5}
 # The recurrent models' kernels sit in prefill, where a difference at one
 # position is carried by the state to every later one, at every layer. In
@@ -167,6 +175,14 @@ def cuda_time_ms(torch, fn, arg_sets, reps: int = 40) -> tuple:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (3 * reps), eager
+
+
+def cold_sets(inputs) -> list:
+    """``inputs`` and enough copies of them that their floating-point
+    tensors together exceed L2 twice, for ``cuda_time_ms`` to cycle through."""
+    per_set = sum(t.numel() * t.element_size() for t in inputs if t.is_floating_point())
+    n_sets = max(2, -(-2 * L2_BYTES // per_set))
+    return [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n_sets - 1)]
 
 
 # GQA decode attention: (name, paged, B, H, KV, Dk, Dv, L, bs, main); the
@@ -297,25 +313,62 @@ def make_gdn_inputs(torch, shape, dtype, seed):
     return (q, kk, v, beta, alpha)
 
 
-def scan_bound(name, shape, elem, chunk):
+SCAN_BOUND_CHUNK = 64   # the SSD's chunked form is counted at this chunk, whatever the kernel's
+
+
+def scan_bound(name, shape, elem):
     """(bound_ms, bound_by) of a scan call. Bytes: every input read once and
-    y and the fp32 final state written once. Operations, over the fp32 rate
-    (both scans do their arithmetic in fp32 around an fp32 state):
-    SSD, the chunked form at the kernel's chunk Q, per token 2 Q N for c.b
-    (shared by the heads) and per token and head (Q + 1) P for the causal
-    intra-chunk term, 2 N P for the inter-chunk term and 2 N P for the state
-    pass; GDN, per token and head 7 K^2 (2 K^2 for k^T S, 3 K^2 for the
-    rank-1 update, 2 K^2 for S^T q)."""
+    y and the fp32 final state written once. Operations: SSD, the chunked
+    form at a fixed chunk Q = SCAN_BOUND_CHUNK (so that a kernel's own chunk
+    cannot move its bound), per token 2 Q N for c.b (shared by the heads)
+    and per token and head (Q + 1) P for the causal intra-chunk term, 2 N P
+    for the inter-chunk term and 2 N P for the state pass, over the peak of
+    the inputs' type (bf16 inputs run the three products on bf16 tensor
+    cores with fp32 accumulation); GDN, per token and head 7 K^2 (2 K^2 for
+    k^T S, 3 K^2 for the rank-1 update, 2 K^2 for S^T q) over the fp32 rate
+    (its inputs are fp32 as the model calls it, and so is its work)."""
     if name == "ssd_scan":
         b, s, h, p, n = shape
+        q = SCAN_BOUND_CHUNK
         nbytes = 2 * b * s * h * p * elem + 4 * b * s * h + 4 * h + 2 * b * s * n * elem \
             + 4 * b * h * p * n
-        ops = b * s * (2 * chunk * n + h * ((chunk + 1) * p + 4 * n * p))
-    else:
-        b, s, h, k = shape
-        nbytes = 4 * b * s * h * k * elem + 8 * b * s * h + 4 * b * h * k * k
-        ops = 7 * b * s * h * k * k
-    return _bound(nbytes, ops, "float32")
+        ops = b * s * (2 * q * n + h * ((q + 1) * p + 4 * n * p))
+        return _bound(nbytes, ops, "bfloat16" if elem == 2 else "float32")
+    b, s, h, k = shape
+    nbytes = 4 * b * s * h * k * elem + 8 * b * s * h + 4 * b * h * k * k
+    return _bound(nbytes, 7 * b * s * h * k * k, "float32")
+
+
+# the tensor-core kernels, by library: each must hold HMMA (mma.sync) or
+# HGMMA (wgmma) instructions in its SASS
+TENSOR_CORE_KERNELS = {"decode_attn": "tc_split_kernel", "ssd_scan": "ssd_tc_kernel"}
+
+
+def tensor_core_check(info) -> list:
+    """For each tensor-core kernel, ``cuobjdump -sass`` of its library: the
+    number of HMMA/HGMMA instructions in every function of that name. Raises
+    if one has none, or if cuobjdump is not installed."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise SystemExit("cuobjdump not found: the tensor-core kernels' SASS cannot be checked")
+    lines = []
+    for lib, kernel in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", info[lib]["path"]], check=True,
+                              capture_output=True, text=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] = counts.get(fn, 0) + 1
+        n_fns = sum(kernel in ln for ln in sass.splitlines() if "Function :" in ln)
+        if not counts or len(counts) < n_fns:
+            raise SystemExit(f"{lib}: a {kernel} instantiation has no tensor-core instruction")
+        lines.append(f"{lib}: {kernel} x{n_fns} instantiations, HMMA/HGMMA per instantiation "
+                     f"{sorted(counts.values())}")
+    return lines
 
 
 def _bound(nbytes, ops, dtype):
@@ -417,10 +470,7 @@ def check_kernels(torch, F, kmod):
             if not (main and dname == "bfloat16"):
                 continue
             elem = out.element_size()
-            big = [t for t in inputs if t.is_floating_point()]
-            per_set = sum(t.numel() * t.element_size() for t in big)
-            n_sets = max(2, -(-2 * L2_BYTES // per_set))
-            sets = [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n_sets - 1)]
+            sets = cold_sets(inputs)
             ms, ms_eager = cuda_time_ms(torch, lambda *a: kernel(*a, scale=scale), sets)
             plain_ms, plain_eager = cuda_time_ms(torch, lambda *a: plain(*a, scale=scale), sets)
             library_ms = lib_eager = None
@@ -452,14 +502,11 @@ def check_scan_kernels(torch, kmod, records) -> None:
     where S is not a multiple) against the plain version on the unpadded
     inputs, y and the final state; time the main case. Adds a record per
     kernel to ``records``."""
-    from repro_torch.kernels.gdn.gdn import CHUNK as GDN_CHUNK
-    from repro_torch.kernels.ssd.ssd import CHUNK as SSD_CHUNK
-
     specs = (("ssd_scan", SSD_CASES, make_ssd_inputs, kmod.ssd_prefill, kmod.ssd_scan_ref,
-              ("B", "S", "H", "P", "N"), SSD_CHUNK),
+              ("B", "S", "H", "P", "N")),
              ("gdn_scan", GDN_CASES, make_gdn_inputs, kmod.gdn_prefill, kmod.gdn_scan_ref,
-              ("B", "S", "H", "K"), GDN_CHUNK))
-    for name, cases, make, prefill_fn, plain, dims, chunk in specs:
+              ("B", "S", "H", "K")))
+    for name, cases, make, prefill_fn, plain, dims in specs:
         for ci, case in enumerate(cases):
             shape, main = case[:-1], case[-1]
             label = " ".join(f"{k}={v}" for k, v in zip(dims, shape))
@@ -482,12 +529,10 @@ def check_scan_kernels(torch, kmod, records) -> None:
                 if not (main and dname == SCAN_TIMED_DTYPE[name]):
                     continue
                 kernel = getattr(kmod, name)
-                per_set = sum(t.numel() * t.element_size() for t in inputs)
-                n_sets = max(2, -(-2 * L2_BYTES // per_set))
-                sets = [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n_sets - 1)]
+                sets = cold_sets(inputs)
                 ms, ms_eager = cuda_time_ms(torch, kernel, sets)
                 plain_ms, plain_eager = cuda_time_ms(torch, plain, sets, reps=PLAIN_SCAN_REPS)
-                bound_ms, bound_by = scan_bound(name, shape, inputs[0].element_size(), chunk)
+                bound_ms, bound_by = scan_bound(name, shape, inputs[0].element_size())
                 source, replaces = SOURCES[name]
                 records[name] = {
                     "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -569,21 +614,41 @@ def _device_rows(prof, n: int) -> list:
     return rows
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def profiled(torch, run, n: int) -> tuple:
+    """``run()`` under torch.profiler, the card idle before it: (device rows
+    of ``_device_rows(prof, n)``, wall ms per ``n``, attempts). A profile
+    that caught no device event at all is taken again, up to
+    PROFILE_ATTEMPTS times: the profiler has once recorded no device event
+    for a prefill whose kernels ran, and the attempts say if it did again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        rows = _device_rows(prof, n)
+        if rows:
+            break
+        print(f"[profile] attempt {attempt}: no device event recorded", file=sys.stderr)
+    return rows, wall, attempt
+
+
 def profile_steps(torch, engine, n: int) -> dict:
     """``n`` engine steps under torch.profiler: wall ms per step, device busy
     ms per step (sum of kernel self time), the top kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def run():
         for _ in range(n):
             engine.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = _device_rows(prof, n)
+
+    rows, wall, attempts = profiled(torch, run, n)
     busy = sum(r[0] for r in rows)
-    return {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+    return {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy, "attempts": attempts,
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "kernels_per_step": sum(r[1] for r in rows),
             "top": [{"kernel": k[:90], "ms_per_step": ms, "calls_per_step": c}
@@ -604,8 +669,6 @@ def profile_prefill(torch, cfg, params, prompt) -> dict:
     runs it) under torch.profiler, after one unprofiled warm-up: wall ms,
     device busy ms (sum of kernel self time), the top kernels by device
     time. Launch counts are not read here."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import init_cache, prefill
     from repro_torch.serving import ServingEngine
 
@@ -618,16 +681,13 @@ def profile_prefill(torch, cfg, params, prompt) -> dict:
         prefill(params, cfg, toks, init_cache(cfg, 1, 1024, device="cuda"), prompt_lengths=ln)
         torch.cuda.synchronize()
         wall_unprofiled = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            prefill(params, cfg, toks, init_cache(cfg, 1, 1024, device="cuda"),
-                    prompt_lengths=ln)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    rows = _device_rows(prof, 1)
+        rows, wall, attempts = profiled(
+            torch, lambda: prefill(params, cfg, toks, init_cache(cfg, 1, 1024, device="cuda"),
+                                   prompt_lengths=ln), 1)
     busy = sum(r[0] for r in rows)
     return {"prompt_tokens": len(prompt), "bucket": int(toks.shape[1]),
             "wall_ms": wall, "wall_ms_unprofiled": wall_unprofiled, "device_busy_ms": busy,
+            "attempts": attempts,
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "kernels": sum(r[1] for r in rows),
             "top": [{"kernel": k[:90], "ms": ms, "calls": c} for ms, c, k in rows[:10]]}
@@ -773,7 +833,72 @@ def logits_kernel_vs_plain(torch, cfg, params, prompts, paged):
     return err, agree, outs[1].abs().max().item()
 
 
+def main_case(torch, name) -> tuple:
+    """(dtype name, inputs, keyword arguments) of ``name``'s timed main case,
+    as phase 3 times it."""
+    for case in KERNEL_CASES + MLA_CASES:
+        if case[0] == name and case[-1]:
+            mla = name.startswith("mla")
+            make = make_mla_inputs if mla else make_inputs
+            scale = MLA_SCALE if mla else 1.0 / math.sqrt(case[5])
+            return "bfloat16", make(torch, case, torch.bfloat16, seed=100), {"scale": scale}
+    cases, make = {"ssd_scan": (SSD_CASES, make_ssd_inputs),
+                   "gdn_scan": (GDN_CASES, make_gdn_inputs)}[name]
+    dname = SCAN_TIMED_DTYPE[name]
+    return dname, make(torch, cases[0][:-1], getattr(torch, dname), seed=200), {}
+
+
+def load_kernels(torch, src: Path):
+    """``repro_torch.kernels`` of the checkout whose package lies in ``src``,
+    built, imported afresh beside any loaded before, and each of its kernels
+    called once: a wrapper binds its library at its first call, which must
+    come while its own package is the one imported."""
+    for mod in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[mod]
+    sys.path.insert(0, str(src))
+    try:
+        from repro_torch import kernels as kmod
+        from repro_torch.kernels import build
+
+        build.build_all()
+        for name in COUNTED:
+            if hasattr(kmod, name):
+                _, inputs, kwargs = main_case(torch, name)
+                getattr(kmod, name)(*inputs, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        sys.path.remove(str(src))
+    return kmod
+
+
+def time_against(torch, other: Path) -> None:
+    """``--against DIR``: each kernel's main case, timed as phase 3 times it
+    (CUDA-graph device ms), for the checkout in DIR and for this one, on the
+    same inputs in one process, in turns (DIR, this, this, DIR) so that a
+    drift of the card's clock shows. One JSON line per kernel both have."""
+    kmods = {"against": load_kernels(torch, other.resolve() / "src"),
+             "this": load_kernels(torch, SRC)}
+    for name in COUNTED:
+        if not hasattr(kmods["against"], name):
+            continue
+        dname, inputs, kwargs = main_case(torch, name)
+        sets = cold_sets(inputs)
+        ms = {"against": [], "this": []}
+        for side in ("against", "this", "this", "against"):
+            kernel = getattr(kmods[side], name)
+            ms[side].append(cuda_time_ms(torch, lambda *a: kernel(*a, **kwargs), sets)[0])
+        print(json.dumps({"kernel": name, "dtype": dname, "against": str(other), "ms": ms}))
+        del sets
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--against", type=Path, metavar="DIR",
+                    help="only time every kernel's main case beside the kernels of the "
+                         "checkout in DIR (e.g. a git archive of another commit)")
+    args = ap.parse_args()
     import torch
     import torch.nn.functional as F
 
@@ -783,9 +908,14 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.against:
+        print(f"[device] {torch.cuda.get_device_name(0)}")
+        print(nvidia_smi("name,power.limit"))
+        time_against(torch, args.against)
+        return 0
+    sys.path.insert(0, str(SRC))
 
     from repro_torch import kernels as kmod
     from repro_torch.configs import get_config
@@ -808,6 +938,8 @@ def main() -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
                 print(f"[build]   {line.strip()}")
+    for line in tensor_core_check(info):
+        print(f"[sass] {line}")
 
     # ---- 3. kernels vs plain versions
     records = check_kernels(torch, F, kmod)

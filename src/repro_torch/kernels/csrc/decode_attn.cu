@@ -13,30 +13,68 @@
 // What bounds it on this card: bytes. Each request's K and V rows below
 // valid_len are read once, (Dk + Dv) * KV * elem bytes per key; one decode
 // query does 2 * G multiply-adds per element read, far below the ~295 ops
-// per byte at which an H100 stops being memory bound.
+// per byte at which an H100 stops being memory bound. At the gemma-2b
+// shape (B = 8, G = 8, D = 256, ragged valid_len up to 1024) that is ~4 MB,
+// 0.0013 ms at 3.35 TB/s; what a call costs in practice is latency: a few
+// CTAs per request, each a chain of dependent loads, products and merges,
+// and a second launch.
 //
-// What the design does about it:
-// - The key loop stops at valid_len. The Pallas kernel streams every
-//   block_k tile of the max_seq_len cache and masks; here the bytes read are
-//   the bytes the request needs. The paged kernel reads block-table entries
-//   only below ceil(valid_len / bs) and no page past them.
-// - At decode batch sizes B * KV is far below the 132 SMs, so the key axis
-//   is split across CTAs (flash-decoding): CTA (split, b * KV + kh) covers
-//   keys [split * split_len, (split + 1) * split_len), and a second kernel
-//   merges the splits' (m, l, acc) when there is more than one: one CTA per
-//   output row, the splits' weights in shared memory, threads over Dv.
-// - Inside a CTA each of the 4 warps takes KEYS keys at a time; every lane
-//   loads 16 bytes of each key's K and V row, all issued before any is used,
-//   so several rows are in flight per warp. The G query rows sit in shared
-//   memory as fp32; m, l and the accumulator stay in registers, and the
-//   warps merge through shared memory in a fixed order (deterministic).
-// - p stays fp32 in the P.V product at bf16 too; the JAX model casts the
-//   probabilities to the value dtype first (models/attention.py:_attend).
+// 1. bf16, dense: tc_split_kernel + tc_combine_kernel, on the tensor cores.
+// - Both products on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), in the
+//   FlashAttention-2 register layout. The G <= 16 query rows of one KV head
+//   are the 16 rows of one tile (zero rows pad G < 16), so S = Q.K^T for 16
+//   keys is two n8 tiles whose accumulator layout is the A-operand layout of
+//   O += P.V: p never leaves registers. K comes through ldmatrix, V through
+//   ldmatrix.trans; the row max and row sum take two quad shuffles a row.
+// - Each of the 4 warps streams its own 16-key steps (keys warp, warp + 4,
+//   ... of the CTA's 64-key tiles) through a ring of 2 slots in shared
+//   memory: one TMA bulk copy a K or V row, completing on the slot's
+//   mbarrier, so the next step is in flight while one is reduced, and no
+//   lane spends instructions on addresses. The K/V copies start before the
+//   query is staged; the key loop has no CTA-wide barrier. Rows are
+//   padded by 16 bytes (conflict-free ldmatrix) and zero past the head dim,
+//   so the unrolled loops run to a fixed width (64, 128 or 256) with no
+//   branch in them; a head dim that is a multiple of 8 but not of 16 is
+//   zero-padded, not refused.
+// - Splits of whole 64-key tiles, 64 keys at least (decode_attn.py:
+//   tc_split_plan). A CTA merges its warps through shared memory behind one
+//   barrier; a request with one split is written directly, one with more
+//   writes an fp32 partial (m, l, acc) a split that tc_combine_kernel merges
+//   -- one CTA per output row, every partial's loads in flight at once,
+//   launched with programmatic dependent launch so that it starts while the
+//   split kernel runs. (Merging in the last CTA of a request to finish, by a
+//   ticket, was slower: one CTA reads all the request's partials.)
+// - Precision: q, k and v are bf16 already; p is rounded once to bf16 as
+//   the A operand of P.V (the JAX model casts p to the value dtype too,
+//   models/attention.py:_attend); m, l and every accumulator stay fp32.
+// - The key-row address comes from one function, tc::key_row; a paged
+//   variant needs only a block-table lookup there.
+//
+// 2. fp32 (dense and paged) and bf16 paged: split_kernel + combine_kernel,
+//   the first design, on the CUDA cores. fp32 would need 3xTF32 to hold its
+//   5e-5 tolerance on the tensor cores; the paged form's redesign is a later
+//   step. CTA (split, b * KV + kh) covers keys [split * split_len, ...); a
+//   second kernel merges the splits' (m, l, acc): one CTA per output row,
+//   the splits' weights in shared memory, threads over Dv. Inside a CTA
+//   each of the 4 warps takes KEYS keys at a time, every lane 16 bytes of
+//   each key's K and V row, all in flight before any is used; the G query rows
+//   sit in shared memory as fp32, m, l and the accumulator in registers, and
+//   the warps merge through shared memory in a fixed order. p stays fp32 in
+//   its P.V product.
+//
+// Both stop the key loop at valid_len: the Pallas kernel streams every
+// block_k tile of the max_seq_len cache and masks, here the bytes read are
+// the bytes the request needs. The paged kernel reads block-table entries
+// only below ceil(valid_len / bs) and no page past them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -361,26 +399,353 @@ __global__ void combine_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// 1. bf16 dense on the tensor cores
+namespace tc {
+
+using namespace sm90;
+using bf16 = __nv_bfloat16;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int WK = 16;                 // keys a warp takes a step: the k16 of P.V
+constexpr int STAGES = 2;              // slots in a warp's ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Row of key pos of request b in the (rows, KV, D) cache. Dense: b * L + pos.
+__device__ __forceinline__ long long key_row(const Params& p, int b, int pos) {
+  return (long long)b * p.L + pos;
+}
+
+// Shared memory: the 16-row query tile, then each warp's STAGES slots of WK
+// K rows and WK V rows, every row DMAX wide (zero past the head dim, so the
+// unrolled loops need no bound) and padded by 8 elements; after the key loop
+// the slots hold the warps' fp32 accumulators (WARPS x 16 x DMAX fp32, less
+// than the slots' bytes).
+constexpr size_t smem_bytes(int dmax) {
+  return (16 + WARPS * STAGES * WK * 2) * (dmax + 8) * sizeof(bf16);
+}
+
+// grid (n_split, B * KV); DMAX >= max(Dk, Dv), a multiple of 16
+template <int DMAX>
+__global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
+  const int bk = blockIdx.y, split = blockIdx.x;
+  const int b = bk / p.KV, kh = bk % p.KV;
+  const int G = p.H / p.KV, dk = p.Dk, dv = p.Dv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // tc_combine_kernel may start
+  const int n = min(p.valid_len[b], p.L);
+  const int s0 = split * p.split_len, s1 = min(s0 + p.split_len, n);
+  const int n_used = (n + p.split_len - 1) / p.split_len;  // splits with keys of b
+  bf16* out = static_cast<bf16*>(p.out) + ((long long)b * p.H + kh * G) * dv;
+  if (s0 >= s1) {  // no key of this request here; only n <= 0 leaves split 0 empty
+    if (split == 0)
+      for (int i = tid; i < G * dv; i += THREADS) out[i] = __float2bfloat16(0.f);
+    return;
+  }
+  // one CTA for the request: write the output; else an fp32 partial state,
+  // merged by tc_combine_kernel
+  const bool direct = n_used == 1;
+
+  constexpr int LD = DMAX + 8;  // row stride of every tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* const smem = tc_smem;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + 16 * LD;
+  bf16* myK = sK + warp * STAGES * WK * LD;
+  bf16* myV = sK + (WARPS + warp) * STAGES * WK * LD;
+  __shared__ float s_m[WARPS][16], s_l[WARPS][16];
+
+  const bf16* K = static_cast<const bf16*>(p.k);
+  const bf16* V = static_cast<const bf16*>(p.v);
+  const int kc = dk >> 3, vc = dv >> 3;               // 16-byte chunks of a row
+  const int steps = (s1 - s0 + WK - 1) / WK;          // the CTA's 16-key steps
+  const int nw = steps > warp ? (steps - warp + WARPS - 1) / WARPS : 0;  // this warp's
+  __shared__ __align__(8) uint64_t kv_bar[WARPS][STAGES];  // a warp's slots land here
+  if (tid == 0) {
+    for (int i = 0; i < WARPS * STAGES; ++i) mbar_init(&kv_bar[0][0] + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // this warp's step i (keys s0 + (warp + i * WARPS) * WK + [0, WK)) -> slot
+  // i % STAGES: lane r < WK copies K row r, lane WK + r V row r, one TMA bulk
+  // copy each; a key past s1 copies key s1 - 1 instead (masked below)
+  auto load = [&](int i) {
+    const int slot = i % STAGES, r = lane % WK;
+    uint64_t* bar = &kv_bar[warp][slot];
+    if (lane == 0) mbar_expect_tx(bar, WK * (dk + dv) * sizeof(bf16));
+    fence_proxy_async();  // the slot's last reads (step i - STAGES) come first
+    const long long row =
+        key_row(p, b, min(s0 + (warp + i * WARPS) * WK + r, s1 - 1)) * p.KV + kh;
+    if (lane < WK)
+      bulk_copy(myK + (slot * WK + r) * LD, K + row * dk, dk * sizeof(bf16), bar);
+    else
+      bulk_copy(myV + (slot * WK + r) * LD, V + row * dv, dv * sizeof(bf16), bar);
+  };
+
+  // K/V first, then the query (rows >= G and columns >= Dk zero) by cp.async
+  for (int i = 0; i < STAGES - 1 && i < nw; ++i) load(i);
+  const bf16* q = static_cast<const bf16*>(p.q) + ((long long)b * p.H + kh * G) * dk;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int e = tid; e < 16 * (DMAX / 8); e += THREADS) {
+    const int r = e / (DMAX / 8), c = e % (DMAX / 8);
+    if (r < G && c < kc)
+      cp_async16(sQ + r * LD + 8 * c, q + r * dk + 8 * c, true);
+    else
+      *reinterpret_cast<uint4*>(sQ + r * LD + 8 * c) = zero;
+  }
+  cp_async_commit();
+  // the columns past the head dims, once (the copies write the others)
+  for (int e = lane; e < STAGES * WK * (DMAX / 8); e += 32) {
+    const int r = e / (DMAX / 8), c = e % (DMAX / 8);
+    if (c >= kc) *reinterpret_cast<uint4*>(myK + r * LD + 8 * c) = zero;
+    if (c >= vc) *reinterpret_cast<uint4*>(myV + r * LD + 8 * c) = zero;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the query tile, from every thread's copies
+
+  const int r0 = lane >> 2, c0 = (lane & 3) * 2;  // accumulator rows r0, r0 + 8
+  const float sl2 = p.scale * LOG2E;               // scores in log2 units
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < nw; ++i) {
+    if (i + STAGES - 1 < nw) load(i + STAGES - 1);
+    mbar_wait(&kv_bar[warp][i % STAGES], (i / STAGES) & 1);  // step i has landed
+    const bf16* tk = myK + (i % STAGES) * WK * LD;
+    const bf16* tv = myV + (i % STAGES) * WK * LD;
+
+    // S = Q K^T: rows = query heads, two n8 tiles of keys
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      uint32_t a[4], kb[4];
+      ldsm_x4(a, sQ + (lane & 15) * LD + 16 * kk + (lane >> 4) * 8);
+      ldsm_x4(kb, tk + ((lane >> 4) * 8 + (lane & 7)) * LD + 16 * kk + ((lane >> 3) & 1) * 8);
+      mma(s[0], a, kb[0], kb[1]);
+      mma(s[1], a, kb[2], kb[3]);
+    }
+    const int base = s0 + (warp + i * WARPS) * WK;  // < s1: the step's first key is valid
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[t][e] = base + 8 * t + c0 + (e & 1) < s1 ? s[t][e] * sl2 : -INFINITY;
+    float mx0 = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
+    float mx1 = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite
+    const float cr0 = exp2f(m0 - mn0), cr1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float pr[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      pr[t][0] = exp2f(s[t][0] - mn0);
+      pr[t][1] = exp2f(s[t][1] - mn0);
+      pr[t][2] = exp2f(s[t][2] - mn1);
+      pr[t][3] = exp2f(s[t][3] - mn1);
+    }
+    l0 = l0 * cr0 + (pr[0][0] + pr[0][1] + pr[1][0] + pr[1][1]);  // this lane's share
+    l1 = l1 * cr1 + (pr[0][2] + pr[0][3] + pr[1][2] + pr[1][3]);
+    const uint32_t pa[4] = {pack(pr[0][0], pr[0][1]), pack(pr[0][2], pr[0][3]),
+                            pack(pr[1][0], pr[1][1]), pack(pr[1][2], pr[1][3])};
+    // O = O * corr + P V
+#pragma unroll
+    for (int j2 = 0; j2 < DMAX / 16; ++j2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[2 * j2 + h][0] *= cr0;
+        acc[2 * j2 + h][1] *= cr0;
+        acc[2 * j2 + h][2] *= cr1;
+        acc[2 * j2 + h][3] *= cr1;
+      }
+      uint32_t vb[4];
+      ldsm_x4_t(vb, tv + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + 16 * j2 + (lane >> 4) * 8);
+      mma(acc[2 * j2], pa, vb[0], vb[1]);
+      mma(acc[2 * j2 + 1], pa, vb[2], vb[3]);
+    }
+    __syncwarp();  // every lane is done with the slot before it is refilled
+  }
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  // merge the warps: raw accumulators and (m, l) to shared memory, one barrier
+  __syncthreads();  // every warp is out of its slots
+  float* sO = reinterpret_cast<float*>(sK);  // (WARPS, 16, DMAX)
+  if ((lane & 3) == 0) {
+    s_m[warp][r0] = m0;
+    s_m[warp][r0 + 8] = m1;
+    s_l[warp][r0] = l0;
+    s_l[warp][r0 + 8] = l1;
+  }
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    float* o = sO + (warp * 16 + r0) * DMAX + 8 * j + c0;
+    *reinterpret_cast<float2*>(o) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(o + 8 * DMAX) = make_float2(acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+  const long long part = (long long)bk * p.n_split + split;
+  for (int e = tid; e < G * dv / 4; e += THREADS) {
+    const int g = 4 * e / dv, d = 4 * e - g * dv;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, s_m[w][g]);
+    float sum = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = s_l[w][g] > 0.f ? exp2f(s_m[w][g] - mx) : 0.f;
+      const float4 a = *reinterpret_cast<const float4*>(sO + (w * 16 + g) * DMAX + d);
+      sum = fmaf(wt, s_l[w][g], sum);
+      o.x = fmaf(wt, a.x, o.x);
+      o.y = fmaf(wt, a.y, o.y);
+      o.z = fmaf(wt, a.z, o.z);
+      o.w = fmaf(wt, a.w, o.w);
+    }
+    if (direct) {
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      *reinterpret_cast<uint2*>(out + g * dv + d) =
+          make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
+    } else {
+      *reinterpret_cast<float4*>(p.part_acc + (part * G + g) * dv + d) = o;
+      if (d == 0) {
+        p.part_m[part * G + g] = mx * LN2;  // natural-log units
+        p.part_l[part * G + g] = sum;
+      }
+    }
+  }
+}
+
+constexpr int COMBINE_THREADS = 64;  // 4 columns a thread: Dv <= 256
+constexpr int COMBINE_UNROLL = 16;   // up to this many splits, all loads in flight at once
+
+// Merge the partial states of one output row (b, kh, g) of a request with
+// more than one split: one CTA per row, 4 columns a thread. Launched with
+// programmatic stream serialization it may start while the split kernel
+// runs; griddepcontrol.wait holds it until the partials are written.
+__global__ void __launch_bounds__(COMBINE_THREADS) tc_combine_kernel(Params p) {
+  const int G = p.H / p.KV, row = blockIdx.x;  // b * H + kh * G + g
+  const int bk = row / G, g = row - bk * G, b = bk / p.KV;
+  const int d = 4 * threadIdx.x;
+  const int n = min(p.valid_len[b], p.L);
+  const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (n_used <= 1 || d >= p.Dv) return;  // one split wrote the row itself
+  const long long first = (long long)bk * p.n_split;
+  auto acc_at = [&](int s) {
+    return __ldcg(reinterpret_cast<const float4*>(p.part_acc + ((first + s) * G + g) * p.Dv + d));
+  };
+  float mx = -INFINITY, sum = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n_used <= COMBINE_UNROLL) {
+    // every load in flight at once: splits past n_used read the last one again,
+    // and weigh 0
+    float m[COMBINE_UNROLL], l[COMBINE_UNROLL];
+    float4 a[COMBINE_UNROLL];
+#pragma unroll
+    for (int s = 0; s < COMBINE_UNROLL; ++s) {
+      const int t = min(s, n_used - 1);
+      m[s] = __ldcg(p.part_m + (first + t) * G + g);
+      l[s] = __ldcg(p.part_l + (first + t) * G + g);
+      a[s] = acc_at(t);
+      mx = fmaxf(mx, m[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < COMBINE_UNROLL; ++s) {
+      const float w = s < n_used ? expf(m[s] - mx) : 0.f;
+      sum = fmaf(w, l[s], sum);
+      o.x = fmaf(w, a[s].x, o.x);
+      o.y = fmaf(w, a[s].y, o.y);
+      o.z = fmaf(w, a[s].z, o.z);
+      o.w = fmaf(w, a[s].w, o.w);
+    }
+  } else {
+    for (int s = 0; s < n_used; ++s) mx = fmaxf(mx, __ldcg(p.part_m + (first + s) * G + g));
+    for (int s = 0; s < n_used; ++s) {
+      const float w = expf(__ldcg(p.part_m + (first + s) * G + g) - mx);
+      const float4 a = acc_at(s);
+      sum = fmaf(w, __ldcg(p.part_l + (first + s) * G + g), sum);
+      o.x = fmaf(w, a.x, o.x);
+      o.y = fmaf(w, a.y, o.y);
+      o.z = fmaf(w, a.z, o.z);
+      o.w = fmaf(w, a.w, o.w);
+    }
+  }
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + (long long)row * p.Dv + d) =
+      make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
+}
+
+template <int DMAX>
+int launch_d(const Params& p, cudaStream_t stream) {
+  // above 48 KB a kernel's dynamic shared memory must be opted into, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tc_split_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(DMAX));
+  if (attr != cudaSuccess) return (int)attr;
+  tc_split_kernel<DMAX><<<dim3(p.n_split, p.B * p.KV), THREADS, smem_bytes(DMAX), stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return (int)err;
+  // the combine may launch while the split kernel runs (programmatic dependent
+  // launch): its griddepcontrol.wait holds it until the partials are written
+  cudaLaunchAttribute serial[1];
+  serial[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  serial[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.B * p.H);
+  cfg.blockDim = dim3(COMBINE_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = serial;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, tc_combine_kernel, p);
+}
+
+int launch(const Params& p, cudaStream_t stream) {
+  const int d = p.Dk > p.Dv ? p.Dk : p.Dv;
+  if (p.H % p.KV || p.H / p.KV > 16 || p.Dk % 8 || p.Dv % 8 || p.split_len % (WARPS * WK))
+    return (int)cudaErrorInvalidValue;
+  if (d <= 64) return launch_d<64>(p, stream);
+  if (d <= 128) return launch_d<128>(p, stream);
+  if (d <= 256) return launch_d<256>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 template <typename T, bool PAGED>
 int launch(const Params& p, cudaStream_t stream) {
-  const int G = p.H / p.KV;
-  const dim3 grid(p.n_split, p.B * p.KV);
-  const size_t smem = (size_t)G * (p.Dk + p.Dv) * sizeof(float);
-  if (G <= 1) {
-    split_kernel<T, PAGED, 1, 4><<<grid, THREADS, smem, stream>>>(p);
-  } else if (G <= 4) {
-    split_kernel<T, PAGED, 4, 4><<<grid, THREADS, smem, stream>>>(p);
-  } else if (G <= 8) {
-    split_kernel<T, PAGED, 8, 4><<<grid, THREADS, smem, stream>>>(p);
-  } else if (G <= 16) {
-    split_kernel<T, PAGED, 16, 2><<<grid, THREADS, smem, stream>>>(p);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && !PAGED) {
+    return tc::launch(p, stream);
   } else {
-    return (int)cudaErrorInvalidValue;
+    const int G = p.H / p.KV;
+    const dim3 grid(p.n_split, p.B * p.KV);
+    const size_t smem = (size_t)G * (p.Dk + p.Dv) * sizeof(float);
+    if (G <= 1) {
+      split_kernel<T, PAGED, 1, 4><<<grid, THREADS, smem, stream>>>(p);
+    } else if (G <= 4) {
+      split_kernel<T, PAGED, 4, 4><<<grid, THREADS, smem, stream>>>(p);
+    } else if (G <= 8) {
+      split_kernel<T, PAGED, 8, 4><<<grid, THREADS, smem, stream>>>(p);
+    } else if (G <= 16) {
+      split_kernel<T, PAGED, 16, 2><<<grid, THREADS, smem, stream>>>(p);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || p.n_split == 1) return (int)err;
+    combine_kernel<T><<<p.B * p.KV * G, 128, p.n_split * sizeof(float), stream>>>(p);
+    return (int)cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.n_split == 1) return (int)err;
-  combine_kernel<T><<<p.B * p.KV * G, 128, p.n_split * sizeof(float), stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -8,9 +8,10 @@ counts its kernel launches in ``<wrapper>.launches`` (the CPU path does not
 count).
 
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
-are attended; the result has q's dtype. At bf16 the kernel keeps the
-softmax probabilities in fp32 for the P.V product, where the JAX model
-casts them to the value dtype first.
+are attended; the result has q's dtype. The bf16 dense kernel runs both
+products on the tensor cores and rounds the softmax probabilities once to
+bf16 for P.V, as the JAX model casts them to the value dtype; the fp32 and
+the paged kernels keep them fp32.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 TARGET_CTAS = 528          # four per SM of an H100
 MIN_SPLIT_KEYS = 32        # two rounds of 4 keys for each warp of a 4-warp CTA
+# the bf16 dense tensor-core kernel (tc_split_kernel)
+TC_TILE = 64               # keys its 4-warp CTA takes a round, 16 a warp
+TC_TARGET_CTAS = 132       # one per SM: at D = 256 its shared memory holds one
+TC_MIN_SPLIT_KEYS = 64     # at least one tile a split
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
@@ -41,6 +46,16 @@ def split_plan(bkv: int, extent: int):
     none shorter than MIN_SPLIT_KEYS keys."""
     n_split = max(1, min(extent // MIN_SPLIT_KEYS, -(-TARGET_CTAS // bkv)))
     split_len = -(-extent // n_split)
+    return -(-extent // split_len), split_len
+
+
+def tc_split_plan(bkv: int, extent: int):
+    """(n_split, split_len) of the bf16 dense kernel: splits of whole
+    TC_TILE-key tiles, at least TC_MIN_SPLIT_KEYS keys, about TC_TARGET_CTAS
+    CTAs in all."""
+    n_split = max(1, min(-(-extent // TC_MIN_SPLIT_KEYS), -(-TC_TARGET_CTAS // bkv)))
+    split_len = -(-extent // n_split)
+    split_len = -(-split_len // TC_TILE) * TC_TILE
     return -(-extent // split_len), split_len
 
 
@@ -85,7 +100,8 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale):
         block_tables, "block_tables", name, q.device, torch.int32))
 
     g = h // kv
-    n_split, split_len = split_plan(b * kv, extent)
+    tc = block_tables is None and q.dtype == torch.bfloat16
+    n_split, split_len = (tc_split_plan if tc else split_plan)(b * kv, extent)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if n_split > 1:
         part_m = torch.empty((b * kv * n_split * g,), dtype=torch.float32, device=q.device)

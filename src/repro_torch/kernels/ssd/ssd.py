@@ -2,14 +2,15 @@
 tensor, the plain PyTorch version of ``ref.py`` on a CPU tensor.
 
 Counterpart of the Pallas kernel ``repro.kernels.ssd.ssd.ssd_scan``. On a
-CUDA tensor the wrapper launches its kernels (a c.b pass, then the scan) or
-raises; there is no fallback. It counts its launches in
-``ssd_scan.launches`` (the CPU path does not count).
+CUDA tensor the wrapper launches its kernel or raises; there is no
+fallback. It counts its calls in ``ssd_scan.launches`` (the CPU path does
+not count). bf16 runs the tensor-core kernel (``ssd_tc_kernel``, one
+launch); fp32 the CUDA-core kernels (a c.b pass, then the scan).
 
 Contract (as the Pallas kernel): x (B,S,H,P) and b, c (B,S,N) in one dtype
 (fp32 or bf16), dt (B,S,H) and a (H,) fp32, S a multiple of ``CHUNK``
 (``ops.ssd_prefill`` pads); returns y (B,S,H,P) in x's dtype and the final
-state (B,H,P,N) fp32. The kernel takes P a multiple of ``ROWS_PER_CTA`` and
+state (B,H,P,N) fp32. The kernels take P a multiple of ``ROWS_PER_CTA`` and
 N in ``STATE_DIMS``.
 """
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
-CHUNK = 64                    # tokens per chunk of the kernel (Q in the source)
-ROWS_PER_CTA = 32             # state rows per CTA (PS in the source)
+CHUNK = 64                    # tokens per chunk of the kernels (Q in the source)
+ROWS_PER_CTA = 32             # state rows per CTA (PS in the source; bf16: 64 where it divides P)
 STATE_DIMS = (16, 32, 64, 128)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -78,16 +79,20 @@ def ssd_scan(x, dt, a, b, c):
     if p % ROWS_PER_CTA or n not in STATE_DIMS:
         raise ValueError(f"ssd_scan: P={p} must be a multiple of {ROWS_PER_CTA} and "
                          f"N={n} one of {STATE_DIMS}")
+    bf16 = x.dtype == torch.bfloat16
     dev = x.device
-    # the kernel reads its inputs one element at a time
-    operands = [cuda_operand(t, what, "ssd_scan", dev, align=t.element_size())
+    # the bf16 kernel stages 16-byte rows of x, b and c; the fp32 kernels
+    # read one element at a time
+    operands = [cuda_operand(t, what, "ssd_scan", dev,
+                             align=16 if bf16 and what in ("x", "b", "c") else t.element_size())
                 for t, what in ((x, "x"), (dt, "dt"), (a, "a"), (b, "b"), (c, "c"))]
-    cb = torch.empty((bsz, s // CHUNK, CHUNK, CHUNK), dtype=torch.float32, device=dev)
+    cb = None if bf16 else torch.empty((bsz, s // CHUNK, CHUNK, CHUNK), dtype=torch.float32,
+                                       device=dev)
     y = torch.empty_like(x)
     fs = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher(x.dtype)(*operands, cb.data_ptr(), y.data_ptr(), fs.data_ptr(),
-                            bsz, s, h, p, n, stream)
+    rc = _launcher(x.dtype)(*operands, 0 if cb is None else cb.data_ptr(), y.data_ptr(),
+                            fs.data_ptr(), bsz, s, h, p, n, stream)
     check_launch(rc, "ssd_scan")
     ssd_scan.launches += 1
     return y, fs

@@ -19,7 +19,13 @@ from repro.kernels import (
     paged_decode_attention_ref as jax_paged_decode_attention_ref,
 )
 from repro_torch.kernels import decode_attention, paged_decode_attention
-from repro_torch.kernels.decode_attn.decode_attn import MIN_SPLIT_KEYS, split_plan
+from repro_torch.kernels.decode_attn.decode_attn import (
+    MIN_SPLIT_KEYS,
+    TC_MIN_SPLIT_KEYS,
+    TC_TILE,
+    split_plan,
+    tc_split_plan,
+)
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -122,3 +128,13 @@ def test_split_plan_covers_every_key(bkv, extent):
     assert n_split * split_len >= extent > (n_split - 1) * split_len
     assert n_split == 1 or split_len >= MIN_SPLIT_KEYS
 
+
+@pytest.mark.parametrize("bkv,extent", [(8, 1024), (1, 64), (3, 96), (64, 4096), (8, 17),
+                                        (1, 32768), (10, 1000)])
+def test_tc_split_plan_covers_every_key_once(bkv, extent):
+    """The bf16 dense kernel's plan: whole 64-key tiles, every key in exactly
+    one split, no split shorter than TC_MIN_SPLIT_KEYS unless it is the only one."""
+    n_split, split_len = tc_split_plan(bkv, extent)
+    assert split_len % TC_TILE == 0
+    assert n_split * split_len >= extent > (n_split - 1) * split_len
+    assert n_split == 1 or split_len >= TC_MIN_SPLIT_KEYS

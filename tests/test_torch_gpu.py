@@ -27,10 +27,12 @@ from repro_torch.kernels import (
     ssd_scan,
     ssd_scan_ref,
 )
+from repro_torch.kernels.decode_attn.decode_attn import TC_TILE, tc_split_plan
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.ssd.ssd import CHUNK
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
@@ -95,6 +97,71 @@ def test_cuda_kernel_rejects_bad_operands():
     with pytest.raises(ValueError):
         decode_attention(q[..., :250].contiguous(), k[..., :250].contiguous(),
                          v, vl, scale=0.1)
+
+
+def _tc_inputs(g, dk, dv, kv=1, l=1024, seed=11):
+    """bf16 dense inputs whose valid_len sits on every edge of the tensor-core
+    kernel's plan: 1, a warp step (16) +- 1, a CTA tile (64) +- 1 and itself,
+    a split +- 1 and itself, and L."""
+    tile, split = TC_TILE, tc_split_plan(10 * kv, l)[1]
+    vl = np.array([1, 15, 17, tile - 1, tile, tile + 1, split - 1, split, split + 1, l],
+                  np.int32)
+    rng = np.random.default_rng(seed)
+    b = len(vl)
+    q = rng.standard_normal((b, kv * g, dk), np.float32)
+    k = rng.standard_normal((b, l, kv, dk), np.float32)
+    v = rng.standard_normal((b, l, kv, dv), np.float32)
+    ts = [torch.from_numpy(t).cuda().to(torch.bfloat16) for t in (q, k, v)]
+    return ts + [torch.from_numpy(vl).cuda()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,kv,dk,dv", [
+    (1, 2, 64, 64),           # G = 1 (MHA)
+    (4, 2, 128, 128),         # qwen3-4b's group
+    (8, 1, 256, 256),         # gemma-2b
+    (16, 1, 64, 64),          # a full 16-row tile
+    (8, 2, 32, 16),           # Dk != Dv
+    (4, 1, 40, 24),           # head dims that are multiples of 8, not of 16
+])
+def test_tc_decode_attention_matches_plain(g, kv, dk, dv):
+    """The bf16 dense tensor-core kernel at every valid_len edge of its plan."""
+    _need_card()
+    ts = _tc_inputs(g, dk, dv, kv)
+    scale = 1 / np.sqrt(dk)
+    before = decode_attention.launches
+    out = decode_attention(*ts, scale=scale)
+    want = decode_attention_ref(*ts, scale)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1 and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_tc_decode_attention_replays_in_a_cuda_graph():
+    """The split kernel and its combine, launched with programmatic dependent
+    launch, captured once in a CUDA graph and replayed twice on new inputs:
+    equal to the plain version both times."""
+    _need_card()
+    static = _tc_inputs(8, 256, 256, seed=12)
+    fresh = [_tc_inputs(8, 256, 256, seed=s) for s in (13, 14)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(*static, scale=0.0625)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(*static, scale=0.0625)
+    for inputs in fresh:
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        want = decode_attention_ref(*inputs, 0.0625)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), rtol=TOL[torch.bfloat16],
+                                   atol=TOL[torch.bfloat16])
 
 
 def _tables(rng, vl, bs, nb, n_pages):
@@ -212,6 +279,40 @@ def test_ssd_cuda_kernel_matches_plain(dtype, b, s, h, p, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [64, 100, 512, 1024])
+@pytest.mark.parametrize("n", [16, 64, 128])
+def test_ssd_tc_kernel_matches_plain(s, n):
+    """The bf16 tensor-core scan at B = 2 over sequence lengths and state
+    dims; its final state held at the fp32 tolerance, as the served model's
+    per-layer check holds it."""
+    _need_card()
+    ts = _ssd_inputs(torch.bfloat16, 2, s, 4, 64, n)
+    y, fs = ssd_prefill(*ts)
+    want_y, want_fs = ssd_scan_ref(*ts)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(fs, want_fs, rtol=SCAN_TOL[torch.float32],
+                               atol=SCAN_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_zero_dt_chunk(dtype):
+    """A whole chunk of dt = 0 rows leaves the state alone and adds nothing."""
+    _need_card()
+    x, dt, a, bm, cm = _ssd_inputs(dtype, 1, 4 * CHUNK, 8, 64, 128)
+    dt[:, CHUNK:2 * CHUNK] = 0
+    y, fs = ssd_prefill(x, dt, a, bm, cm)
+    want_y, want_fs = ssd_scan_ref(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(fs, want_fs, rtol=SCAN_TOL[torch.float32],
+                               atol=SCAN_TOL[torch.float32])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,k", [
     (1, 512, 20, 128),        # gdn-4b prefill, 512-token bucket
@@ -245,6 +346,8 @@ def test_scan_kernels_reject_bad_operands():
         ssd_scan(x, dt.cpu(), a, bm, cm)
     with pytest.raises(ValueError):                      # P = 16: not a multiple of 32
         ssd_scan(x[..., :16].contiguous(), dt, a, bm, cm)
+    with pytest.raises(ValueError):                      # the same for the bf16 kernel
+        ssd_scan(x[..., :16].bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16())
     q, k, v, beta, alpha = _gdn_inputs(torch.float32, 1, 32, 2, 16)
     with pytest.raises(TypeError):
         gdn_scan(q, k, v, beta.bfloat16(), alpha)
