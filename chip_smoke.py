@@ -50,14 +50,15 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # the SSD and GDN scans: tests/test_kernels.py's tolerances for them
 SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # bf16 model logits, kernel path vs plain path on the same state, per served
 # model: kernel and plain version sum in other orders and round their bf16
-# outputs differently (the dense GQA kernel rounds P to bf16 for P.V, as
-# the JAX model does, where its plain version keeps it fp32), and every
+# outputs differently (the dense GQA and the paged MLA kernels round P to
+# bf16 for P.V, as the JAX model does, where their plain versions keep it
+# fp32), and every
 # layer carries the difference on to the logits: 18 layers for gemma-2b, 32
 # for minitron-4b-mla
 LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5}
@@ -313,20 +314,23 @@ def make_gdn_inputs(torch, shape, dtype, seed):
     return (q, kk, v, beta, alpha)
 
 
-SCAN_BOUND_CHUNK = 64   # the SSD's chunked form is counted at this chunk, whatever the kernel's
+SCAN_BOUND_CHUNK = 64   # the chunked forms are counted at this chunk, whatever the kernels'
 
 
 def scan_bound(name, shape, elem):
     """(bound_ms, bound_by) of a scan call. Bytes: every input read once and
-    y and the fp32 final state written once. Operations: SSD, the chunked
-    form at a fixed chunk Q = SCAN_BOUND_CHUNK (so that a kernel's own chunk
-    cannot move its bound), per token 2 Q N for c.b (shared by the heads)
-    and per token and head (Q + 1) P for the causal intra-chunk term, 2 N P
-    for the inter-chunk term and 2 N P for the state pass, over the peak of
-    the inputs' type (bf16 inputs run the three products on bf16 tensor
-    cores with fp32 accumulation); GDN, per token and head 7 K^2 (2 K^2 for
-    k^T S, 3 K^2 for the rank-1 update, 2 K^2 for S^T q) over the fp32 rate
-    (its inputs are fp32 as the model calls it, and so is its work)."""
+    y and the fp32 final state written once. Operations: the chunked forms at
+    a fixed chunk Q = SCAN_BOUND_CHUNK (so that a kernel's own chunk cannot
+    move its bound). SSD, over the peak of the inputs' type (bf16 inputs run
+    the three products on bf16 tensor cores with fp32 accumulation), per
+    token 2 Q N for c.b (shared by the heads) and per token and head (Q + 1)
+    P for the causal intra-chunk term, 2 N P for the inter-chunk term and
+    2 N P for the state pass. GDN (K = V), over the tensor-core peak (TF32
+    for fp32 inputs, bf16 for bf16), per token and head 5 Q K + 6 K^2: the
+    strictly lower half of K K^T and the lower half of Q K^T (Q K each), the
+    two triangular solves for U~ = T V and W = T diag(g) K (2 Q K), the
+    causal (Q K^T . Gamma) U (Q K), and the three products with the state,
+    W S0, diag(g) Q S0 and the update (2 K^2 each)."""
     if name == "ssd_scan":
         b, s, h, p, n = shape
         q = SCAN_BOUND_CHUNK
@@ -336,12 +340,16 @@ def scan_bound(name, shape, elem):
         return _bound(nbytes, ops, "bfloat16" if elem == 2 else "float32")
     b, s, h, k = shape
     nbytes = 4 * b * s * h * k * elem + 8 * b * s * h + 4 * b * h * k * k
-    return _bound(nbytes, 7 * b * s * h * k * k, "float32")
+    return _bound(nbytes, b * s * h * (5 * SCAN_BOUND_CHUNK * k + 6 * k * k),
+                  "bfloat16" if elem == 2 else "tfloat32")
 
 
 # the tensor-core kernels, by library: each must hold HMMA (mma.sync) or
 # HGMMA (wgmma) instructions in its SASS
-TENSOR_CORE_KERNELS = {"decode_attn": "tc_split_kernel", "ssd_scan": "ssd_tc_kernel"}
+TENSOR_CORE_KERNELS = {"decode_attn": ("tc_split_kernel",),
+                       "mla_decode": ("mla_tc_split_kernel",),
+                       "ssd_scan": ("ssd_tc_kernel",),
+                       "gdn_scan": ("gdn_prep_kernel", "gdn_chain_kernel")}
 
 
 def tensor_core_check(info) -> list:
@@ -354,20 +362,21 @@ def tensor_core_check(info) -> list:
     if not Path(tool).exists():
         raise SystemExit("cuobjdump not found: the tensor-core kernels' SASS cannot be checked")
     lines = []
-    for lib, kernel in TENSOR_CORE_KERNELS.items():
+    for lib, kernels in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([tool, "-sass", info[lib]["path"]], check=True,
                               capture_output=True, text=True).stdout
-        counts, fn = {}, None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                fn = line.split("Function :")[1].strip()
-            elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
-                counts[fn] = counts.get(fn, 0) + 1
-        n_fns = sum(kernel in ln for ln in sass.splitlines() if "Function :" in ln)
-        if not counts or len(counts) < n_fns:
-            raise SystemExit(f"{lib}: a {kernel} instantiation has no tensor-core instruction")
-        lines.append(f"{lib}: {kernel} x{n_fns} instantiations, HMMA/HGMMA per instantiation "
-                     f"{sorted(counts.values())}")
+        for kernel in kernels:
+            counts, fn = {}, None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    fn = line.split("Function :")[1].strip()
+                elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
+                    counts[fn] = counts.get(fn, 0) + 1
+            n_fns = sum(kernel in ln for ln in sass.splitlines() if "Function :" in ln)
+            if not counts or len(counts) < n_fns:
+                raise SystemExit(f"{lib}: a {kernel} instantiation has no tensor-core instruction")
+            lines.append(f"{lib}: {kernel} x{n_fns} instantiations, HMMA/HGMMA per "
+                         f"instantiation {sorted(counts.values())}")
     return lines
 
 
@@ -984,7 +993,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
     for paged in (False, True):
         tag = "paged" if paged else "dense"
         engine, reqs, info = serve(torch, cfg, params, prompts, paged=paged, max_new=32,
-                                   kmod=kmod, profile=not paged)
+                                   kmod=kmod, profile=True)
         st = engine.stats
         eos = cfg.eos_token_id
         for r in reqs:

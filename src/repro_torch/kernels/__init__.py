@@ -20,7 +20,7 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
-from repro_torch.kernels.gdn import gdn_prefill, gdn_scan, gdn_scan_ref
+from repro_torch.kernels.gdn import gdn_chunked_ref, gdn_prefill, gdn_scan, gdn_scan_ref
 from repro_torch.kernels.mla_decode import (
     mla_fused_decode,
     mla_latent_decode,
@@ -38,5 +38,5 @@ __all__ = [
     "mla_paged_latent_decode", "mla_paged_latent_decode_ref",
     "mla_fused_decode", "mla_paged_fused_decode",
     "ssd_scan", "ssd_scan_ref", "ssd_prefill",
-    "gdn_scan", "gdn_scan_ref", "gdn_prefill",
+    "gdn_scan", "gdn_scan_ref", "gdn_prefill", "gdn_chunked_ref",
 ]

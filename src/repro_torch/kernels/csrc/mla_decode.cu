@@ -14,49 +14,85 @@
 // both forms: the dense Pallas wrapper concatenates them on the host, which
 // copies the whole cache on every call; this kernel reads each once.
 //
-// What bounds it on this card: operations. Every key costs
-// 2 * H * (R + P + R) flops (scores over R + P features, context over R)
-// against (R + P) * elem bytes: at H = 24, R = 512, P = 64 in bf16 that is
-// about 45 flops per byte. The kernel does its products on the CUDA cores
-// in fp32 (no tensor cores), which keep up with only ~20 flops per byte of
-// HBM bandwidth, so its FMAs, not its bytes, bound it -- once the loads'
-// latency is hidden, which is what most of the design is about.
+// What bounds it on this card: bytes. Every key costs 2 * H * (R + P + R)
+// flops (scores over R + P features, context over R) against (R + P) * elem
+// bytes: at H = 24, R = 512, P = 64 in bf16 about 45 flops per byte, far
+// below the ~295 at which the tensor cores stop being fed by HBM. On the
+// CUDA cores (~20 flops per byte in fp32) the same FMAs are the limit.
 //
-// What the design does about it:
-// - The key loop stops at valid_len, and the paged kernel reads block-table
-//   entries only below ceil(valid_len / bs): the operations done are the
-//   ones the request needs.
-// - The key axis is split across CTAs (flash-decoding): CTA (split, b, hg)
-//   covers keys [split * split_len, (split + 1) * split_len) for HG heads
-//   (HG in 4, 8, 16, chosen by the wrapper to pad H least), so that B = 8
-//   rows still fill the 132 SMs; a second kernel merges the splits'
-//   (m, l, acc), one CTA per output row.
-// - Latency: keys go through shared memory in tiles of TK = 32 rows
-//   [ckv; kr], copied with cp.async and double-buffered, so the next tile's
-//   rows are in flight while this one is used; the query rows are fetched
-//   16 bytes a thread with every load issued before any is used; registers
-//   are held to 128 a thread so that two CTAs share an SM.
-// - The accumulator is HG x R fp32 per CTA (16 x 512 x 4 B = 32 KB): too
-//   large for one warp's registers, so it is spread over the whole CTA.
-//   Thread t owns latent columns 2t and 2t + 1 for all HG heads (2 * HG
-//   registers); R <= 512 = 2 * 256 threads.
-// - Per tile: (1) each scoring warp takes 32 / HG keys at a time; every lane
-//   dots its 16-byte chunks of their rows with the HG query rows (fp32 in
-//   shared memory), and one reduce-scatter of the warp's 32 (key, head)
-//   partial sums (31 shuffles) leaves lane L with score L. (2) one warp per
-//   head updates m and l over the tile and turns the scores into
-//   probabilities. (3) each thread rescales its accumulator columns and adds
-//   p * ckv over the tile's keys, the probabilities read as float4
-//   broadcasts and the ckv rows from the same shared-memory tile.
-// - p stays fp32 in the P.V product at bf16 too; the JAX model casts the
-//   probabilities to the cache dtype first (models/mla.py:_attend_absorbed).
-// - The next redesign: the two products as mma.sync / wgmma over
-//   (heads x 576) . (576 x keys) tiles, which moves the bound to the bytes.
+// 1. bf16 paged: tc::mla_tc_split_kernel + tc::mla_tc_combine_kernel, on
+//   the tensor cores.
+// - Both products on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), with the
+//   keys on the M side of the scores: S^T (keys x heads) = [ckv | kr] .
+//   [q_lat | q_rope]^T, so that HG = 8, 16 or 24 heads are one, two or three
+//   n8 tiles (24 heads: none padded) and share one read of every key row;
+//   the context is O^T (latent x heads) = ckv^T P^T, its A operand the same
+//   shared-memory key rows through ldmatrix.trans (ckv is both the key's
+//   latent part and the value).
+// - A CTA (4 warps) takes a split of 64 keys, 32 a step. Each warp scores
+//   the step's keys over a quarter of the 576 features (its Q^T fragments
+//   stay in registers for the whole split), the four partial scores meet in
+//   shared memory behind one barrier a step, and every warp then runs the
+//   same online softmax down the heads' columns; p is rounded once to bf16
+//   (as the JAX model casts the probabilities to the cache dtype) into a
+//   per-warp P^T tile, the B operand of the context. The H x 512 fp32
+//   accumulator is split over the warps by latent rows: 128 a warp, 96
+//   registers a thread at H = 24.
+// - Key rows arrive by TMA bulk copies, one per row's ckv and one per its kr
+//   part, into a 2-slot ring of 32-key steps with an mbarrier a slot; every
+//   warp issues the copies of 8 rows (one warp issuing all 64 serialised
+//   them: 0.0164 against 0.0121 ms a call). The block-table entries the
+//   split can touch are copied to shared memory once, while valid_len is
+//   read; a key row's address comes from one function, tc::key_row. The
+//   query rows come by cp.async, issued first. Rows are padded by 16 bytes
+//   (conflict-free ldmatrix) and zero past R and P, so every loop runs to a
+//   fixed width (64 or 512 latent columns, 64 rope features).
+// - A request with more than one split writes fp32 partial (m, l, acc)
+//   states that tc::mla_tc_combine_kernel merges -- one CTA per output row,
+//   every partial's loads in flight at once, launched with programmatic
+//   dependent launch. (Merging the splits in a thread-block cluster through
+//   distributed shared memory, with 128-key splits, was slower: 0.0219 ms.)
+//
+// 2. fp32 (dense and paged) and bf16 dense: mla_split_kernel +
+//   mla_combine_kernel, the first design, on the CUDA cores in fp32:
+//   - The key loop stops at valid_len, and the paged kernel reads block-table
+//     entries only below ceil(valid_len / bs): the operations done are the
+//     ones the request needs.
+//   - The key axis is split across CTAs (flash-decoding): CTA (split, b, hg)
+//     covers keys [split * split_len, (split + 1) * split_len) for HG heads
+//     (HG in 4, 8, 16, chosen by the wrapper to pad H least), so that B = 8
+//     rows still fill the 132 SMs; a second kernel merges the splits'
+//     (m, l, acc), one CTA per output row.
+//   - Latency: keys go through shared memory in tiles of TK = 32 rows
+//     [ckv; kr], copied with cp.async and double-buffered, so the next tile's
+//     rows are in flight while this one is used; the query rows are fetched
+//     16 bytes a thread with every load issued before any is used; registers
+//     are held to 128 a thread so that two CTAs share an SM.
+//   - The accumulator is HG x R fp32 per CTA (16 x 512 x 4 B = 32 KB): too
+//     large for one warp's registers, so it is spread over the whole CTA.
+//     Thread t owns latent columns 2t and 2t + 1 for all HG heads (2 * HG
+//     registers); R <= 512 = 2 * 256 threads.
+//   - Per tile: (1) each scoring warp takes 32 / HG keys at a time; every lane
+//     dots its 16-byte chunks of their rows with the HG query rows (fp32 in
+//     shared memory), and one reduce-scatter of the warp's 32 (key, head)
+//     partial sums (31 shuffles) leaves lane L with score L. (2) one warp per
+//     head updates m and l over the tile and turns the scores into
+//     probabilities. (3) each thread rescales its accumulator columns and adds
+//     p * ckv over the tile's keys, the probabilities read as float4
+//     broadcasts and the ckv rows from the same shared-memory tile.
+//   - p stays fp32 in its P.V product; the JAX model casts the
+//     probabilities to the cache dtype first (models/mla.py:_attend_absorbed).
+//   - The next redesign: bf16 dense on tc::mla_tc_split_kernel, through a
+//     dense row lookup in tc::key_row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -476,6 +512,422 @@ __global__ void mla_combine_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 paged on the tensor cores
+namespace tc {
+
+using namespace sm90;
+using bf16 = __nv_bfloat16;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int WK = 32;                 // keys a step: two m16 tiles of the scores
+constexpr int KT = WK / 16;
+constexpr int STAGES = 2;              // slots in the CTA's ring of key steps: a 64-key split
+constexpr int PMAX = MAX_ROPE;         // rope features, zero-padded to this width
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Row of key pos in the (rows, R) / (rows, P) caches: page table[pos / bs -
+// first], row pos % bs, where `table` holds the request's block-table
+// entries from entry `first` on (a copy in shared memory).
+__device__ __forceinline__ long long key_row(const Params& p, const int* table, int first,
+                                             int pos) {
+  return (long long)table[pos / p.bs - first] * p.bs + pos % p.bs;
+}
+
+// Shared memory of mla_tc_split_kernel<RMAX, NH> (HG = 8 NH heads): rows
+// [ckv | kr] RMAX + PMAX wide (zero past R and past P) padded by 8 elements:
+// the HG query rows, then STAGES slots of WK key rows; each warp's
+// probabilities P^T (HG x WK, padded by 8); the warps' partial scores (two
+// rounds); then the split's block-table entries (table_bytes).
+template <int RMAX, int NH>
+struct Smem {
+  static constexpr int HG = 8 * NH;
+  static constexpr int LDK = RMAX + PMAX + 8;
+  static constexpr int LDP = WK + 8;
+  static constexpr size_t Q = (size_t)HG * LDK * 2;
+  static constexpr size_t RING = (size_t)STAGES * WK * LDK * 2;
+  static constexpr size_t P = (size_t)WARPS * HG * LDP * 2;
+  static constexpr size_t XS = (size_t)2 * WARPS * KT * NH * 32 * 16;
+  static constexpr size_t BYTES = Q + RING + P + XS;
+};
+
+// bytes of the block-table copy of a split of split_len keys
+__host__ __device__ inline size_t table_bytes(int split_len, int bs) {
+  return (size_t)(split_len / bs + 2) * 4;
+}
+constexpr int MAX_SMEM = 200 * 1024;  // the dynamic shared memory a split CTA may ask for
+
+// grid (n_split, B, ceil(H / HG)); R <= RMAX, P <= PMAX, multiples of 8
+template <int RMAX, int NH>
+__global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
+  using Sm = Smem<RMAX, NH>;
+  constexpr int HG = Sm::HG, LDK = Sm::LDK, LDP = Sm::LDP;
+  constexpr int KS = (RMAX + PMAX) / 16;   // k16 steps of a score
+  constexpr int KSW = KS / WARPS;          // ... that each warp takes
+  constexpr int MT = RMAX / 16 / WARPS;    // latent m16 tiles of each warp's context
+  static_assert(KS % WARPS == 0 && MT >= 1, "widths");
+  const int split = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the combine may start
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* const smem = tc_smem;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* ring = reinterpret_cast<bf16*>(smem + Sm::Q);
+  bf16* sP = reinterpret_cast<bf16*>(smem + Sm::Q + Sm::RING) + warp * HG * LDP;
+  float4* xs = reinterpret_cast<float4*>(smem + Sm::Q + Sm::RING + Sm::P);  // (2, WARPS, KT, NH, 32)
+  int* table = reinterpret_cast<int*>(smem + Sm::BYTES);
+  __shared__ __align__(8) uint64_t bar[STAGES];
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  constexpr int CW = (RMAX + PMAX) / 8;  // 16-byte chunks of a row
+
+  // the query rows [q_lat | q_rope] by cp.async (heads past H and columns
+  // past R, P zero), in flight while valid_len and the table are read
+  {
+    const bf16* ql = static_cast<const bf16*>(p.q_lat) + ((long long)b * p.H + h0) * p.R;
+    const bf16* qr = static_cast<const bf16*>(p.q_rope) + ((long long)b * p.H + h0) * p.P;
+    for (int e = tid; e < HG * CW; e += THREADS) {
+      const int g = e / CW, c = 8 * (e % CW);
+      bf16* dst = sQ + g * LDK + c;
+      const bool live = h0 + g < p.H;
+      if (live && c < p.R)
+        cp_async16(dst, ql + g * p.R + c, true);
+      else if (live && c >= RMAX && c - RMAX < p.P)
+        cp_async16(dst, qr + g * p.P + c - RMAX, true);
+      else
+        *reinterpret_cast<uint4*>(dst) = zero;
+    }
+    cp_async_commit();
+  }
+  // the block-table entries the split can touch, read while valid_len is
+  const int s0 = split * p.split_len;
+  const int first = s0 / p.bs;  // the split's first block-table entry
+  const int vl = p.valid_len[b];
+  if (warp == 0) {
+    const int* bt = p.block_tables + (long long)b * p.nb;
+    const int last = min(p.nb - 1, (s0 + p.split_len - 1) / p.bs);
+    for (int j = lane; j <= last - first; j += 32) table[j] = bt[first + j];
+  }
+  const int n = min(vl, p.L);
+  const int s1 = min(s0 + p.split_len, n);
+  const int n_used = (n + p.split_len - 1) / p.split_len;  // splits with keys of b
+  if (s0 >= s1) {  // no key of this request here; only n <= 0 leaves split 0 empty
+    if (split == 0)
+      for (int i = tid; i < HG * p.R; i += THREADS) {
+        const int g = i / p.R;
+        if (h0 + g < p.H)
+          static_cast<bf16*>(p.out)[((long long)b * p.H + h0) * p.R + i] = __float2bfloat16(0.f);
+      }
+    cp_async_wait<0>();
+    return;
+  }
+  const bool direct = n_used == 1;
+  const bf16* ckv = static_cast<const bf16*>(p.ckv);
+  const bf16* kr = static_cast<const bf16*>(p.kr);
+  const int steps = (s1 - s0 + WK - 1) / WK;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+  }
+  // the ring's columns past R and P, once (the copies write the others)
+  if (p.R < RMAX || p.P < PMAX)
+    for (int e = tid; e < STAGES * WK * CW; e += THREADS) {
+      const int r = e / CW, c = 8 * (e % CW);
+      if ((c >= p.R && c < RMAX) || c >= RMAX + p.P)
+        *reinterpret_cast<uint4*>(ring + r * LDK + c) = zero;
+    }
+  __syncthreads();  // the barriers are initialised, the table entries read
+
+  // step i (keys s0 + WK i + [0, WK)) -> slot i % STAGES, by every warp:
+  // lane r < 8 of warp w copies the ckv part of row 8 w + r, lane 8 + r its
+  // kr part, one TMA bulk copy each; a key past s1 copies key s1 - 1 instead
+  // (masked below)
+  static_assert(WK == 8 * WARPS, "eight key rows a warp");
+  auto load = [&](int i) {
+    const int slot = i % STAGES, r = 8 * warp + (lane & 7);
+    if (tid == 0) mbar_expect_tx(&bar[slot], WK * (p.R + p.P) * sizeof(bf16));
+    fence_proxy_async();  // the slot's last reads (step i - STAGES) come first
+    const long long row = key_row(p, table, first, min(s0 + i * WK + r, s1 - 1));
+    bf16* dst = ring + (slot * WK + r) * LDK;
+    if (lane < 8)
+      bulk_copy(dst, ckv + row * p.R, p.R * sizeof(bf16), &bar[slot]);
+    else if (lane < 16)
+      bulk_copy(dst + RMAX, kr + row * p.P, p.P * sizeof(bf16), &bar[slot]);
+  };
+  for (int i = 0; i < STAGES && i < steps; ++i) load(i);  // every slot is free
+  cp_async_wait<0>();
+  __syncthreads();  // the query rows, from every thread's copies
+
+  // this warp's B fragments of Q^T (k = features, n = heads): k16 steps
+  // warp, warp + WARPS, ...
+  uint32_t qf[KSW][NH][2];
+#pragma unroll
+  for (int jj = 0; jj < KSW; ++jj)
+#pragma unroll
+    for (int nt = 0; nt < NH; ++nt)
+      ldsm_x2(qf[jj][nt],
+              sQ + (8 * nt + (lane & 7)) * LDK + 16 * (warp + WARPS * jj) + ((lane >> 3) & 1) * 8);
+
+  const float sl2 = p.scale * LOG2E;  // scores in log2 units
+  float m[NH][2], l[NH][2];
+  float acc[MT][NH][4];
+#pragma unroll
+  for (int nt = 0; nt < NH; ++nt) {
+    m[nt][0] = m[nt][1] = -INFINITY;
+    l[nt][0] = l[nt][1] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] = 0.f;
+  }
+
+  for (int i = 0; i < steps; ++i) {
+    const int slot = i % STAGES;
+    mbar_wait(&bar[slot], (i / STAGES) & 1);  // step i has landed
+    const bf16* kt = ring + slot * WK * LDK;
+    // ---- S^T (keys x heads, KT m16 tiles of keys) over this warp's
+    // features, then the sum of the warps' partials
+    float s[KT][NH][4];
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) s[t][nt][0] = s[t][nt][1] = s[t][nt][2] = s[t][nt][3] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < KSW; ++jj)
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        uint32_t a[4];
+        ldsm_x4(a, kt + (16 * t + (lane & 15)) * LDK + 16 * (warp + WARPS * jj) + (lane >> 4) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt) mma(s[t][nt], a, qf[jj][nt][0], qf[jj][nt][1]);
+      }
+    float4* xr = xs + (i & 1) * WARPS * KT * NH * 32;
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt)
+        xr[((warp * KT + t) * NH + nt) * 32 + lane] =
+            make_float4(s[t][nt][0], s[t][nt][1], s[t][nt][2], s[t][nt][3]);
+    // every warp's partial is written, and every warp is done with step i - 1
+    // and its slot
+    asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+    if (i > 0 && i - 1 + STAGES < steps) load(i - 1 + STAGES);
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) {
+        s[t][nt][0] = s[t][nt][1] = s[t][nt][2] = s[t][nt][3] = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          const float4 v = xr[((w * KT + t) * NH + nt) * 32 + lane];
+          s[t][nt][0] += v.x;
+          s[t][nt][1] += v.y;
+          s[t][nt][2] += v.z;
+          s[t][nt][3] += v.w;
+        }
+      }
+    // ---- online softmax down each head's column of WK keys
+    const int base = s0 + i * WK;
+    float corr[NH][2];
+#pragma unroll
+    for (int nt = 0; nt < NH; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x[KT][2], mx = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          x[t][0] = base + 16 * t + r0 < s1 ? s[t][nt][e] * sl2 : -INFINITY;
+          x[t][1] = base + 16 * t + r0 + 8 < s1 ? s[t][nt][2 + e] * sl2 : -INFINITY;
+          mx = fmaxf(mx, fmaxf(x[t][0], x[t][1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float mn = fmaxf(m[nt][e], mx);  // finite: key base is valid
+        corr[nt][e] = exp2f(m[nt][e] - mn);
+        m[nt][e] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const float p0 = exp2f(x[t][0] - mn), p1 = exp2f(x[t][1] - mn);
+          sum += p0 + p1;
+          // P^T (heads x keys) for the context's B operand, rounded once to bf16
+          sP[(8 * nt + c0 + e) * LDP + 16 * t + r0] = __float2bfloat16(p0);
+          sP[(8 * nt + c0 + e) * LDP + 16 * t + r0 + 8] = __float2bfloat16(p1);
+        }
+        l[nt][e] = l[nt][e] * corr[nt][e] + sum;  // this lane's share
+      }
+    }
+    __syncwarp();
+    uint32_t pb[KT][NH][2];
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt)
+        ldsm_x2(pb[t][nt], sP + (8 * nt + (lane & 7)) * LDP + 16 * t + ((lane >> 3) & 1) * 8);
+    // ---- O^T (latent x heads) = O^T * corr + V^T P^T over this warp's latent tiles
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) {
+        acc[mi][nt][0] *= corr[nt][0];
+        acc[mi][nt][1] *= corr[nt][1];
+        acc[mi][nt][2] *= corr[nt][0];
+        acc[mi][nt][3] *= corr[nt][1];
+      }
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        uint32_t va[4];
+        ldsm_x4_t(va, kt + (16 * t + (lane >> 4) * 8 + (lane & 7)) * LDK + 16 * (warp * MT + mi) +
+                          ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt) mma(acc[mi][nt], va, pb[t][nt][0], pb[t][nt][1]);
+      }
+    }
+    __syncwarp();  // sP is rewritten next step
+  }
+#pragma unroll
+  for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[nt][e] += __shfl_xor_sync(0xffffffffu, l[nt][e], 4);
+      l[nt][e] += __shfl_xor_sync(0xffffffffu, l[nt][e], 8);
+      l[nt][e] += __shfl_xor_sync(0xffffffffu, l[nt][e], 16);
+    }
+
+  // ---- every warp holds the same (m, l) and its own latent rows: write them
+  const long long part = (long long)b * p.n_split + split;
+#pragma unroll
+  for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int g = h0 + 8 * nt + c0 + e;
+      if (g >= p.H) continue;
+      const float inv = 1.f / fmaxf(l[nt][e], 1e-30f);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int d = 16 * (warp * MT + mi) + r0 + 8 * hh;
+          if (d >= p.R) continue;
+          const float v = acc[mi][nt][2 * hh + e];
+          if (direct)
+            static_cast<bf16*>(p.out)[((long long)b * p.H + g) * p.R + d] = __float2bfloat16(v * inv);
+          else
+            p.part_acc[(part * p.H + g) * p.R + d] = v;
+        }
+      if (!direct && warp == 0 && r0 == 0) {
+        p.part_m[part * p.H + g] = m[nt][e] * LN2;  // natural-log units
+        p.part_l[part * p.H + g] = l[nt][e];
+      }
+    }
+}
+
+constexpr int COMBINE_THREADS = 128;  // 4 columns a thread: R <= 512
+constexpr int COMBINE_UNROLL = 16;    // up to this many splits, all loads in flight at once
+
+// Merge the partial states of one output row (b, h) of a request with more
+// than one split: one CTA per row, 4 columns a thread. Launched with
+// programmatic stream serialization it may start while the split kernel
+// runs; griddepcontrol.wait holds it until the partials are written.
+__global__ void __launch_bounds__(COMBINE_THREADS) mla_tc_combine_kernel(Params p) {
+  const int row = blockIdx.x;  // b * H + h
+  const int b = row / p.H, h = row - b * p.H;
+  const int d = 4 * threadIdx.x;
+  const int n = min(p.valid_len[b], p.L);
+  const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (n_used <= 1 || d >= p.R) return;  // one split wrote the row itself
+  const long long first = (long long)b * p.n_split;
+  auto acc_at = [&](int s) {
+    return __ldcg(reinterpret_cast<const float4*>(p.part_acc + ((first + s) * p.H + h) * p.R + d));
+  };
+  float mx = -INFINITY, sum = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n_used <= COMBINE_UNROLL) {
+    // every load in flight at once: splits past n_used read the last one again,
+    // and weigh 0
+    float ms[COMBINE_UNROLL], ls[COMBINE_UNROLL];
+    float4 a[COMBINE_UNROLL];
+#pragma unroll
+    for (int s = 0; s < COMBINE_UNROLL; ++s) {
+      const int t = min(s, n_used - 1);
+      ms[s] = __ldcg(p.part_m + (first + t) * p.H + h);
+      ls[s] = __ldcg(p.part_l + (first + t) * p.H + h);
+      a[s] = acc_at(t);
+      mx = fmaxf(mx, ms[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < COMBINE_UNROLL; ++s) {
+      const float w = s < n_used ? expf(ms[s] - mx) : 0.f;
+      sum = fmaf(w, ls[s], sum);
+      o.x = fmaf(w, a[s].x, o.x);
+      o.y = fmaf(w, a[s].y, o.y);
+      o.z = fmaf(w, a[s].z, o.z);
+      o.w = fmaf(w, a[s].w, o.w);
+    }
+  } else {
+    for (int s = 0; s < n_used; ++s) mx = fmaxf(mx, __ldcg(p.part_m + (first + s) * p.H + h));
+    for (int s = 0; s < n_used; ++s) {
+      const float w = expf(__ldcg(p.part_m + (first + s) * p.H + h) - mx);
+      const float4 a = acc_at(s);
+      sum = fmaf(w, __ldcg(p.part_l + (first + s) * p.H + h), sum);
+      o.x = fmaf(w, a.x, o.x);
+      o.y = fmaf(w, a.y, o.y);
+      o.z = fmaf(w, a.z, o.z);
+      o.w = fmaf(w, a.w, o.w);
+    }
+  }
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + (long long)row * p.R + d) =
+      make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
+}
+
+template <int RMAX, int NH>
+int launch_rn(const Params& p, cudaStream_t stream) {
+  using Sm = Smem<RMAX, NH>;
+  // above 48 KB a kernel's dynamic shared memory must be opted into, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      mla_tc_split_kernel<RMAX, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = Sm::BYTES + table_bytes(p.split_len, p.bs);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.n_split, p.B, (p.H + Sm::HG - 1) / Sm::HG);
+  mla_tc_split_kernel<RMAX, NH><<<grid, THREADS, smem, stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return (int)err;
+  // the combine may launch while the split kernel runs (programmatic dependent
+  // launch): its griddepcontrol.wait holds it until the partials are written
+  cudaLaunchAttribute serial[1];
+  serial[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  serial[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.B * p.H);
+  cfg.blockDim = dim3(COMBINE_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = serial;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, mla_tc_combine_kernel, p);
+}
+
+// hg: heads a CTA, 8, 16 or 24 (the wrapper's head_group over TC_HEAD_GROUPS)
+template <int RMAX>
+int launch_r(const Params& p, int hg, cudaStream_t stream) {
+  switch (hg) {
+    case 8: return launch_rn<RMAX, 1>(p, stream);
+    case 16: return launch_rn<RMAX, 2>(p, stream);
+    case 24: return launch_rn<RMAX, 3>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch(const Params& p, int hg, cudaStream_t stream) {
+  if (p.R > MAX_RANK || p.P > PMAX || p.R % 8 || p.P % 8 || p.split_len % WK)
+    return (int)cudaErrorInvalidValue;
+  return p.R <= 64 ? launch_r<64>(p, hg, stream) : launch_r<MAX_RANK>(p, hg, stream);
+}
+
+}  // namespace tc
+
 template <typename T, bool PAGED, int HG>
 int launch_split(const Params& p, cudaStream_t stream) {
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
@@ -491,21 +943,25 @@ int launch_split(const Params& p, cudaStream_t stream) {
 
 template <typename T, bool PAGED>
 int launch(const Params& p, int hg, cudaStream_t stream) {
-  if (p.R > MAX_RANK || p.P > MAX_ROPE || p.R % Vec<T>::N || p.P % Vec<T>::N)
-    return (int)cudaErrorInvalidValue;
-  int err;
-  if (hg == 4) {
-    err = launch_split<T, PAGED, 4>(p, stream);
-  } else if (hg == 8) {
-    err = launch_split<T, PAGED, 8>(p, stream);
-  } else if (hg == 16) {
-    err = launch_split<T, PAGED, 16>(p, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && PAGED) {
+    return tc::launch(p, hg, stream);
   } else {
-    return (int)cudaErrorInvalidValue;
+    if (p.R > MAX_RANK || p.P > MAX_ROPE || p.R % Vec<T>::N || p.P % Vec<T>::N)
+      return (int)cudaErrorInvalidValue;
+    int err;
+    if (hg == 4) {
+      err = launch_split<T, PAGED, 4>(p, stream);
+    } else if (hg == 8) {
+      err = launch_split<T, PAGED, 8>(p, stream);
+    } else if (hg == 16) {
+      err = launch_split<T, PAGED, 16>(p, stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess || p.n_split == 1) return err;
+    mla_combine_kernel<T><<<p.B * p.H, 128, 2 * p.n_split * sizeof(float), stream>>>(p);
+    return (int)cudaGetLastError();
   }
-  if (err != cudaSuccess || p.n_split == 1) return err;
-  mla_combine_kernel<T><<<p.B * p.H, 128, 2 * p.n_split * sizeof(float), stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 // Warp-level tensor-core and async-copy helpers (inline PTX) shared by the
 // hand-written kernels: cp.async and TMA bulk copies (with mbarriers) into
 // shared memory, ldmatrix (plain and transposed), and mma.sync.m16n8k16 with
-// bf16 operands and fp32 accumulation.
+// bf16 or fp16 operands and fp32 accumulation.
 //
 // Fragment layouts of mma.m16n8k16 (lane = threadIdx.x % 32, r = lane / 4,
 // c = 2 * (lane % 4)):
@@ -14,6 +14,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -99,6 +100,12 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
                : "memory");
 }
 // Two matrices; lanes 0-15 give the addresses (the others are ignored).
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
 __device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -115,6 +122,15 @@ __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d (16x8 fp32) += a (16x16 fp16, row) . b (16x8 fp16, col)
+__device__ __forceinline__ void mma_f16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two floats -> bf16x2, round to nearest; lo in the low half
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -122,6 +138,14 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 }
 __device__ __forceinline__ float2 unpack(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+// the same for fp16x2
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_f16(uint32_t v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
 }
 
 }  // namespace sm90

@@ -1,5 +1,7 @@
-"""Gated-delta-rule scan wrapper: the CUDA kernel of ``csrc/gdn_scan.cu`` on
-a CUDA tensor, the plain PyTorch version of ``ref.py`` on a CPU tensor.
+"""Gated-delta-rule scan wrapper: the CUDA kernels of ``csrc/gdn_scan.cu``
+(the chunked form of the delta rule on the tensor cores: a prep kernel over
+every chunk, then the chain across chunks) on a CUDA tensor, the plain
+PyTorch version of ``ref.py`` on a CPU tensor.
 
 Counterpart of the Pallas kernel ``repro.kernels.gdn.gdn.gdn_scan``. On a
 CUDA tensor the wrapper launches its kernel or raises; there is no
@@ -20,12 +22,26 @@ import torch
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.gdn.ref import gdn_scan_ref
 
-CHUNK = 32                    # tokens per staged chunk of the kernel (TT in the source)
+CHUNK = 32                    # tokens per chunk of the kernels (C in the source)
 HEAD_DIMS = (16, 32, 64, 128)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _LAUNCHERS = {}
+
+
+def _scratch_bytes(bsz: int, s: int, h: int, kd: int) -> int:
+    """Bytes of the chain operands the prep kernel writes (the source's
+    ``gdn_scan_scratch_bytes``)."""
+    fn = _LAUNCHERS.get("scratch")
+    if fn is None:
+        from repro_torch.kernels.build import library
+
+        fn = library("gdn_scan").gdn_scan_scratch_bytes
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+        _LAUNCHERS["scratch"] = fn
+    return fn(bsz, s, h, kd)
 
 
 def _launcher(dtype: torch.dtype):
@@ -79,8 +95,10 @@ def gdn_scan(q, k, v, beta, alpha):
                  ((beta, "beta"), (alpha, "alpha"))]
     y = torch.empty_like(q)
     fs = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_scratch_bytes(bsz, s, h, kd),), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher(q.dtype)(*operands, y.data_ptr(), fs.data_ptr(), bsz, s, h, kd, stream)
+    rc = _launcher(q.dtype)(*operands, y.data_ptr(), fs.data_ptr(), scratch.data_ptr(),
+                            bsz, s, h, kd, stream)
     check_launch(rc, "gdn_scan")
     gdn_scan.launches += 1
     return y, fs

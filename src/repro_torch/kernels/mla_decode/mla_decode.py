@@ -10,9 +10,10 @@ count).
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
 are attended; the result is (B, H, rank) in q's dtype. ``ckv`` and ``kr``
 stay separate operands in the dense form too (the Pallas wrapper
-concatenates them, copying the cache on every call). At bf16 the kernel
-keeps the softmax probabilities in fp32 for the P.V product, where the JAX
-model casts them to the cache dtype first.
+concatenates them, copying the cache on every call). The bf16 paged kernel
+runs both products on the tensor cores and rounds the softmax probabilities
+once to bf16 for P.V, as the JAX model casts them to the cache dtype; the
+fp32 and the dense kernels keep them fp32.
 """
 from __future__ import annotations
 
@@ -32,6 +33,11 @@ MAX_ROPE = 64
 HEAD_GROUPS = (16, 8, 4)   # query heads per CTA, as instantiated in the source
 TARGET_CTAS = 528          # four per SM of an H100 (two resident at a time)
 TILE_KEYS = 32             # keys per tile of the kernel (TK in the source)
+# the bf16 paged tensor-core kernel (tc::mla_tc_split_kernel)
+TC_HEAD_GROUPS = (24, 16, 8)   # query heads per CTA: three, two or one n8 tile
+TC_STEP = 32               # keys a step of its 4-warp CTA
+TC_TARGET_CTAS = 132       # one per SM
+TC_MIN_SPLIT_KEYS = 64
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
@@ -39,20 +45,30 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
 _LAUNCHERS = {}
 
 
-def head_group(h: int) -> int:
-    """Heads per CTA: the group of HEAD_GROUPS that pads ``h`` least (the
-    larger on a tie, which reads each key fewer times)."""
-    return min(HEAD_GROUPS, key=lambda g: (-(-h // g) * g, -g))
+def head_group(h: int, groups=HEAD_GROUPS) -> int:
+    """Heads per CTA: the group of ``groups`` (HEAD_GROUPS, or TC_HEAD_GROUPS
+    for the tensor-core kernel) that pads ``h`` least (the larger on a tie,
+    which reads each key fewer times)."""
+    return min(groups, key=lambda g: (-(-h // g) * g, -g))
 
 
-def split_plan(ctas: int, extent: int):
+def split_plan(ctas: int, extent: int, *, target: int = TARGET_CTAS,
+               min_keys: int = TILE_KEYS, tile: int = TILE_KEYS):
     """(n_split, split_len) for ``ctas`` (batch, head-group) pairs over
-    ``extent`` keys: enough splits to give the card about TARGET_CTAS CTAs,
-    each a whole number of TILE_KEYS-key tiles."""
-    n_split = max(1, min(-(-extent // TILE_KEYS), -(-TARGET_CTAS // ctas)))
+    ``extent`` keys: enough splits to give the card about ``target`` CTAs,
+    none shorter than ``min_keys`` keys (unless the extent is), each a whole
+    number of ``tile``-key tiles."""
+    n_split = max(1, min(-(-extent // min_keys), -(-target // ctas)))
     split_len = -(-extent // n_split)
-    split_len = -(-split_len // TILE_KEYS) * TILE_KEYS
+    split_len = -(-split_len // tile) * tile
     return -(-extent // split_len), split_len
+
+
+def tc_split_plan(ctas: int, extent: int):
+    """``split_plan`` of the tensor-core kernel: whole TC_STEP-key steps, at
+    least TC_MIN_SPLIT_KEYS keys, about TC_TARGET_CTAS CTAs in all."""
+    return split_plan(ctas, extent, target=TC_TARGET_CTAS, min_keys=TC_MIN_SPLIT_KEYS,
+                      tile=TC_STEP)
 
 
 def _launcher(name: str, dtype: torch.dtype):
@@ -99,8 +115,12 @@ def _launch(name, q_lat, q_rope, ckv, kr, valid_len, block_tables, extent, bs, n
     operands.append(0 if block_tables is None else cuda_operand(
         block_tables, "block_tables", name, q_lat.device, torch.int32))
 
-    hg = head_group(h)
-    n_split, split_len = split_plan(b * -(-h // hg), extent)
+    if block_tables is not None and q_lat.dtype == torch.bfloat16:
+        hg = head_group(h, TC_HEAD_GROUPS)
+        n_split, split_len = tc_split_plan(b * -(-h // hg), extent)
+    else:
+        hg = head_group(h)
+        n_split, split_len = split_plan(b * -(-h // hg), extent)
     out = torch.empty((b, h, rank), dtype=q_lat.dtype, device=q_lat.device)
     if n_split > 1:
         part_m = torch.empty((b * n_split * h,), dtype=torch.float32, device=q_lat.device)

@@ -12,6 +12,10 @@
   recurrence on both sides; XLA and PyTorch sum in other orders).
 * The reference's bucket padding reaches the GDN state too, and the port
   reproduces it.
+* ``gdn_chunked_ref``, the chunked (WY / UT-transform) form that the CUDA
+  kernel evaluates, against ``gdn_scan_ref`` and the Pallas kernel at the GDN
+  tolerance: chunks 16, 32 and 64, lengths that are not a chunk multiple,
+  strong decay, beta = 1, K = 16 and 128.
 Whole-model steps and engine replays of gdn-4b are in
 ``tests/test_torch_model.py`` and ``tests/test_torch_serving.py``; the CUDA
 kernel itself runs only on a card (``tests/test_torch_gpu.py``).
@@ -29,7 +33,7 @@ from repro.kernels import gdn_scan_ref as jax_gdn_scan_ref
 from repro.models import gdn as jax_gdn
 import repro_torch.models as T
 from repro_torch.configs import reduced_config
-from repro_torch.kernels import gdn_prefill, gdn_scan, gdn_scan_ref
+from repro_torch.kernels import gdn_chunked_ref, gdn_prefill, gdn_scan, gdn_scan_ref
 from repro_torch.kernels.gdn.gdn import CHUNK
 from repro_torch.models import gdn as port_gdn
 
@@ -75,6 +79,34 @@ def test_plain_scan_matches_pallas_and_oracle(b, s, h, k, q):
         np.testing.assert_allclose(got_fs.numpy(), np.asarray(fs_or), **TOL)
         np.testing.assert_allclose(got_y.numpy(), np.asarray(y_pl), **TOL)
         np.testing.assert_allclose(got_fs.numpy(), np.asarray(fs_pl), **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,k,chunk,gates", [
+    (1, 64, 2, 16, 16, "default"),
+    (2, 64, 2, 16, 32, "default"),
+    (1, 128, 2, 16, 64, "default"),
+    (2, 45, 2, 16, 16, "default"),          # not a chunk multiple: padded
+    (1, 100, 2, 32, 32, "default"),         # ... of 32 or 64 either
+    (1, 96, 2, 16, 32, "strong_decay"),     # alpha near 0.05
+    (1, 80, 2, 16, 64, "beta_one"),         # beta = 1
+    (1, 96, 2, 128, 32, "default"),         # gdn-4b's head dim
+    (1, 70, 1, 128, 64, "strong_decay"),
+])
+def test_chunked_form_matches_scan_and_pallas(b, s, h, k, chunk, gates):
+    q, kk, v, beta, alpha = _inputs(7 * s + k + chunk, b, s, h, k)
+    if gates == "strong_decay":
+        alpha = np.random.default_rng(s).uniform(0.04, 0.06, alpha.shape).astype(np.float32)
+    elif gates == "beta_one":
+        beta = np.ones_like(beta)
+    arrays = (q, kk, v, beta, alpha)
+    y, fs = gdn_chunked_ref(*_t(*arrays), chunk)
+    y_or, fs_or = jax_gdn_scan_ref(*(jnp.asarray(a) for a in arrays))
+    y_pl, fs_pl = jax_gdn_prefill(*(jnp.asarray(a) for a in arrays), q_chunk=16)
+    y_pt, fs_pt = gdn_scan_ref(*_t(*arrays))
+    assert tuple(y.shape) == (b, s, h, k) and tuple(fs.shape) == (b, h, k, k)
+    for want_y, want_fs in ((y_or, fs_or), (y_pl, fs_pl), (y_pt, fs_pt)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+        np.testing.assert_allclose(fs.numpy(), np.asarray(want_fs), **TOL)
 
 
 def test_padding_rows_are_noops():

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a card, against their plain versions:
-decode attention (GQA) and MLA latent decode, dense and paged; the SSD and
-gated-delta-rule prefill scans.
+decode attention (GQA) and MLA latent decode, dense and paged (the bf16
+dense GQA and paged MLA kernels on the tensor cores, replayed from CUDA
+graphs too); the SSD and gated-delta-rule prefill scans (the chunked GDN
+scan at every head dim, strong decay and from a CUDA graph).
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -28,6 +30,8 @@ from repro_torch.kernels import (
     ssd_scan_ref,
 )
 from repro_torch.kernels.decode_attn.decode_attn import TC_TILE, tc_split_plan
+from repro_torch.kernels.mla_decode.mla_decode import TC_HEAD_GROUPS, head_group
+from repro_torch.kernels.mla_decode.mla_decode import tc_split_plan as mla_tc_split_plan
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -144,24 +148,34 @@ def test_tc_decode_attention_replays_in_a_cuda_graph():
     launch, captured once in a CUDA graph and replayed twice on new inputs:
     equal to the plain version both times."""
     _need_card()
-    static = _tc_inputs(8, 256, 256, seed=12)
-    fresh = [_tc_inputs(8, 256, 256, seed=s) for s in (13, 14)]
+    _replays_in_a_graph(lambda *a: decode_attention(*a, scale=0.0625),
+                        lambda *a: decode_attention_ref(*a, 0.0625),
+                        lambda seed: _tc_inputs(8, 256, 256, seed=seed), (12, 13, 14),
+                        TOL[torch.bfloat16], TOL[torch.bfloat16])
+
+
+def _replays_in_a_graph(call, plain, make, seeds, rtol, atol):
+    """``call`` captured once in a CUDA graph on static inputs and replayed on
+    new ones copied in: equal to ``plain`` on each."""
+    static = make(seeds[0])
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        decode_attention(*static, scale=0.0625)
+        call(*static)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = decode_attention(*static, scale=0.0625)
-    for inputs in fresh:
+        outs = call(*static)
+    for seed in seeds[1:]:
+        inputs = make(seed)
         for dst, src in zip(static, inputs):
             dst.copy_(src)
         graph.replay()
-        want = decode_attention_ref(*inputs, 0.0625)
+        wants = plain(*inputs)
         torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), want.float(), rtol=TOL[torch.bfloat16],
-                                   atol=TOL[torch.bfloat16])
+        for got, want in zip(outs if isinstance(outs, tuple) else (outs,),
+                             wants if isinstance(wants, tuple) else (wants,)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def _tables(rng, vl, bs, nb, n_pages):
@@ -213,6 +227,57 @@ def test_mla_cuda_kernel_matches_plain(paged, dtype, h, rank, rope, l):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _tc_paged_mla_inputs(h, rank, rope, l=1024, bs=16, seed=21):
+    """bf16 paged inputs whose valid_len sits on the edges of the tensor-core
+    kernel's plan (1, a step of 32 +- 1, a split +- 1, L) and whose tables
+    repeat a page."""
+    b = 10
+    split = mla_tc_split_plan(b * -(-h // head_group(h, TC_HEAD_GROUPS)), l)[1]
+    vl = np.array([1, 31, 32, 33, split - 1, split, split + 1, l // 2, l - 1, l], np.int32)
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + 3 * (l // bs)
+    q_lat = rng.standard_normal((b, h, rank), np.float32)
+    q_rope = rng.standard_normal((b, h, rope), np.float32)
+    ckv = rng.standard_normal((n_pages, bs, rank), np.float32)
+    kr = rng.standard_normal((n_pages, bs, rope), np.float32)
+    tables = rng.integers(1, n_pages, (b, l // bs)).astype(np.int32)
+    tables[:, 1] = tables[:, 0]                          # a repeated page
+    ts = [torch.from_numpy(t).cuda().to(torch.bfloat16) for t in (q_lat, q_rope, ckv, kr)]
+    return ts + [torch.from_numpy(tables).cuda(), torch.from_numpy(vl).cuda()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,rank,rope,l", [
+    (24, 512, 64, 1024),      # minitron-4b-mla at max_seq_len 1024
+    (4, 32, 8, 128),          # reduced minitron-4b-mla
+    (16, 512, 64, 512),       # deepseek-v2-lite heads
+    (128, 512, 64, 256),      # deepseek-v2-236b heads
+])
+def test_tc_paged_mla_matches_plain(h, rank, rope, l):
+    """The bf16 paged tensor-core kernel at every valid_len edge of its plan,
+    a repeated page in every table."""
+    _need_card()
+    ts = _tc_paged_mla_inputs(h, rank, rope, l)
+    before = mla_paged_latent_decode.launches
+    out = mla_paged_latent_decode(*ts, scale=0.1)
+    want = mla_paged_latent_decode_ref(*ts, 0.1)
+    torch.cuda.synchronize()
+    assert mla_paged_latent_decode.launches == before + 1 and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_tc_paged_mla_replays_in_a_cuda_graph():
+    """The paged split kernel and its combine, launched with programmatic
+    dependent launch, replayed from a CUDA graph on new inputs."""
+    _need_card()
+    _replays_in_a_graph(lambda *a: mla_paged_latent_decode(*a, scale=0.1),
+                        lambda *a: mla_paged_latent_decode_ref(*a, 0.1),
+                        lambda seed: _tc_paged_mla_inputs(24, 512, 64, seed=seed), (31, 32, 33),
+                        TOL[torch.bfloat16], TOL[torch.bfloat16])
 
 
 @pytest.mark.gpu
@@ -330,6 +395,54 @@ def test_gdn_cuda_kernel_matches_plain(dtype, b, s, h, k):
     tol = SCAN_TOL[dtype]
     torch.testing.assert_close(y.float(), want_y, rtol=tol, atol=tol)
     torch.testing.assert_close(fs, want_fs, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,k", [
+    (1, 300, 20, 128),        # not a chunk multiple: gdn_prefill pads
+    (2, 256, 20, 128),        # B = 2
+    (2, 1024, 4, 64),         # 32 chunks
+    (1, 32, 3, 32),           # one chunk
+])
+def test_gdn_chunked_kernel_matches_plain(dtype, b, s, h, k):
+    """The chunked tensor-core scan (prep and chain kernels) at the shapes
+    ``chip_smoke.py`` checks beside the ones above, every K it takes; the
+    final state held at the fp32 tolerance in both dtypes."""
+    _need_card()
+    ts = _gdn_inputs(dtype, b, s, h, k, seed=9)
+    y, fs = gdn_prefill(*ts)
+    want_y, want_fs = gdn_scan_ref(*ts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want_y, rtol=SCAN_TOL[dtype], atol=SCAN_TOL[dtype])
+    torch.testing.assert_close(fs, want_fs, rtol=SCAN_TOL[torch.float32],
+                               atol=SCAN_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_gdn_kernel_strong_decay_and_unit_beta():
+    """alpha near 0.05 (the in-chunk decays underflow) and beta = 1."""
+    _need_card()
+    q, k, v, beta, alpha = _gdn_inputs(torch.float32, 1, 256, 4, 128, seed=10)
+    alpha = torch.full_like(alpha, 0.05)
+    beta = torch.ones_like(beta)
+    y, fs = gdn_prefill(q, k, v, beta, alpha)
+    want_y, want_fs = gdn_scan_ref(q, k, v, beta, alpha)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[torch.float32]
+    torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(fs, want_fs, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_gdn_kernel_replays_in_a_cuda_graph():
+    """The prep kernel and the chain, launched with programmatic dependent
+    launch, replayed from a CUDA graph on new inputs."""
+    _need_card()
+    tol = SCAN_TOL[torch.float32]
+    _replays_in_a_graph(gdn_scan, gdn_scan_ref,
+                        lambda seed: _gdn_inputs(torch.float32, 1, 512, 20, 128, seed=seed),
+                        (41, 42, 43), tol, tol)
 
 
 @pytest.mark.gpu

@@ -30,9 +30,13 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.mla_decode.mla_decode import (
     HEAD_GROUPS,
+    TC_HEAD_GROUPS,
+    TC_MIN_SPLIT_KEYS,
+    TC_STEP,
     TILE_KEYS,
     head_group,
     split_plan,
+    tc_split_plan,
 )
 from repro_torch.kernels.mla_decode.ref import (
     mla_latent_decode_ref,
@@ -167,8 +171,24 @@ def test_head_group_pads_heads_least(h, want):
     assert hg == want and hg in HEAD_GROUPS
 
 
+@pytest.mark.parametrize("h,want", [(24, 24), (16, 16), (128, 16), (4, 8), (1, 8), (48, 24)])
+def test_tc_head_group_pads_heads_least(h, want):
+    """The bf16 paged tensor-core kernel's head groups: one, two or three n8
+    tiles of heads; minitron-4b-mla's 24 heads are one unpadded group."""
+    hg = head_group(h, TC_HEAD_GROUPS)
+    assert hg == want and hg in TC_HEAD_GROUPS
+
+
 @pytest.mark.parametrize("ctas,extent", [(24, 1024), (8, 64), (64, 4096), (8, 17), (256, 1024)])
 def test_split_plan_covers_every_key_in_whole_tiles(ctas, extent):
     n_split, split_len = split_plan(ctas, extent)
     assert n_split * split_len >= extent > (n_split - 1) * split_len
     assert split_len % TILE_KEYS == 0
+
+
+@pytest.mark.parametrize("ctas,extent", [(8, 1024), (8, 128), (32, 256), (8, 17), (64, 1024)])
+def test_tc_split_plan_covers_every_key_in_whole_steps(ctas, extent):
+    n_split, split_len = tc_split_plan(ctas, extent)
+    assert n_split * split_len >= extent > (n_split - 1) * split_len
+    assert split_len % TC_STEP == 0
+    assert split_len >= min(TC_MIN_SPLIT_KEYS, -(-extent // TC_STEP) * TC_STEP)
