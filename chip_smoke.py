@@ -31,7 +31,8 @@ Phases; any failure exits non-zero:
 With ``--against DIR`` it runs none of these phases: it builds the kernels
 of this checkout and of the checkout in DIR (another commit, unpacked with
 ``git archive``) and times each kernel's main case for both on the same
-inputs, in turns, one JSON line per kernel.
+inputs, in three rounds of turns, one JSON line per kernel with each
+side's median.
 
 Imports neither ``jax`` nor ``repro``. Exits 2 without a CUDA card or outside
 a checkout of the repository.
@@ -56,11 +57,10 @@ TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=2e-2, rtol=2
 SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # bf16 model logits, kernel path vs plain path on the same state, per served
 # model: kernel and plain version sum in other orders and round their bf16
-# outputs differently (the dense GQA and the paged MLA kernels round P to
-# bf16 for P.V, as the JAX model does, where their plain versions keep it
-# fp32), and every
-# layer carries the difference on to the logits: 18 layers for gemma-2b, 32
-# for minitron-4b-mla
+# outputs differently (every bf16 decode kernel, dense and paged, rounds P to
+# bf16 for P.V, as the JAX model does, where the plain versions keep it
+# fp32), and every layer carries the difference on to the logits: 18 layers
+# for gemma-2b, 32 for minitron-4b-mla
 LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5}
 # The recurrent models' kernels sit in prefill, where a difference at one
 # position is carried by the state to every later one, at every layer. In
@@ -198,6 +198,8 @@ KERNEL_CASES = (
     ("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 16, True),
     ("paged_decode_attention", True, 2, 8, 2, 32, 16, 48, 16, False),
     ("paged_decode_attention", True, 3, 6, 6, 16, 16, 32, 8, False),
+    ("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 8, False),   # pages < a warp step
+    ("paged_decode_attention", True, 4, 24, 8, 128, 128, 512, 32, False),  # minitron-4b: G = 3
 )
 # MLA latent decode: (name, paged, B, H, rank, rope, L, bs, main); the first
 # of each kind is the minitron-4b-mla decode shape at batch 8 and
@@ -624,6 +626,7 @@ def _device_rows(prof, n: int) -> list:
 
 
 PROFILE_ATTEMPTS = 3
+PROFILE_ROWS = 20        # kernels listed a profiled decode step, largest first
 
 
 def profiled(torch, run, n: int) -> tuple:
@@ -661,7 +664,7 @@ def profile_steps(torch, engine, n: int) -> dict:
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "kernels_per_step": sum(r[1] for r in rows),
             "top": [{"kernel": k[:90], "ms_per_step": ms, "calls_per_step": c}
-                    for ms, c, k in rows[:12]]}
+                    for ms, c, k in rows[:PROFILE_ROWS]]}
 
 
 def _padded(torch, pool, prompt):
@@ -880,11 +883,17 @@ def load_kernels(torch, src: Path):
     return kmod
 
 
+AGAINST_ROUNDS = 3       # rounds of (DIR, this, this, DIR): single turns vary by up to ~4 %
+
+
 def time_against(torch, other: Path) -> None:
     """``--against DIR``: each kernel's main case, timed as phase 3 times it
     (CUDA-graph device ms), for the checkout in DIR and for this one, on the
-    same inputs in one process, in turns (DIR, this, this, DIR) so that a
-    drift of the card's clock shows. One JSON line per kernel both have."""
+    same inputs in one process, in AGAINST_ROUNDS rounds of turns (DIR,
+    this, this, DIR) so that a drift of the card's clock shows. One JSON
+    line per kernel both have, every turn and each side's median."""
+    import statistics
+
     kmods = {"against": load_kernels(torch, other.resolve() / "src"),
              "this": load_kernels(torch, SRC)}
     for name in COUNTED:
@@ -893,10 +902,13 @@ def time_against(torch, other: Path) -> None:
         dname, inputs, kwargs = main_case(torch, name)
         sets = cold_sets(inputs)
         ms = {"against": [], "this": []}
-        for side in ("against", "this", "this", "against"):
+        for side in ("against", "this", "this", "against") * AGAINST_ROUNDS:
             kernel = getattr(kmods[side], name)
             ms[side].append(cuda_time_ms(torch, lambda *a: kernel(*a, **kwargs), sets)[0])
-        print(json.dumps({"kernel": name, "dtype": dname, "against": str(other), "ms": ms}))
+        median = {side: statistics.median(v) for side, v in ms.items()}
+        print(json.dumps({"kernel": name, "dtype": dname, "against": str(other), "ms": ms,
+                          "median_ms": median,
+                          "this_over_against": median["this"] / median["against"]}))
         del sets
 
 

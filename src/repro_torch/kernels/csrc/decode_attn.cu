@@ -15,11 +15,12 @@
 // query does 2 * G multiply-adds per element read, far below the ~295 ops
 // per byte at which an H100 stops being memory bound. At the gemma-2b
 // shape (B = 8, G = 8, D = 256, ragged valid_len up to 1024) that is ~4 MB,
-// 0.0013 ms at 3.35 TB/s; what a call costs in practice is latency: a few
-// CTAs per request, each a chain of dependent loads, products and merges,
-// and a second launch.
+// 0.0011-0.0013 ms at 3.35 TB/s; what a call costs in practice is latency:
+// a few CTAs per request, each a chain of dependent loads, products and
+// merges, and a second launch.
 //
-// 1. bf16, dense: tc_split_kernel + tc_combine_kernel, on the tensor cores.
+// 1. bf16, dense and paged: tc_split_kernel<DMAX, PAGED> + tc_combine_kernel,
+//   on the tensor cores.
 // - Both products on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), in the
 //   FlashAttention-2 register layout. The G <= 16 query rows of one KV head
 //   are the 16 rows of one tile (zero rows pad G < 16), so S = Q.K^T for 16
@@ -28,16 +29,23 @@
 //   ldmatrix.trans; the row max and row sum take two quad shuffles a row.
 // - Each of the 4 warps streams its own 16-key steps (keys warp, warp + 4,
 //   ... of the CTA's 64-key tiles) through a ring of 2 slots in shared
-//   memory: one TMA bulk copy a K or V row, completing on the slot's
-//   mbarrier, so the next step is in flight while one is reduced, and no
-//   lane spends instructions on addresses. The K/V copies start before the
-//   query is staged; the key loop has no CTA-wide barrier. Rows are
-//   padded by 16 bytes (conflict-free ldmatrix) and zero past the head dim,
-//   so the unrolled loops run to a fixed width (64, 128 or 256) with no
-//   branch in them; a head dim that is a multiple of 8 but not of 16 is
-//   zero-padded, not refused.
+//   memory: one TMA bulk copy a K or V row, issued by the warp's own lanes
+//   and completing on the slot's mbarrier, so the next step is in flight
+//   while one is reduced. The K/V copies start before the query is staged;
+//   the key loop has no CTA-wide barrier. Rows are padded by 16 bytes
+//   (conflict-free ldmatrix) and zero past the head dim, so the unrolled
+//   loops run to a fixed width (64, 128 or 256) with no branch in them; a
+//   head dim that is a multiple of 8 but not of 16 is zero-padded, not
+//   refused.
+// - A key row's address comes from tc::key_row: dense b * L + pos; paged
+//   page table[pos / bs - first], row pos % bs. The paged kernel copies the
+//   entries its split reads, first = s0 / bs to (s1 - 1) / bs, from the
+//   block table to shared memory once, before the barriers are set up, so
+//   no TMA copy waits on a load from global memory; entries at or past
+//   ceil(valid_len / bs) are never read, and a 16-key step may span pages
+//   (bs = 8) or lie inside one (bs >= 16).
 // - Splits of whole 64-key tiles, 64 keys at least (decode_attn.py:
-//   tc_split_plan). A CTA merges its warps through shared memory behind one
+//   plan). A CTA merges its warps through shared memory behind one
 //   barrier; a request with one split is written directly, one with more
 //   writes an fp32 partial (m, l, acc) a split that tc_combine_kernel merges
 //   -- one CTA per output row, every partial's loads in flight at once,
@@ -47,32 +55,32 @@
 // - Precision: q, k and v are bf16 already; p is rounded once to bf16 as
 //   the A operand of P.V (the JAX model casts p to the value dtype too,
 //   models/attention.py:_attend); m, l and every accumulator stay fp32.
-// - The key-row address comes from one function, tc::key_row; a paged
-//   variant needs only a block-table lookup there.
+// - Times at the gemma-2b shape (H100 80GB HBM3 at 700 W, CUDA-graph device
+//   ms a call, medians of chip_smoke.py --against the first design): dense
+//   0.0093; paged 0.0095, against 0.0257 when the paged form ran the first
+//   design below. The paged kernel's extra ~0.2 us is the dependent read of
+//   its table entries, which must follow valid_len.
 //
-// 2. fp32 (dense and paged) and bf16 paged: split_kernel + combine_kernel,
-//   the first design, on the CUDA cores. fp32 would need 3xTF32 to hold its
-//   5e-5 tolerance on the tensor cores; the paged form's redesign is a later
-//   step. CTA (split, b * KV + kh) covers keys [split * split_len, ...); a
-//   second kernel merges the splits' (m, l, acc): one CTA per output row,
-//   the splits' weights in shared memory, threads over Dv. Inside a CTA
-//   each of the 4 warps takes KEYS keys at a time, every lane 16 bytes of
-//   each key's K and V row, all in flight before any is used; the G query rows
-//   sit in shared memory as fp32, m, l and the accumulator in registers, and
-//   the warps merge through shared memory in a fixed order. p stays fp32 in
-//   its P.V product.
+// 2. fp32 (dense and paged): split_kernel + combine_kernel, the first
+//   design, on the CUDA cores in fp32. fp32 would need 3xTF32 to hold its
+//   5e-5 tolerance on the tensor cores; only the fp32 gates run it. CTA
+//   (split, b * KV + kh) covers keys [split * split_len, ...); a second
+//   kernel merges the splits' (m, l, acc): one CTA per output row, the
+//   splits' weights in shared memory, threads over Dv. Inside a CTA each of
+//   the 4 warps takes KEYS keys at a time, every lane 16 bytes of each
+//   key's K and V row, all in flight before any is used; the G query rows
+//   sit in shared memory, m, l and the accumulator in registers, and the
+//   warps merge through shared memory in a fixed order.
 //
 // Both stop the key loop at valid_len: the Pallas kernel streams every
 // block_k tile of the max_seq_len cache and masks, here the bytes read are
-// the bytes the request needs. The paged kernel reads block-table entries
+// the bytes the request needs. The paged kernels read block-table entries
 // only below ceil(valid_len / bs) and no page past them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "sm90_mma.cuh"
 
@@ -99,39 +107,17 @@ struct Params {
   float scale;
 };
 
-template <typename T> struct Vec;
+// four floats of a 16-byte load
+__device__ __forceinline__ void to_float(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
 
-template <> struct Vec<float> {
-  static constexpr int N = 4;  // elements per 16-byte load
-  __device__ static void to_float(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  __device__ static float load1(const float* p) { return *p; }
-  __device__ static void store1(float* p, float x) { *p = x; }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void to_float(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ static float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  __device__ static void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-};
-
-template <typename T, bool PAGED, int G_MAX, int KEYS>
+template <bool PAGED, int G_MAX, int KEYS>
 __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
-  using V = Vec<T>;
-  constexpr int VN = V::N;
+  constexpr int VN = 4;                       // floats per 16-byte load
   constexpr int CH = (MAX_D / VN + 31) / 32;  // 16-byte chunks per lane
   constexpr int EPL = CH * VN;                // row elements per lane
 
@@ -142,29 +128,29 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
   const int n = min(p.valid_len[b], p.L);
   const int s0 = split * p.split_len;
   const int s1 = min(s0 + p.split_len, n);
-  T* out = static_cast<T*>(p.out) + ((long long)b * p.H + kh * G) * p.Dv;
+  float* out = static_cast<float*>(p.out) + ((long long)b * p.H + kh * G) * p.Dv;
   const long long part = (long long)bk * p.n_split + split;
 
   if (s0 >= s1) {  // no key of this request falls in this split; the
                    // combine pass reads only splits below ceil(n / split_len)
     if (p.n_split == 1)
-      for (int i = tid; i < G * p.Dv; i += THREADS) V::store1(out + i, 0.f);
+      for (int i = tid; i < G * p.Dv; i += THREADS) out[i] = 0.f;
     return;
   }
 
   extern __shared__ float smem[];
-  float* sq = smem;                 // (G, Dk) query rows, fp32
+  float* sq = smem;                 // (G, Dk) query rows
   float* sacc = smem + G * p.Dk;    // (G, Dv) merged accumulator
   __shared__ float sm_m[WARPS][G_MAX], sm_l[WARPS][G_MAX];
   __shared__ float s_max[G_MAX], s_sum[G_MAX];
 
-  const T* q = static_cast<const T*>(p.q) + ((long long)b * p.H + kh * G) * p.Dk;
-  for (int i = tid; i < G * p.Dk; i += THREADS) sq[i] = V::load1(q + i);
+  const float* q = static_cast<const float*>(p.q) + ((long long)b * p.H + kh * G) * p.Dk;
+  for (int i = tid; i < G * p.Dk; i += THREADS) sq[i] = q[i];
   for (int i = tid; i < G * p.Dv; i += THREADS) sacc[i] = 0.f;
   __syncthreads();
 
-  const T* K = static_cast<const T*>(p.k);
-  const T* Vv = static_cast<const T*>(p.v);
+  const float* K = static_cast<const float*>(p.k);
+  const float* Vv = static_cast<const float*>(p.v);
   const int kch = p.Dk / VN, vch = p.Dv / VN;
 
   float m[G_MAX], l[G_MAX], acc[G_MAX][EPL];
@@ -200,13 +186,13 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
       }
     }
 
-    // scores: q row g (fp32, read from shared memory once per g) against
+    // scores: q row g (read from shared memory once per g) against
     // the KEYS keys, each lane over its slice of the head dim
     float kf[KEYS][EPL];
 #pragma unroll
     for (int j = 0; j < KEYS; ++j) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) V::to_float(kr[j][c], kf[j] + c * VN);
+      for (int c = 0; c < CH; ++c) to_float(kr[j][c], kf[j] + c * VN);
     }
     float s[KEYS][G_MAX];
 #pragma unroll
@@ -246,7 +232,7 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < KEYS; ++j) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) V::to_float(vr[j][c], vf[j] + c * VN);
+      for (int c = 0; c < CH; ++c) to_float(vr[j][c], vf[j] + c * VN);
     }
 #pragma unroll
     for (int g = 0; g < G_MAX; ++g) {
@@ -326,7 +312,7 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
   for (int i = tid; i < G * p.Dv; i += THREADS) {
     const int g = i / p.Dv;
     if (p.n_split == 1) {
-      V::store1(out + i, sacc[i] / fmaxf(s_sum[g], 1e-30f));
+      out[i] = sacc[i] / fmaxf(s_sum[g], 1e-30f);
     } else {
       p.part_acc[part * G * p.Dv + i] = sacc[i];
       if (i % p.Dv == 0) {
@@ -364,7 +350,6 @@ __device__ float block_reduce(float v, float* red) {
 
 // Merge the n_split partial states of one output row (b, kh, g): one CTA
 // per row, the splits' weights in shared memory, threads over Dv.
-template <typename T>
 __global__ void combine_kernel(Params p) {
   extern __shared__ float w[];  // (n_split,) weight of each split
   __shared__ float red[32];
@@ -389,18 +374,18 @@ __global__ void combine_kernel(Params p) {
   }
   sum = block_reduce<false>(sum, red);  // its barriers also publish w[]
 
-  T* out = static_cast<T*>(p.out) + ((long long)b * p.H + kh * G + g) * p.Dv;
+  float* out = static_cast<float*>(p.out) + ((long long)b * p.H + kh * G + g) * p.Dv;
   const float* acc = p.part_acc + (base * G + g) * p.Dv;
   for (int d = threadIdx.x; d < p.Dv; d += blockDim.x) {
     float a = 0.f;
 #pragma unroll 4
     for (int s = 0; s < n_used; ++s) a = fmaf(w[s], acc[(long long)s * G * p.Dv + d], a);
-    Vec<T>::store1(out + d, a / fmaxf(sum, 1e-30f));
+    out[d] = a / fmaxf(sum, 1e-30f);
   }
 }
 
 // ---------------------------------------------------------------------------
-// 1. bf16 dense on the tensor cores
+// 1. bf16 dense and paged on the tensor cores
 namespace tc {
 
 using namespace sm90;
@@ -412,22 +397,34 @@ constexpr int STAGES = 2;              // slots in a warp's ring
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Row of key pos of request b in the (rows, KV, D) cache. Dense: b * L + pos.
-__device__ __forceinline__ long long key_row(const Params& p, int b, int pos) {
-  return (long long)b * p.L + pos;
+// Row of key pos of request b in the (rows, KV, D) cache. Dense: b * L +
+// pos. Paged: page table[pos / bs - first], row pos % bs, where `table` holds
+// the request's block-table entries from entry `first` on (a copy in shared
+// memory).
+template <bool PAGED>
+__device__ __forceinline__ long long key_row(const Params& p, const int* table, int first, int b,
+                                             int pos) {
+  if constexpr (PAGED)
+    return (long long)table[pos / p.bs - first] * p.bs + pos % p.bs;
+  else
+    return (long long)b * p.L + pos;
 }
 
 // Shared memory: the 16-row query tile, then each warp's STAGES slots of WK
 // K rows and WK V rows, every row DMAX wide (zero past the head dim, so the
 // unrolled loops need no bound) and padded by 8 elements; after the key loop
 // the slots hold the warps' fp32 accumulators (WARPS x 16 x DMAX fp32, less
-// than the slots' bytes).
-constexpr size_t smem_bytes(int dmax) {
+// than the slots' bytes). The paged kernel keeps its split's block-table
+// entries after them (table_bytes).
+__host__ __device__ constexpr size_t smem_bytes(int dmax) {
   return (16 + WARPS * STAGES * WK * 2) * (dmax + 8) * sizeof(bf16);
 }
+// bytes of the block-table copy of a split of split_len keys
+inline size_t table_bytes(int split_len, int bs) { return (size_t)(split_len / bs + 2) * 4; }
+constexpr int MAX_SMEM = 200 * 1024;  // the dynamic shared memory a split CTA may ask for
 
 // grid (n_split, B * KV); DMAX >= max(Dk, Dv), a multiple of 16
-template <int DMAX>
+template <int DMAX, bool PAGED>
 __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
   const int bk = blockIdx.y, split = blockIdx.x;
   const int b = bk / p.KV, kh = bk % p.KV;
@@ -454,6 +451,7 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
   bf16* sK = sQ + 16 * LD;
   bf16* myK = sK + warp * STAGES * WK * LD;
   bf16* myV = sK + (WARPS + warp) * STAGES * WK * LD;
+  int* table = reinterpret_cast<int*>(smem + smem_bytes(DMAX));  // paged only
   __shared__ float s_m[WARPS][16], s_l[WARPS][16];
 
   const bf16* K = static_cast<const bf16*>(p.k);
@@ -462,11 +460,32 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
   const int steps = (s1 - s0 + WK - 1) / WK;          // the CTA's 16-key steps
   const int nw = steps > warp ? (steps - warp + WARPS - 1) / WARPS : 0;  // this warp's
   __shared__ __align__(8) uint64_t kv_bar[WARPS][STAGES];  // a warp's slots land here
+  // the query (rows >= G and columns >= Dk zero) by cp.async
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  auto stage_query = [&]() {
+    const bf16* q = static_cast<const bf16*>(p.q) + ((long long)b * p.H + kh * G) * dk;
+    for (int e = tid; e < 16 * (DMAX / 8); e += THREADS) {
+      const int r = e / (DMAX / 8), c = e % (DMAX / 8);
+      if (r < G && c < kc)
+        cp_async16(sQ + r * LD + 8 * c, q + r * dk + 8 * c, true);
+      else
+        *reinterpret_cast<uint4*>(sQ + r * LD + 8 * c) = zero;
+    }
+    cp_async_commit();
+  };
+  int first = 0;  // the split's first block-table entry
+  if constexpr (PAGED) {
+    stage_query();  // in flight while the table entries are read
+    // the entries the split reads, all below ceil(n / bs), to shared memory
+    first = s0 / p.bs;
+    const int* bt = p.block_tables + (long long)b * p.nb + first;
+    for (int j = tid; j <= (s1 - 1) / p.bs - first; j += THREADS) table[j] = bt[j];
+  }
   if (tid == 0) {
     for (int i = 0; i < WARPS * STAGES; ++i) mbar_init(&kv_bar[0][0] + i, 1);
     mbar_init_fence();
   }
-  __syncthreads();
+  __syncthreads();  // the barriers are initialised, the table entries copied
 
   // this warp's step i (keys s0 + (warp + i * WARPS) * WK + [0, WK)) -> slot
   // i % STAGES: lane r < WK copies K row r, lane WK + r V row r, one TMA bulk
@@ -477,25 +496,17 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
     if (lane == 0) mbar_expect_tx(bar, WK * (dk + dv) * sizeof(bf16));
     fence_proxy_async();  // the slot's last reads (step i - STAGES) come first
     const long long row =
-        key_row(p, b, min(s0 + (warp + i * WARPS) * WK + r, s1 - 1)) * p.KV + kh;
+        key_row<PAGED>(p, table, first, b, min(s0 + (warp + i * WARPS) * WK + r, s1 - 1)) * p.KV +
+        kh;
     if (lane < WK)
       bulk_copy(myK + (slot * WK + r) * LD, K + row * dk, dk * sizeof(bf16), bar);
     else
       bulk_copy(myV + (slot * WK + r) * LD, V + row * dv, dv * sizeof(bf16), bar);
   };
 
-  // K/V first, then the query (rows >= G and columns >= Dk zero) by cp.async
+  // dense: K/V first, then the query
   for (int i = 0; i < STAGES - 1 && i < nw; ++i) load(i);
-  const bf16* q = static_cast<const bf16*>(p.q) + ((long long)b * p.H + kh * G) * dk;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int e = tid; e < 16 * (DMAX / 8); e += THREADS) {
-    const int r = e / (DMAX / 8), c = e % (DMAX / 8);
-    if (r < G && c < kc)
-      cp_async16(sQ + r * LD + 8 * c, q + r * dk + 8 * c, true);
-    else
-      *reinterpret_cast<uint4*>(sQ + r * LD + 8 * c) = zero;
-  }
-  cp_async_commit();
+  if constexpr (!PAGED) stage_query();
   // the columns past the head dims, once (the copies write the others)
   for (int e = lane; e < STAGES * WK * (DMAX / 8); e += 32) {
     const int r = e / (DMAX / 8), c = e % (DMAX / 8);
@@ -686,13 +697,16 @@ __global__ void __launch_bounds__(COMBINE_THREADS) tc_combine_kernel(Params p) {
       make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
 }
 
-template <int DMAX>
+template <int DMAX, bool PAGED>
 int launch_d(const Params& p, cudaStream_t stream) {
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      tc_split_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(DMAX));
+      tc_split_kernel<DMAX, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  tc_split_kernel<DMAX><<<dim3(p.n_split, p.B * p.KV), THREADS, smem_bytes(DMAX), stream>>>(p);
+  size_t smem = smem_bytes(DMAX);
+  if constexpr (PAGED) smem += table_bytes(p.split_len, p.bs);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  tc_split_kernel<DMAX, PAGED><<<dim3(p.n_split, p.B * p.KV), THREADS, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return (int)err;
   // the combine may launch while the split kernel runs (programmatic dependent
@@ -709,48 +723,46 @@ int launch_d(const Params& p, cudaStream_t stream) {
   return (int)cudaLaunchKernelEx(&cfg, tc_combine_kernel, p);
 }
 
+template <bool PAGED>
 int launch(const Params& p, cudaStream_t stream) {
   const int d = p.Dk > p.Dv ? p.Dk : p.Dv;
   if (p.H % p.KV || p.H / p.KV > 16 || p.Dk % 8 || p.Dv % 8 || p.split_len % (WARPS * WK))
     return (int)cudaErrorInvalidValue;
-  if (d <= 64) return launch_d<64>(p, stream);
-  if (d <= 128) return launch_d<128>(p, stream);
-  if (d <= 256) return launch_d<256>(p, stream);
+  if (d <= 64) return launch_d<64, PAGED>(p, stream);
+  if (d <= 128) return launch_d<128, PAGED>(p, stream);
+  if (d <= 256) return launch_d<256, PAGED>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-template <typename T, bool PAGED>
-int launch(const Params& p, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && !PAGED) {
-    return tc::launch(p, stream);
+// 2. fp32 on the first design
+template <bool PAGED>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  const int G = p.H / p.KV;
+  const dim3 grid(p.n_split, p.B * p.KV);
+  const size_t smem = (size_t)G * (p.Dk + p.Dv) * sizeof(float);
+  if (G <= 1) {
+    split_kernel<PAGED, 1, 4><<<grid, THREADS, smem, stream>>>(p);
+  } else if (G <= 4) {
+    split_kernel<PAGED, 4, 4><<<grid, THREADS, smem, stream>>>(p);
+  } else if (G <= 8) {
+    split_kernel<PAGED, 8, 4><<<grid, THREADS, smem, stream>>>(p);
+  } else if (G <= 16) {
+    split_kernel<PAGED, 16, 2><<<grid, THREADS, smem, stream>>>(p);
   } else {
-    const int G = p.H / p.KV;
-    const dim3 grid(p.n_split, p.B * p.KV);
-    const size_t smem = (size_t)G * (p.Dk + p.Dv) * sizeof(float);
-    if (G <= 1) {
-      split_kernel<T, PAGED, 1, 4><<<grid, THREADS, smem, stream>>>(p);
-    } else if (G <= 4) {
-      split_kernel<T, PAGED, 4, 4><<<grid, THREADS, smem, stream>>>(p);
-    } else if (G <= 8) {
-      split_kernel<T, PAGED, 8, 4><<<grid, THREADS, smem, stream>>>(p);
-    } else if (G <= 16) {
-      split_kernel<T, PAGED, 16, 2><<<grid, THREADS, smem, stream>>>(p);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || p.n_split == 1) return (int)err;
-    combine_kernel<T><<<p.B * p.KV * G, 128, p.n_split * sizeof(float), stream>>>(p);
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return (int)err;
+  combine_kernel<<<p.B * p.KV * G, 128, p.n_split * sizeof(float), stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define DECODE_ATTN_LAUNCHER(NAME, T, PAGED)                                            \
+#define DECODE_ATTN_LAUNCHER(NAME, LAUNCH)                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* valid_len, \
                       const void* block_tables, void* out, void* part_m, void* part_l,   \
                       void* part_acc, int B, int H, int KV, int Dk, int Dv, int L, int bs, \
@@ -776,10 +788,10 @@ int launch(const Params& p, cudaStream_t stream) {
     p.split_len = split_len;                                                            \
     p.n_split = n_split;                                                                \
     p.scale = scale;                                                                    \
-    return launch<T, PAGED>(p, static_cast<cudaStream_t>(stream));                      \
+    return LAUNCH(p, static_cast<cudaStream_t>(stream));                                \
   }
 
-DECODE_ATTN_LAUNCHER(decode_attention_f32, float, false)
-DECODE_ATTN_LAUNCHER(decode_attention_bf16, __nv_bfloat16, false)
-DECODE_ATTN_LAUNCHER(paged_decode_attention_f32, float, true)
-DECODE_ATTN_LAUNCHER(paged_decode_attention_bf16, __nv_bfloat16, true)
+DECODE_ATTN_LAUNCHER(decode_attention_f32, launch_f32<false>)
+DECODE_ATTN_LAUNCHER(decode_attention_bf16, tc::launch<false>)
+DECODE_ATTN_LAUNCHER(paged_decode_attention_f32, launch_f32<true>)
+DECODE_ATTN_LAUNCHER(paged_decode_attention_bf16, tc::launch<true>)

@@ -20,8 +20,8 @@
 // below the ~295 at which the tensor cores stop being fed by HBM. On the
 // CUDA cores (~20 flops per byte in fp32) the same FMAs are the limit.
 //
-// 1. bf16 paged: tc::mla_tc_split_kernel + tc::mla_tc_combine_kernel, on
-//   the tensor cores.
+// 1. bf16, dense and paged: tc::mla_tc_split_kernel<RMAX, NH, PAGED> +
+//   tc::mla_tc_combine_kernel, on the tensor cores.
 // - Both products on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), with the
 //   keys on the M side of the scores: S^T (keys x heads) = [ckv | kr] .
 //   [q_lat | q_rope]^T, so that HG = 8, 16 or 24 heads are one, two or three
@@ -34,27 +34,38 @@
 //   stay in registers for the whole split), the four partial scores meet in
 //   shared memory behind one barrier a step, and every warp then runs the
 //   same online softmax down the heads' columns; p is rounded once to bf16
-//   (as the JAX model casts the probabilities to the cache dtype) into a
-//   per-warp P^T tile, the B operand of the context. The H x 512 fp32
-//   accumulator is split over the warps by latent rows: 128 a warp, 96
-//   registers a thread at H = 24.
+//   (as the JAX model casts the probabilities to the cache dtype,
+//   models/mla.py:_attend_absorbed) into a per-warp P^T tile, the B operand
+//   of the context. The H x 512 fp32 accumulator is split over the warps by
+//   latent rows: 128 a warp, 96 registers a thread at H = 24.
 // - Key rows arrive by TMA bulk copies, one per row's ckv and one per its kr
 //   part, into a 2-slot ring of 32-key steps with an mbarrier a slot; every
 //   warp issues the copies of 8 rows (one warp issuing all 64 serialised
-//   them: 0.0164 against 0.0121 ms a call). The block-table entries the
-//   split can touch are copied to shared memory once, while valid_len is
-//   read; a key row's address comes from one function, tc::key_row. The
-//   query rows come by cp.async, issued first. Rows are padded by 16 bytes
-//   (conflict-free ldmatrix) and zero past R and P, so every loop runs to a
-//   fixed width (64 or 512 latent columns, 64 rope features).
+//   them: 0.0164 against 0.0121 ms a call). A key row's address comes from
+//   tc::key_row: dense b * L + pos; paged page table[pos / bs - first], row
+//   pos % bs, the block-table entries the split can touch copied to shared
+//   memory once, while valid_len is read. The dense instantiation has no
+//   table, no division by bs and no table bytes: they are left out at
+//   compile time. The query rows come by cp.async, issued first. Rows are
+//   padded by 16 bytes (conflict-free ldmatrix) and zero past R and P, so
+//   every loop runs to a fixed width (64 or 512 latent columns, 64 rope
+//   features).
 // - A request with more than one split writes fp32 partial (m, l, acc)
 //   states that tc::mla_tc_combine_kernel merges -- one CTA per output row,
 //   every partial's loads in flight at once, launched with programmatic
 //   dependent launch. (Merging the splits in a thread-block cluster through
 //   distributed shared memory, with 128-key splits, was slower: 0.0219 ms.)
+// - Times at the minitron-4b-mla shape (H100 80GB HBM3 at 700 W, CUDA-graph
+//   device ms a call, medians of chip_smoke.py --against the first
+//   design): paged 0.0124, dense 0.0123, against 0.0268 when the dense form
+//   ran the first design below. A dense variant that loaded each 32-key
+//   step as 9 boxes of 32 rows x 64 features by 2-D TMA tensor maps
+//   (128-byte swizzle in place of the row padding, rows past valid_len
+//   zeroed before P.V) instead of 64 row copies was slower: 0.0128 against
+//   0.0122 ms in one call, 0.0127 with the maps' descriptors prefetched.
 //
-// 2. fp32 (dense and paged) and bf16 dense: mla_split_kernel +
-//   mla_combine_kernel, the first design, on the CUDA cores in fp32:
+// 2. fp32 (dense and paged): mla_split_kernel + mla_combine_kernel, the
+//   first design, on the CUDA cores in fp32; only the fp32 gates run it.
 //   - The key loop stops at valid_len, and the paged kernel reads block-table
 //     entries only below ceil(valid_len / bs): the operations done are the
 //     ones the request needs.
@@ -73,24 +84,18 @@
 //     Thread t owns latent columns 2t and 2t + 1 for all HG heads (2 * HG
 //     registers); R <= 512 = 2 * 256 threads.
 //   - Per tile: (1) each scoring warp takes 32 / HG keys at a time; every lane
-//     dots its 16-byte chunks of their rows with the HG query rows (fp32 in
+//     dots its 16-byte chunks of their rows with the HG query rows (in
 //     shared memory), and one reduce-scatter of the warp's 32 (key, head)
 //     partial sums (31 shuffles) leaves lane L with score L. (2) one warp per
 //     head updates m and l over the tile and turns the scores into
 //     probabilities. (3) each thread rescales its accumulator columns and adds
 //     p * ckv over the tile's keys, the probabilities read as float4
 //     broadcasts and the ckv rows from the same shared-memory tile.
-//   - p stays fp32 in its P.V product; the JAX model casts the
-//     probabilities to the cache dtype first (models/mla.py:_attend_absorbed).
-//   - The next redesign: bf16 dense on tc::mla_tc_split_kernel, through a
-//     dense row lookup in tc::key_row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "sm90_mma.cuh"
 
@@ -123,36 +128,15 @@ struct Params {
   float scale;
 };
 
-template <typename T> struct Vec;
+constexpr int VN = 4;  // floats per 16-byte load
 
-template <> struct Vec<float> {
-  static constexpr int N = 4;  // elements per 16-byte load
-  __device__ static void to_float(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  __device__ static float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-  __device__ static void store1(float* p, float x) { *p = x; }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void to_float(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ static float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  __device__ static void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-};
+// the four floats of a 16-byte load
+__device__ __forceinline__ void to_float(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
 
 // 16-byte asynchronous copy global -> shared; copies zeros when !full
 __device__ void cp_async16(void* dst, const void* src, bool full) {
@@ -201,14 +185,13 @@ __device__ float warp_sum(float v) {
 // shared-memory tile `dst` (TK, R + P) with cp.async, as one commit group:
 // warp w takes keys w, w + 8, ..., each lane 16-byte chunks of them; keys at
 // or past s1 read as zeros.
-template <typename T, bool PAGED>
-__device__ __forceinline__ void issue_tile(const Params& p, T* dst, int b, int t0, int s1) {
-  constexpr int VN = Vec<T>::N;
+template <bool PAGED>
+__device__ __forceinline__ void issue_tile(const Params& p, float* dst, int b, int t0, int s1) {
   constexpr int CH = (MAX_D / VN + 31) / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int D = p.R + p.P, nch = D / VN, rch = p.R / VN;
-  const T* ckv = static_cast<const T*>(p.ckv);
-  const T* kr = static_cast<const T*>(p.kr);
+  const float* ckv = static_cast<const float*>(p.ckv);
+  const float* kr = static_cast<const float*>(p.kr);
 #pragma unroll
   for (int jj = 0; jj < TK / WARPS; ++jj) {
     const int j = warp + WARPS * jj, pos = t0 + j;
@@ -233,16 +216,13 @@ __device__ __forceinline__ void issue_tile(const Params& p, T* dst, int b, int t
   cp_async_commit();
 }
 
-template <typename T, int HG>
+template <int HG>
 constexpr size_t smem_bytes(int R, int P) {
-  return 2 * (size_t)TK * (R + P) * sizeof(T) + (size_t)HG * (R + P) * sizeof(float) +
-         (size_t)TK * HG * sizeof(float);
+  return (2 * (size_t)TK + HG) * (R + P) * sizeof(float) + (size_t)TK * HG * sizeof(float);
 }
 
-template <typename T, bool PAGED, int HG>
+template <bool PAGED, int HG>
 __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
-  using V = Vec<T>;
-  constexpr int VN = V::N;
   constexpr int CH = (MAX_D / VN + 31) / 32;  // 16-byte chunks of a key row per lane
   constexpr int KG = 32 / HG;                 // keys per warp step: KG * HG = 32 scores
   constexpr int PW = WARPS < TK / KG ? WARPS : TK / KG;  // warps that score
@@ -265,27 +245,27 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
                    // combine pass reads only splits below ceil(n / split_len)
     if (p.n_split == 1 && own) {
       for (int g = 0; g < nh; ++g) {
-        T* o = static_cast<T*>(p.out) + ((long long)b * p.H + h0 + g) * p.R + col;
-        V::store1(o, 0.f);
-        V::store1(o + 1, 0.f);
+        float* o = static_cast<float*>(p.out) + ((long long)b * p.H + h0 + g) * p.R + col;
+        o[0] = 0.f;
+        o[1] = 0.f;
       }
     }
     return;
   }
 
   extern __shared__ float4 smem4[];
-  T* kt = reinterpret_cast<T*>(smem4);                   // (2, TK, D) rows [ckv; kr]
-  // (HG, VN / 4, nch, 4): query rows in fp32, chunk-major so that lane i's
-  // float4 reads of chunk i are consecutive (no bank conflicts)
+  float* kt = reinterpret_cast<float*>(smem4);           // (2, TK, D) rows [ckv; kr]
+  // (HG, nch, 4): query rows, chunk-major so that lane i's float4 reads of
+  // chunk i are consecutive (no bank conflicts)
   float* sq = reinterpret_cast<float*>(kt + 2 * TK * D);
   float* ss = sq + HG * D;                               // (TK, HG) scores, then p
   __shared__ float s_m[HG], s_l[HG], s_corr[HG];
 
-  issue_tile<T, PAGED>(p, kt, b, s0, s1);
+  issue_tile<PAGED>(p, kt, b, s0, s1);
 
   {  // the HG query rows, 16 bytes a thread, all loads issued before any is used
-    const T* ql = static_cast<const T*>(p.q_lat) + ((long long)b * p.H + h0) * p.R;
-    const T* qr = static_cast<const T*>(p.q_rope) + ((long long)b * p.H + h0) * p.P;
+    const float* ql = static_cast<const float*>(p.q_lat) + ((long long)b * p.H + h0) * p.R;
+    const float* qr = static_cast<const float*>(p.q_rope) + ((long long)b * p.H + h0) * p.P;
     uint4 raw[QCH];
 #pragma unroll
     for (int k = 0; k < QCH; ++k) {
@@ -301,11 +281,8 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
       const int i = tid + k * THREADS, g = i / nch, c = i - g * nch;
       if (g < HG) {
         float f[VN];
-        V::to_float(raw[k], f);
-#pragma unroll
-        for (int h4 = 0; h4 < VN / 4; ++h4)
-          sq4[(g * (VN / 4) + h4) * nch + c] =
-              make_float4(f[4 * h4], f[4 * h4 + 1], f[4 * h4 + 2], f[4 * h4 + 3]);
+        to_float(raw[k], f);
+        sq4[g * nch + c] = make_float4(f[0], f[1], f[2], f[3]);
       }
     }
     if (tid < HG) {
@@ -327,13 +304,13 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
     // the next tile's copies fly while this one is used; its buffer was last
     // read before the previous iteration's final barrier
     if (t0 + TK < s1) {
-      issue_tile<T, PAGED>(p, kt + ((t + 1) & 1) * TK * D, b, t0 + TK, s1);
+      issue_tile<PAGED>(p, kt + ((t + 1) & 1) * TK * D, b, t0 + TK, s1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* tile = kt + (t & 1) * TK * D;
+    const float* tile = kt + (t & 1) * TK * D;
 
     // (1) scores: each scoring warp takes KG keys at a time; the 32 partial
     // (key, head) dot products of a lane's chunks, then one reduce-scatter
@@ -351,18 +328,11 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
           float kf[KG][VN];
 #pragma unroll
           for (int j = 0; j < KG; ++j)
-            V::to_float(reinterpret_cast<const uint4*>(tile + (kw + j) * D)[ch], kf[j]);
+            to_float(reinterpret_cast<const uint4*>(tile + (kw + j) * D)[ch], kf[j]);
 #pragma unroll
           for (int g = 0; g < HG; ++g) {
-            float qf[VN];
-#pragma unroll
-            for (int h4 = 0; h4 < VN / 4; ++h4) {
-              const float4 q4 = sq4[(g * (VN / 4) + h4) * nch + ch];
-              qf[4 * h4 + 0] = q4.x;
-              qf[4 * h4 + 1] = q4.y;
-              qf[4 * h4 + 2] = q4.z;
-              qf[4 * h4 + 3] = q4.w;
-            }
+            const float4 q4 = sq4[g * nch + ch];
+            const float qf[VN] = {q4.x, q4.y, q4.z, q4.w};
 #pragma unroll
             for (int j = 0; j < KG; ++j) {
               float d = s[j * HG + g];
@@ -408,7 +378,7 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
         acc[g][1] *= corr;
       }
       for (int j = 0; j < nt; ++j) {
-        const float2 v = V::load2(tile + j * D + col);
+        const float2 v = *reinterpret_cast<const float2*>(tile + j * D + col);
         const float4* pj = reinterpret_cast<const float4*>(ss + j * HG);
 #pragma unroll
         for (int g4 = 0; g4 < HG / 4; ++g4) {
@@ -434,9 +404,9 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
       const long long hrow = (long long)b * p.H + h0 + g;
       if (p.n_split == 1) {
         const float inv = 1.f / fmaxf(s_l[g], 1e-30f);
-        T* o = static_cast<T*>(p.out) + hrow * p.R + col;
-        V::store1(o, acc[g][0] * inv);
-        V::store1(o + 1, acc[g][1] * inv);
+        float* o = static_cast<float*>(p.out) + hrow * p.R + col;
+        o[0] = acc[g][0] * inv;
+        o[1] = acc[g][1] * inv;
       } else {
         float* pa = p.part_acc +
                     (((long long)b * p.n_split + split) * p.H + h0 + g) * p.R + col;
@@ -472,7 +442,6 @@ __device__ float block_reduce(float v, float* red) {
 // Merge the n_split partial states of one output row (b, h): one CTA per
 // row; each split's m and l are read once into shared memory, then its
 // weight; threads over the latent.
-template <typename T>
 __global__ void mla_combine_kernel(Params p) {
   extern __shared__ float sh[];  // (2, n_split): m then l, then (n_split,) weights in m's place
   __shared__ float red[32];
@@ -501,19 +470,19 @@ __global__ void mla_combine_kernel(Params p) {
   }
   sum = block_reduce<false>(sum, red);  // its barriers also publish the weights
 
-  T* out = static_cast<T*>(p.out) + (long long)row * p.R;
+  float* out = static_cast<float*>(p.out) + (long long)row * p.R;
   const float* acc = p.part_acc + (base * p.H + h) * p.R;
   const long long stride = (long long)p.H * p.R;  // one split to the next
   for (int d = threadIdx.x; d < p.R; d += blockDim.x) {
     float a = 0.f;
 #pragma unroll 8
     for (int s = 0; s < n_used; ++s) a = fmaf(sm[s], acc[s * stride + d], a);
-    Vec<T>::store1(out + d, a / fmaxf(sum, 1e-30f));
+    out[d] = a / fmaxf(sum, 1e-30f);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 paged on the tensor cores
+// 1. bf16 dense and paged on the tensor cores
 namespace tc {
 
 using namespace sm90;
@@ -527,19 +496,24 @@ constexpr int PMAX = MAX_ROPE;         // rope features, zero-padded to this wid
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Row of key pos in the (rows, R) / (rows, P) caches: page table[pos / bs -
-// first], row pos % bs, where `table` holds the request's block-table
-// entries from entry `first` on (a copy in shared memory).
-__device__ __forceinline__ long long key_row(const Params& p, const int* table, int first,
+// Row of key pos of request b in the (rows, R) / (rows, P) caches. Dense:
+// b * L + pos. Paged: page table[pos / bs - first], row pos % bs, where
+// `table` holds the request's block-table entries from entry `first` on (a
+// copy in shared memory).
+template <bool PAGED>
+__device__ __forceinline__ long long key_row(const Params& p, const int* table, int first, int b,
                                              int pos) {
-  return (long long)table[pos / p.bs - first] * p.bs + pos % p.bs;
+  if constexpr (PAGED)
+    return (long long)table[pos / p.bs - first] * p.bs + pos % p.bs;
+  else
+    return (long long)b * p.L + pos;
 }
 
 // Shared memory of mla_tc_split_kernel<RMAX, NH> (HG = 8 NH heads): rows
 // [ckv | kr] RMAX + PMAX wide (zero past R and past P) padded by 8 elements:
 // the HG query rows, then STAGES slots of WK key rows; each warp's
 // probabilities P^T (HG x WK, padded by 8); the warps' partial scores (two
-// rounds); then the split's block-table entries (table_bytes).
+// rounds); then, paged only, the split's block-table entries (table_bytes).
 template <int RMAX, int NH>
 struct Smem {
   static constexpr int HG = 8 * NH;
@@ -559,7 +533,7 @@ __host__ __device__ inline size_t table_bytes(int split_len, int bs) {
 constexpr int MAX_SMEM = 200 * 1024;  // the dynamic shared memory a split CTA may ask for
 
 // grid (n_split, B, ceil(H / HG)); R <= RMAX, P <= PMAX, multiples of 8
-template <int RMAX, int NH>
+template <int RMAX, int NH, bool PAGED>
 __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
   using Sm = Smem<RMAX, NH>;
   constexpr int HG = Sm::HG, LDK = Sm::LDK, LDP = Sm::LDP;
@@ -577,7 +551,7 @@ __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
   bf16* ring = reinterpret_cast<bf16*>(smem + Sm::Q);
   bf16* sP = reinterpret_cast<bf16*>(smem + Sm::Q + Sm::RING) + warp * HG * LDP;
   float4* xs = reinterpret_cast<float4*>(smem + Sm::Q + Sm::RING + Sm::P);  // (2, WARPS, KT, NH, 32)
-  int* table = reinterpret_cast<int*>(smem + Sm::BYTES);
+  int* table = reinterpret_cast<int*>(smem + Sm::BYTES);  // paged only
   __shared__ __align__(8) uint64_t bar[STAGES];
   const uint4 zero = make_uint4(0, 0, 0, 0);
   constexpr int CW = (RMAX + PMAX) / 8;  // 16-byte chunks of a row
@@ -600,14 +574,17 @@ __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
     }
     cp_async_commit();
   }
-  // the block-table entries the split can touch, read while valid_len is
   const int s0 = split * p.split_len;
-  const int first = s0 / p.bs;  // the split's first block-table entry
+  int first = 0;  // the split's first block-table entry
   const int vl = p.valid_len[b];
-  if (warp == 0) {
-    const int* bt = p.block_tables + (long long)b * p.nb;
-    const int last = min(p.nb - 1, (s0 + p.split_len - 1) / p.bs);
-    for (int j = lane; j <= last - first; j += 32) table[j] = bt[first + j];
+  if constexpr (PAGED) {
+    // the block-table entries the split can touch, read while valid_len is
+    first = s0 / p.bs;
+    if (warp == 0) {
+      const int* bt = p.block_tables + (long long)b * p.nb;
+      const int last = min(p.nb - 1, (s0 + p.split_len - 1) / p.bs);
+      for (int j = lane; j <= last - first; j += 32) table[j] = bt[first + j];
+    }
   }
   const int n = min(vl, p.L);
   const int s1 = min(s0 + p.split_len, n);
@@ -637,7 +614,7 @@ __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
       if ((c >= p.R && c < RMAX) || c >= RMAX + p.P)
         *reinterpret_cast<uint4*>(ring + r * LDK + c) = zero;
     }
-  __syncthreads();  // the barriers are initialised, the table entries read
+  __syncthreads();  // the barriers are initialised (paged: the table entries read)
 
   // step i (keys s0 + WK i + [0, WK)) -> slot i % STAGES, by every warp:
   // lane r < 8 of warp w copies the ckv part of row 8 w + r, lane 8 + r its
@@ -648,7 +625,7 @@ __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
     const int slot = i % STAGES, r = 8 * warp + (lane & 7);
     if (tid == 0) mbar_expect_tx(&bar[slot], WK * (p.R + p.P) * sizeof(bf16));
     fence_proxy_async();  // the slot's last reads (step i - STAGES) come first
-    const long long row = key_row(p, table, first, min(s0 + i * WK + r, s1 - 1));
+    const long long row = key_row<PAGED>(p, table, first, b, min(s0 + i * WK + r, s1 - 1));
     bf16* dst = ring + (slot * WK + r) * LDK;
     if (lane < 8)
       bulk_copy(dst, ckv + row * p.R, p.R * sizeof(bf16), &bar[slot]);
@@ -882,17 +859,19 @@ __global__ void __launch_bounds__(COMBINE_THREADS) mla_tc_combine_kernel(Params 
       make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
 }
 
-template <int RMAX, int NH>
+template <int RMAX, int NH, bool PAGED>
 int launch_rn(const Params& p, cudaStream_t stream) {
   using Sm = Smem<RMAX, NH>;
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      mla_tc_split_kernel<RMAX, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      mla_tc_split_kernel<RMAX, NH, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = Sm::BYTES + table_bytes(p.split_len, p.bs);
+  size_t smem = Sm::BYTES;
+  if constexpr (PAGED) smem += table_bytes(p.split_len, p.bs);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const dim3 grid(p.n_split, p.B, (p.H + Sm::HG - 1) / Sm::HG);
-  mla_tc_split_kernel<RMAX, NH><<<grid, THREADS, smem, stream>>>(p);
+  mla_tc_split_kernel<RMAX, NH, PAGED><<<grid, THREADS, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return (int)err;
   // the combine may launch while the split kernel runs (programmatic dependent
@@ -910,63 +889,60 @@ int launch_rn(const Params& p, cudaStream_t stream) {
 }
 
 // hg: heads a CTA, 8, 16 or 24 (the wrapper's head_group over TC_HEAD_GROUPS)
-template <int RMAX>
+template <int RMAX, bool PAGED>
 int launch_r(const Params& p, int hg, cudaStream_t stream) {
   switch (hg) {
-    case 8: return launch_rn<RMAX, 1>(p, stream);
-    case 16: return launch_rn<RMAX, 2>(p, stream);
-    case 24: return launch_rn<RMAX, 3>(p, stream);
+    case 8: return launch_rn<RMAX, 1, PAGED>(p, stream);
+    case 16: return launch_rn<RMAX, 2, PAGED>(p, stream);
+    case 24: return launch_rn<RMAX, 3, PAGED>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool PAGED>
 int launch(const Params& p, int hg, cudaStream_t stream) {
   if (p.R > MAX_RANK || p.P > PMAX || p.R % 8 || p.P % 8 || p.split_len % WK)
     return (int)cudaErrorInvalidValue;
-  return p.R <= 64 ? launch_r<64>(p, hg, stream) : launch_r<MAX_RANK>(p, hg, stream);
+  return p.R <= 64 ? launch_r<64, PAGED>(p, hg, stream)
+                   : launch_r<MAX_RANK, PAGED>(p, hg, stream);
 }
 
 }  // namespace tc
 
-template <typename T, bool PAGED, int HG>
+// 2. fp32 on the first design
+template <bool PAGED, int HG>
 int launch_split(const Params& p, cudaStream_t stream) {
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      mla_split_kernel<T, PAGED, HG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<T, HG>(MAX_RANK, MAX_ROPE));
+      mla_split_kernel<PAGED, HG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<HG>(MAX_RANK, MAX_ROPE));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(p.n_split, p.B, (p.H + HG - 1) / HG);
-  mla_split_kernel<T, PAGED, HG>
-      <<<grid, THREADS, smem_bytes<T, HG>(p.R, p.P), stream>>>(p);
+  mla_split_kernel<PAGED, HG><<<grid, THREADS, smem_bytes<HG>(p.R, p.P), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PAGED>
-int launch(const Params& p, int hg, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && PAGED) {
-    return tc::launch(p, hg, stream);
+template <bool PAGED>
+int launch_f32(const Params& p, int hg, cudaStream_t stream) {
+  if (p.R > MAX_RANK || p.P > MAX_ROPE || p.R % VN || p.P % VN) return (int)cudaErrorInvalidValue;
+  int err;
+  if (hg == 4) {
+    err = launch_split<PAGED, 4>(p, stream);
+  } else if (hg == 8) {
+    err = launch_split<PAGED, 8>(p, stream);
+  } else if (hg == 16) {
+    err = launch_split<PAGED, 16>(p, stream);
   } else {
-    if (p.R > MAX_RANK || p.P > MAX_ROPE || p.R % Vec<T>::N || p.P % Vec<T>::N)
-      return (int)cudaErrorInvalidValue;
-    int err;
-    if (hg == 4) {
-      err = launch_split<T, PAGED, 4>(p, stream);
-    } else if (hg == 8) {
-      err = launch_split<T, PAGED, 8>(p, stream);
-    } else if (hg == 16) {
-      err = launch_split<T, PAGED, 16>(p, stream);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-    if (err != cudaSuccess || p.n_split == 1) return err;
-    mla_combine_kernel<T><<<p.B * p.H, 128, 2 * p.n_split * sizeof(float), stream>>>(p);
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  mla_combine_kernel<<<p.B * p.H, 128, 2 * p.n_split * sizeof(float), stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define MLA_DECODE_LAUNCHER(NAME, T, PAGED)                                                  \
+#define MLA_DECODE_LAUNCHER(NAME, LAUNCH)                                                    \
   extern "C" int NAME(const void* q_lat, const void* q_rope, const void* ckv, const void* kr, \
                       const void* valid_len, const void* block_tables, void* out,             \
                       void* part_m, void* part_l, void* part_acc, int B, int H, int R, int P, \
@@ -993,10 +969,10 @@ int launch(const Params& p, int hg, cudaStream_t stream) {
     p.split_len = split_len;                                                                 \
     p.n_split = n_split;                                                                     \
     p.scale = scale;                                                                         \
-    return launch<T, PAGED>(p, hg, static_cast<cudaStream_t>(stream));                       \
+    return LAUNCH(p, hg, static_cast<cudaStream_t>(stream));                                 \
   }
 
-MLA_DECODE_LAUNCHER(mla_latent_decode_f32, float, false)
-MLA_DECODE_LAUNCHER(mla_latent_decode_bf16, __nv_bfloat16, false)
-MLA_DECODE_LAUNCHER(mla_paged_latent_decode_f32, float, true)
-MLA_DECODE_LAUNCHER(mla_paged_latent_decode_bf16, __nv_bfloat16, true)
+MLA_DECODE_LAUNCHER(mla_latent_decode_f32, launch_f32<false>)
+MLA_DECODE_LAUNCHER(mla_latent_decode_bf16, tc::launch<false>)
+MLA_DECODE_LAUNCHER(mla_paged_latent_decode_f32, launch_f32<true>)
+MLA_DECODE_LAUNCHER(mla_paged_latent_decode_bf16, tc::launch<true>)

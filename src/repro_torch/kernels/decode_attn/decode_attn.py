@@ -8,14 +8,15 @@ counts its kernel launches in ``<wrapper>.launches`` (the CPU path does not
 count).
 
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
-are attended; the result has q's dtype. The bf16 dense kernel runs both
-products on the tensor cores and rounds the softmax probabilities once to
-bf16 for P.V, as the JAX model casts them to the value dtype; the fp32 and
-the paged kernels keep them fp32.
+are attended; the result has q's dtype. The bf16 kernels, dense and paged,
+run both products on the tensor cores and round the softmax probabilities
+once to bf16 for P.V, as the JAX model casts them to the value dtype; the
+fp32 kernels (the first design, on the CUDA cores) keep them fp32.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +30,7 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 TARGET_CTAS = 528          # four per SM of an H100
 MIN_SPLIT_KEYS = 32        # two rounds of 4 keys for each warp of a 4-warp CTA
-# the bf16 dense tensor-core kernel (tc_split_kernel)
+# the bf16 tensor-core kernel, dense and paged (tc_split_kernel)
 TC_TILE = 64               # keys its 4-warp CTA takes a round, 16 a warp
 TC_TARGET_CTAS = 132       # one per SM: at D = 256 its shared memory holds one
 TC_MIN_SPLIT_KEYS = 64     # at least one tile a split
@@ -50,13 +51,29 @@ def split_plan(bkv: int, extent: int):
 
 
 def tc_split_plan(bkv: int, extent: int):
-    """(n_split, split_len) of the bf16 dense kernel: splits of whole
+    """(n_split, split_len) of the bf16 tensor-core kernel: splits of whole
     TC_TILE-key tiles, at least TC_MIN_SPLIT_KEYS keys, about TC_TARGET_CTAS
     CTAs in all."""
     n_split = max(1, min(-(-extent // TC_MIN_SPLIT_KEYS), -(-TC_TARGET_CTAS // bkv)))
     split_len = -(-extent // n_split)
     split_len = -(-split_len // TC_TILE) * TC_TILE
     return -(-extent // split_len), split_len
+
+
+class Plan(NamedTuple):
+    kernel: str          # the split kernel the C launcher runs for the dtype
+    n_split: int
+    split_len: int
+
+
+def plan(dtype: torch.dtype, bkv: int, extent: int) -> Plan:
+    """The split kernel and plan of a call over ``bkv`` (batch, kv-head)
+    pairs and ``extent`` keys (dense L, or paged nb * bs): bf16, dense or
+    paged, runs ``tc_split_kernel`` in splits of whole TC_TILE-key tiles;
+    fp32 the first design, ``split_kernel``."""
+    if dtype == torch.bfloat16:
+        return Plan("tc_split_kernel", *tc_split_plan(bkv, extent))
+    return Plan("split_kernel", *split_plan(bkv, extent))
 
 
 def _launcher(name: str, dtype: torch.dtype):
@@ -100,8 +117,7 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale):
         block_tables, "block_tables", name, q.device, torch.int32))
 
     g = h // kv
-    tc = block_tables is None and q.dtype == torch.bfloat16
-    n_split, split_len = (tc_split_plan if tc else split_plan)(b * kv, extent)
+    _, n_split, split_len = plan(q.dtype, b * kv, extent)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if n_split > 1:
         part_m = torch.empty((b * kv * n_split * g,), dtype=torch.float32, device=q.device)

@@ -10,14 +10,16 @@ count).
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
 are attended; the result is (B, H, rank) in q's dtype. ``ckv`` and ``kr``
 stay separate operands in the dense form too (the Pallas wrapper
-concatenates them, copying the cache on every call). The bf16 paged kernel
-runs both products on the tensor cores and rounds the softmax probabilities
-once to bf16 for P.V, as the JAX model casts them to the cache dtype; the
-fp32 and the dense kernels keep them fp32.
+concatenates them, copying the cache on every call). The bf16 kernels,
+dense and paged, run both products on the tensor cores and round the
+softmax probabilities once to bf16 for P.V, as the JAX model casts them to
+the cache dtype; the fp32 kernels (the first design, on the CUDA cores)
+keep them fp32.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,7 +35,7 @@ MAX_ROPE = 64
 HEAD_GROUPS = (16, 8, 4)   # query heads per CTA, as instantiated in the source
 TARGET_CTAS = 528          # four per SM of an H100 (two resident at a time)
 TILE_KEYS = 32             # keys per tile of the kernel (TK in the source)
-# the bf16 paged tensor-core kernel (tc::mla_tc_split_kernel)
+# the bf16 tensor-core kernel, dense and paged (tc::mla_tc_split_kernel)
 TC_HEAD_GROUPS = (24, 16, 8)   # query heads per CTA: three, two or one n8 tile
 TC_STEP = 32               # keys a step of its 4-warp CTA
 TC_TARGET_CTAS = 132       # one per SM
@@ -69,6 +71,25 @@ def tc_split_plan(ctas: int, extent: int):
     least TC_MIN_SPLIT_KEYS keys, about TC_TARGET_CTAS CTAs in all."""
     return split_plan(ctas, extent, target=TC_TARGET_CTAS, min_keys=TC_MIN_SPLIT_KEYS,
                       tile=TC_STEP)
+
+
+class Plan(NamedTuple):
+    kernel: str          # the split kernel the C launcher runs for the dtype
+    head_group: int      # query heads a CTA
+    n_split: int
+    split_len: int
+
+
+def plan(dtype: torch.dtype, b: int, h: int, extent: int) -> Plan:
+    """The split kernel and plan of a call over ``b`` requests of ``h``
+    heads and ``extent`` keys (dense L, or paged nb * bs): bf16, dense or
+    paged, runs ``mla_tc_split_kernel`` (TC_HEAD_GROUPS, whole TC_STEP-key
+    steps); fp32 the first design, ``mla_split_kernel``."""
+    if dtype == torch.bfloat16:
+        hg = head_group(h, TC_HEAD_GROUPS)
+        return Plan("mla_tc_split_kernel", hg, *tc_split_plan(b * -(-h // hg), extent))
+    hg = head_group(h)
+    return Plan("mla_split_kernel", hg, *split_plan(b * -(-h // hg), extent))
 
 
 def _launcher(name: str, dtype: torch.dtype):
@@ -115,12 +136,7 @@ def _launch(name, q_lat, q_rope, ckv, kr, valid_len, block_tables, extent, bs, n
     operands.append(0 if block_tables is None else cuda_operand(
         block_tables, "block_tables", name, q_lat.device, torch.int32))
 
-    if block_tables is not None and q_lat.dtype == torch.bfloat16:
-        hg = head_group(h, TC_HEAD_GROUPS)
-        n_split, split_len = tc_split_plan(b * -(-h // hg), extent)
-    else:
-        hg = head_group(h)
-        n_split, split_len = split_plan(b * -(-h // hg), extent)
+    _, hg, n_split, split_len = plan(q_lat.dtype, b, h, extent)
     out = torch.empty((b, h, rank), dtype=q_lat.dtype, device=q_lat.device)
     if n_split > 1:
         part_m = torch.empty((b * n_split * h,), dtype=torch.float32, device=q_lat.device)

@@ -23,6 +23,7 @@ from repro_torch.kernels.decode_attn.decode_attn import (
     MIN_SPLIT_KEYS,
     TC_MIN_SPLIT_KEYS,
     TC_TILE,
+    plan,
     split_plan,
     tc_split_plan,
 )
@@ -132,9 +133,30 @@ def test_split_plan_covers_every_key(bkv, extent):
 @pytest.mark.parametrize("bkv,extent", [(8, 1024), (1, 64), (3, 96), (64, 4096), (8, 17),
                                         (1, 32768), (10, 1000)])
 def test_tc_split_plan_covers_every_key_once(bkv, extent):
-    """The bf16 dense kernel's plan: whole 64-key tiles, every key in exactly
+    """The bf16 tensor-core kernel's plan: whole 64-key tiles, every key in exactly
     one split, no split shorter than TC_MIN_SPLIT_KEYS unless it is the only one."""
     n_split, split_len = tc_split_plan(bkv, extent)
     assert split_len % TC_TILE == 0
     assert n_split * split_len >= extent > (n_split - 1) * split_len
     assert n_split == 1 or split_len >= TC_MIN_SPLIT_KEYS
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,l,bs", [(8, 1, 1024, 16), (10, 2, 1024, 8), (3, 6, 96, 32),
+                                       (4, 8, 500, 32), (1, 1, 32768, 16)])
+def test_plan_picks_the_design_of_the_dtype(dtype, paged, b, kv, l, bs):
+    """The wrapper's choice for each (dtype, layout): bf16, dense or paged,
+    runs tc_split_kernel in splits of whole TC_TILE-key tiles (the kernel
+    refuses any other); fp32 the first design. Every key lies in exactly
+    one split."""
+    extent = -(-l // bs) * bs if paged else l            # as the wrappers pass it
+    got = plan(dtype, b * kv, extent)
+    if dtype == torch.bfloat16:
+        assert got.kernel == "tc_split_kernel"
+        assert (got.n_split, got.split_len) == tc_split_plan(b * kv, extent)
+        assert got.split_len % TC_TILE == 0
+    else:
+        assert got.kernel == "split_kernel"
+        assert (got.n_split, got.split_len) == split_plan(b * kv, extent)
+    assert got.n_split * got.split_len >= extent > (got.n_split - 1) * got.split_len

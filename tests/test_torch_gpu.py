@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card, against their plain versions:
-decode attention (GQA) and MLA latent decode, dense and paged (the bf16
-dense GQA and paged MLA kernels on the tensor cores, replayed from CUDA
-graphs too); the SSD and gated-delta-rule prefill scans (the chunked GDN
-scan at every head dim, strong decay and from a CUDA graph).
+decode attention (GQA) and MLA latent decode, dense and paged (in bf16 all
+four on the tensor cores, replayed from CUDA graphs too; the paged ones
+never reading a page past a request's keys); the SSD and gated-delta-rule
+prefill scans (the chunked GDN scan at every head dim, strong decay and
+from a CUDA graph).
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -30,12 +31,11 @@ from repro_torch.kernels import (
     ssd_scan_ref,
 )
 from repro_torch.kernels.decode_attn.decode_attn import TC_TILE, tc_split_plan
-from repro_torch.kernels.mla_decode.mla_decode import TC_HEAD_GROUPS, head_group
-from repro_torch.kernels.mla_decode.mla_decode import tc_split_plan as mla_tc_split_plan
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.mla_decode.mla_decode import plan as mla_plan
 from repro_torch.kernels.ssd.ssd import CHUNK
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 
@@ -122,6 +122,7 @@ def _tc_inputs(g, dk, dv, kv=1, l=1024, seed=11):
 @pytest.mark.gpu
 @pytest.mark.parametrize("g,kv,dk,dv", [
     (1, 2, 64, 64),           # G = 1 (MHA)
+    (3, 2, 128, 128),         # minitron-4b's group
     (4, 2, 128, 128),         # qwen3-4b's group
     (8, 1, 256, 256),         # gemma-2b
     (16, 1, 64, 64),          # a full 16-row tile
@@ -151,6 +152,81 @@ def test_tc_decode_attention_replays_in_a_cuda_graph():
     _replays_in_a_graph(lambda *a: decode_attention(*a, scale=0.0625),
                         lambda *a: decode_attention_ref(*a, 0.0625),
                         lambda seed: _tc_inputs(8, 256, 256, seed=seed), (12, 13, 14),
+                        TOL[torch.bfloat16], TOL[torch.bfloat16])
+
+
+def _tc_paged_inputs(g, dk, dv, kv=1, bs=16, l=1024, seed=15):
+    """bf16 paged inputs whose valid_len sits on page, warp-step, tile and
+    split edges (1, bs +- 1, 64 +- 1, a split +- 1 and itself, L - 1, L).
+    Returns (kernel inputs, plain inputs): in the kernel's, every table entry
+    at or past ceil(valid_len / bs) names a page full of NaN and the rows of
+    a request's last page past valid_len are NaN, so that a read of any of
+    them shows; the plain version's are the same with those entries on the
+    null page 0 and those rows finite."""
+    nb = l // bs
+    split = tc_split_plan(10 * kv, nb * bs)[1]
+    vl = np.array([1, bs - 1, bs + 1, TC_TILE - 1, TC_TILE + 1, split - 1, split, split + 1,
+                   l - 1, l], np.int32)
+    rng = np.random.default_rng(seed)
+    b, used = len(vl), -(-vl // bs)
+    n_pages = 2 + int(used.sum())                        # null page 0, live pages, NaN page
+    q = rng.standard_normal((b, kv * g, dk), np.float32)
+    kp = rng.standard_normal((n_pages, bs, kv, dk), np.float32)
+    vp = rng.standard_normal((n_pages, bs, kv, dv), np.float32)
+    kp[0] = vp[0] = 0
+    tables = np.zeros((b, nb), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages - 1))
+    start = 0
+    for i, n in enumerate(used):
+        tables[i, :n] = perm[start:start + n]
+        start += n
+    nan_tables = tables.copy()
+    nan_kp, nan_vp = kp.copy(), vp.copy()
+    nan_kp[-1] = nan_vp[-1] = np.nan
+    for i, n in enumerate(used):
+        nan_tables[i, n:] = n_pages - 1
+        tail = vl[i] - (n - 1) * bs                      # live rows of the last page
+        nan_kp[tables[i, n - 1], tail:] = nan_vp[tables[i, n - 1], tail:] = np.nan
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    bf = lambda a: cuda(a).to(torch.bfloat16)
+    qt, vlt = bf(q), cuda(vl)
+    return ([qt, bf(nan_kp), bf(nan_vp), cuda(nan_tables), vlt],
+            [qt, bf(kp), bf(vp), cuda(tables), vlt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("g,kv,dk,dv", [
+    (1, 2, 64, 64),           # G = 1 (MHA)
+    (3, 2, 128, 128),         # minitron-4b's group
+    (4, 2, 128, 128),         # qwen3-4b's group
+    (8, 1, 256, 256),         # gemma-2b
+    (16, 1, 64, 64),          # a full 16-row tile
+    (8, 2, 32, 16),           # Dk != Dv
+])
+def test_tc_paged_decode_attention_matches_plain(g, kv, dk, dv, bs):
+    """The bf16 paged tensor-core kernel at every valid_len edge of its plan
+    and of the pages, touching no page or row past a request's keys."""
+    _need_card()
+    ts, plain_ts = _tc_paged_inputs(g, dk, dv, kv, bs)
+    scale = 1 / np.sqrt(dk)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(*ts, scale=scale)
+    want = paged_decode_attention_ref(*plain_ts, scale)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1 and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_tc_paged_decode_attention_replays_in_a_cuda_graph():
+    """The paged split kernel and its combine, replayed from a CUDA graph on
+    new inputs and tables."""
+    _need_card()
+    _replays_in_a_graph(lambda *a: paged_decode_attention(*a, scale=0.0625),
+                        lambda *a: paged_decode_attention_ref(*a, 0.0625),
+                        lambda seed: _tc_paged_inputs(8, 256, 256, seed=seed)[1], (16, 17, 18),
                         TOL[torch.bfloat16], TOL[torch.bfloat16])
 
 
@@ -229,54 +305,64 @@ def test_mla_cuda_kernel_matches_plain(paged, dtype, h, rank, rope, l):
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def _tc_paged_mla_inputs(h, rank, rope, l=1024, bs=16, seed=21):
-    """bf16 paged inputs whose valid_len sits on the edges of the tensor-core
-    kernel's plan (1, a step of 32 +- 1, a split +- 1, L) and whose tables
-    repeat a page."""
+def _tc_mla_inputs(paged, h, rank, rope, l=1024, bs=16, seed=21):
+    """bf16 inputs, dense or paged, whose valid_len sits on the edges of the
+    tensor-core kernel's plan (1, a step of 32 +- 1, a split +- 1, L); the
+    paged tables repeat a page."""
     b = 10
-    split = mla_tc_split_plan(b * -(-h // head_group(h, TC_HEAD_GROUPS)), l)[1]
+    split = mla_plan(torch.bfloat16, b, h, l).split_len
     vl = np.array([1, 31, 32, 33, split - 1, split, split + 1, l // 2, l - 1, l], np.int32)
     rng = np.random.default_rng(seed)
-    n_pages = 1 + 3 * (l // bs)
+    rows = (1 + 3 * (l // bs), bs) if paged else (b, l)
     q_lat = rng.standard_normal((b, h, rank), np.float32)
     q_rope = rng.standard_normal((b, h, rope), np.float32)
-    ckv = rng.standard_normal((n_pages, bs, rank), np.float32)
-    kr = rng.standard_normal((n_pages, bs, rope), np.float32)
-    tables = rng.integers(1, n_pages, (b, l // bs)).astype(np.int32)
-    tables[:, 1] = tables[:, 0]                          # a repeated page
+    ckv = rng.standard_normal(rows + (rank,), np.float32)
+    kr = rng.standard_normal(rows + (rope,), np.float32)
     ts = [torch.from_numpy(t).cuda().to(torch.bfloat16) for t in (q_lat, q_rope, ckv, kr)]
-    return ts + [torch.from_numpy(tables).cuda(), torch.from_numpy(vl).cuda()]
+    if paged:
+        tables = rng.integers(1, rows[0], (b, l // bs)).astype(np.int32)
+        tables[:, 1] = tables[:, 0]                      # a repeated page
+        ts.append(torch.from_numpy(tables).cuda())
+    return ts + [torch.from_numpy(vl).cuda()]
+
+
+def _mla_pair(paged):
+    return ((mla_paged_latent_decode, mla_paged_latent_decode_ref) if paged
+            else (mla_latent_decode, mla_latent_decode_ref))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("h,rank,rope,l", [
     (24, 512, 64, 1024),      # minitron-4b-mla at max_seq_len 1024
     (4, 32, 8, 128),          # reduced minitron-4b-mla
     (16, 512, 64, 512),       # deepseek-v2-lite heads
     (128, 512, 64, 256),      # deepseek-v2-236b heads
 ])
-def test_tc_paged_mla_matches_plain(h, rank, rope, l):
-    """The bf16 paged tensor-core kernel at every valid_len edge of its plan,
-    a repeated page in every table."""
+def test_tc_mla_matches_plain(paged, h, rank, rope, l):
+    """The bf16 tensor-core kernel, dense and paged, at every valid_len edge
+    of its plan (paged: a repeated page in every table)."""
     _need_card()
-    ts = _tc_paged_mla_inputs(h, rank, rope, l)
-    before = mla_paged_latent_decode.launches
-    out = mla_paged_latent_decode(*ts, scale=0.1)
-    want = mla_paged_latent_decode_ref(*ts, 0.1)
+    kernel, plain = _mla_pair(paged)
+    ts = _tc_mla_inputs(paged, h, rank, rope, l)
+    before = kernel.launches
+    out = kernel(*ts, scale=0.1)
+    want = plain(*ts, 0.1)
     torch.cuda.synchronize()
-    assert mla_paged_latent_decode.launches == before + 1 and out.dtype == torch.bfloat16
+    assert kernel.launches == before + 1 and out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[torch.bfloat16],
                                atol=TOL[torch.bfloat16])
 
 
 @pytest.mark.gpu
-def test_tc_paged_mla_replays_in_a_cuda_graph():
-    """The paged split kernel and its combine, launched with programmatic
-    dependent launch, replayed from a CUDA graph on new inputs."""
+@pytest.mark.parametrize("paged", [False, True])
+def test_tc_mla_replays_in_a_cuda_graph(paged):
+    """The split kernel and its combine, launched with programmatic dependent
+    launch, replayed from a CUDA graph on new inputs, dense and paged."""
     _need_card()
-    _replays_in_a_graph(lambda *a: mla_paged_latent_decode(*a, scale=0.1),
-                        lambda *a: mla_paged_latent_decode_ref(*a, 0.1),
-                        lambda seed: _tc_paged_mla_inputs(24, 512, 64, seed=seed), (31, 32, 33),
+    kernel, plain = _mla_pair(paged)
+    _replays_in_a_graph(lambda *a: kernel(*a, scale=0.1), lambda *a: plain(*a, 0.1),
+                        lambda seed: _tc_mla_inputs(paged, 24, 512, 64, seed=seed), (31, 32, 33),
                         TOL[torch.bfloat16], TOL[torch.bfloat16])
 
 

@@ -35,6 +35,7 @@ from repro_torch.kernels.mla_decode.mla_decode import (
     TC_STEP,
     TILE_KEYS,
     head_group,
+    plan,
     split_plan,
     tc_split_plan,
 )
@@ -173,7 +174,7 @@ def test_head_group_pads_heads_least(h, want):
 
 @pytest.mark.parametrize("h,want", [(24, 24), (16, 16), (128, 16), (4, 8), (1, 8), (48, 24)])
 def test_tc_head_group_pads_heads_least(h, want):
-    """The bf16 paged tensor-core kernel's head groups: one, two or three n8
+    """The bf16 tensor-core kernel's head groups: one, two or three n8
     tiles of heads; minitron-4b-mla's 24 heads are one unpadded group."""
     hg = head_group(h, TC_HEAD_GROUPS)
     assert hg == want and hg in TC_HEAD_GROUPS
@@ -192,3 +193,27 @@ def test_tc_split_plan_covers_every_key_in_whole_steps(ctas, extent):
     assert n_split * split_len >= extent > (n_split - 1) * split_len
     assert split_len % TC_STEP == 0
     assert split_len >= min(TC_MIN_SPLIT_KEYS, -(-extent // TC_STEP) * TC_STEP)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,l,bs", [(8, 24, 1024, 16), (8, 4, 128, 16), (4, 128, 256, 16),
+                                      (10, 16, 1000, 8), (1, 24, 32768, 32)])
+def test_plan_picks_the_design_of_the_dtype(dtype, paged, b, h, l, bs):
+    """The wrapper's choice for each (dtype, layout): bf16, dense or paged,
+    runs the tensor-core kernel in splits of whole TC_STEP-key steps over
+    TC_HEAD_GROUPS; fp32 the first design in whole TILE_KEYS-key tiles over
+    HEAD_GROUPS. Every key lies in exactly one split."""
+    extent = -(-l // bs) * bs if paged else l            # as the wrappers pass it
+    got = plan(dtype, b, h, extent)
+    if dtype == torch.bfloat16:
+        assert got.kernel == "mla_tc_split_kernel"
+        assert got.head_group == head_group(h, TC_HEAD_GROUPS)
+        assert (got.n_split, got.split_len) == tc_split_plan(b * -(-h // got.head_group), extent)
+        assert got.split_len % TC_STEP == 0
+    else:
+        assert got.kernel == "mla_split_kernel"
+        assert got.head_group == head_group(h)
+        assert (got.n_split, got.split_len) == split_plan(b * -(-h // got.head_group), extent)
+        assert got.split_len % TILE_KEYS == 0
+    assert got.n_split * got.split_len >= extent > (got.n_split - 1) * got.split_len

@@ -89,6 +89,35 @@ def _paged_from_dense(cache, lengths, bs, nb, layout):
     return out, torch.from_numpy(pages)
 
 
+@pytest.mark.parametrize("arch", ["gemma-2b", "minitron-4b-mla"])
+def test_prefill_at_bucket_1024_matches_reference_flash_branch(arch):
+    """A 700-token prompt padded with token 0 to the pool's 1024 bucket, as
+    the pool pads it: the reference prefill attends by its blocked
+    ``flash_attention`` (S >= FLASH_SEQ_THRESHOLD, 512-key blocks), the
+    port by its naive form. fp32 last-token logits and the cache rows at
+    1e-4."""
+    from repro.models.flash import FLASH_SEQ_THRESHOLD
+    from repro_torch.serving.pool import _bucket
+
+    jcfg, cfg = _configs(arch)
+    jp = R.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = T.params_from_numpy(_np_tree(jp), cfg, device="cpu")
+    n = 700
+    s = _bucket(n)
+    assert s == FLASH_SEQ_THRESHOLD
+    tokens = np.zeros((1, s), np.int32)
+    tokens[0, :n] = np.random.default_rng(3).integers(1, cfg.vocab_size, n)
+    lengths = np.array([n], np.int32)
+    jl, jc, _ = R.prefill(jp, jcfg, jnp.asarray(tokens), R.init_cache(jcfg, 1, s),
+                          prompt_lengths=jnp.asarray(lengths))
+    tl, tc, _ = T.prefill(tp, cfg, torch.from_numpy(tokens), T.init_cache(cfg, 1, s, device="cpu"),
+                          prompt_lengths=torch.from_numpy(lengths))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for key in _cache_keys(cfg):
+        np.testing.assert_allclose(tc["stages"][0]["b0"][key][:, :, :n].numpy(),
+                                   np.asarray(jc["stages"][0]["b0"][key])[:, :, :n], **TOL)
+
+
 @pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-4b", "minitron-4b-mla",
                                   "minitron-4b-mla+q_lora", "mamba2-4b", "gdn-4b"])
 def test_prefill_and_decode_match_reference(arch):
