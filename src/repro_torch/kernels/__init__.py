@@ -31,6 +31,10 @@ from repro_torch.kernels.mla_decode import (
 )
 from repro_torch.kernels.ssd import ssd_prefill, ssd_scan, ssd_scan_ref
 
+# every wrapper that counts its kernel launches in ``<wrapper>.launches``
+COUNTED_KERNELS = (decode_attention, paged_decode_attention, mla_latent_decode,
+                   mla_paged_latent_decode, ssd_scan, gdn_scan)
+
 __all__ = [
     "decode_attention", "decode_attention_ref",
     "paged_decode_attention", "paged_decode_attention_ref",
@@ -39,4 +43,5 @@ __all__ = [
     "mla_fused_decode", "mla_paged_fused_decode",
     "ssd_scan", "ssd_scan_ref", "ssd_prefill",
     "gdn_scan", "gdn_scan_ref", "gdn_prefill", "gdn_chunked_ref",
+    "COUNTED_KERNELS",
 ]

@@ -6,7 +6,9 @@ wall time, token counts and (when a ``ClockController`` is attached) joules
 at the pool's current operating point. One pool runs both phases (the
 colocated deployment the paper measures). The public API is the
 reference's: ``submit`` / ``step`` / ``run_to_completion`` / ``stats``.
-``from_spec`` is not ported yet.
+``from_spec`` is not ported yet. On a card the pool replays its decode
+step from a CUDA graph; ``cuda_graphs=False`` runs it eagerly, as the
+comparison for the graph (``Pool``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ class ServingEngine:
         kv_blocks: Optional[int] = None,
         prefix_sharing: bool = False,
         device="cuda",
+        cuda_graphs: bool = True,
     ):
         self.cfg = cfg
         self.params = params
@@ -61,7 +64,7 @@ class ServingEngine:
             cfg, params, role="mixed", max_batch=max_batch,
             max_seq_len=max_seq_len, rng_seed=rng_seed, clock=clock,
             paged=paged, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-            prefix_sharing=prefix_sharing, device=device,
+            prefix_sharing=prefix_sharing, device=device, cuda_graphs=cuda_graphs,
         )
         self.controller = controller
         self.waiting: Deque[Request] = deque()

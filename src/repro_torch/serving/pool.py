@@ -22,13 +22,29 @@ slot copy for the dense cache, a page scatter for the paged one. Decode
 runs one step over ALL slots (per-slot lengths, active mask); the
 attention inside it is the hand-written CUDA kernel on a card.
 
-Differences from the reference: caches are updated in place; there is no
-program cache (PyTorch runs eagerly); greedy sampling is ``argmax`` (first
-maximum, as ``jnp.argmax``), and a temperature above 0 samples from the
-pool's own ``torch.Generator``, which gives other bits than
-``jax.random``. Prefix sharing / copy-on-write, the replica ``CacheBank``,
-``place_many`` and the ``Request`` free list are not ported yet
-(``prefix_sharing=True`` raises).
+The decode step is one function over buffers the pool allocates once,
+beside its cache (``_decode_fn``): static inputs (tokens, lengths and, for
+the paged layout, the active mask and block tables), into which
+``_decode_begin`` copies the host mirrors, and outputs (fp32 logits, the
+greedy argmax). On a CUDA device it is the counterpart of the reference's
+jitted ``_jit_decode`` / ``_jit_decode_paged``: the pool's first decode
+step runs it eagerly (the warm-up: kernels' libraries bound, cuBLAS
+handles made), the second captures it into a ``torch.cuda.CUDAGraph`` and
+every later step replays that graph. The graph belongs to the pool, not to
+a process-wide cache as ``_JIT_CACHE`` does, because it binds this pool's
+own cache, parameter and buffer addresses: nothing may reallocate them
+(``defrag`` moves pages in place). ``cuda_graphs=False`` runs the step
+eagerly on the card, as the comparison for the graph; on the CPU the
+function is always called directly. ``jit_dispatches`` counts one per
+prefill, ``place`` and decode step, as the reference counts its dispatches.
+
+Differences from the reference: caches are updated in place; the bucketed
+prefill runs eagerly (no graph per bucket yet); greedy sampling is
+``argmax`` (first maximum, as ``jnp.argmax``), and a temperature above 0
+samples from the pool's own ``torch.Generator``, outside the step, which
+gives other bits than ``jax.random``. Prefix sharing / copy-on-write, the
+replica ``CacheBank``, ``place_many`` and the ``Request`` free list are not
+ported yet (``prefix_sharing=True`` raises).
 """
 from __future__ import annotations
 
@@ -47,6 +63,7 @@ from repro_torch.core.latency import LatencyLedger
 from repro_torch.core.metering import GaugeSource, PowerSampler
 from repro_torch.core.workload import weight_stream_bytes
 from repro_torch.device import resolve_device
+from repro_torch.kernels import COUNTED_KERNELS
 from repro_torch.models import (
     decode_step,
     decode_step_paged,
@@ -279,6 +296,7 @@ class Pool:
         kv_blocks: Optional[int] = None,   # default: dense-equivalent budget
         prefix_sharing: bool = False,
         device="cuda",
+        cuda_graphs: bool = True,
     ):
         if prefix_sharing:
             raise NotImplementedError("prefix sharing is not ported yet")
@@ -357,16 +375,33 @@ class Pool:
         # host mirror of the current-token vector: placements write here and
         # ``_decode_begin`` ships the mirrors to the device once per step
         self._host_cur_token = np.zeros(max_batch, np.int32)
+        # prefill + place + decode-step dispatches made by this pool
+        self.jit_dispatches = 0
+
+        # the decode step's static buffers (allocated with the cache) and,
+        # on a card, its CUDA graph: captured at the second decode step,
+        # replayed at every later one
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._step_host: dict = {}          # staging (pinned on a card)
+        self._step_in: dict = {}            # what the step reads
+        self._decode_steps_run = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._graph_stream = None
+        self.graph_replays = 0
+        self.captured_launches: dict = {}   # counted wrapper -> launches per replay
+        self.graph_capture_ms = 0.0
 
     # ------------------------------------------------------------- internals
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _sample(self, logits: torch.Tensor, temperature: np.ndarray) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor, greedy: torch.Tensor,
+                temperature: np.ndarray) -> torch.Tensor:
         """Per-slot sampling: ``temperature`` is a (B,) host vector; slots at
-        0 take the argmax, the rest draw Gumbel-max at their own temperature
-        from ``self.generator``. The all-greedy batch skips the draw."""
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        0 take ``greedy`` (the step's argmax), the rest draw Gumbel-max at
+        their own temperature from ``self.generator``. The all-greedy batch
+        skips the draw."""
         if not (temperature > 0.0).any():
             return greedy
         t = self._tensor(np.maximum(temperature, 1e-6))[:, None]
@@ -491,6 +526,25 @@ class Pool:
             else:
                 self.cache = init_cache(self.cfg, self.max_batch, self.max_seq_len,
                                         device=self.device)
+            self._alloc_step_buffers()
+
+    def _alloc_step_buffers(self):
+        """The decode step's static inputs, allocated once: ``_step_in`` on
+        the device, which the step reads, and ``_step_host`` on the host,
+        which ``_decode_begin`` fills from the mirrors (pinned on a card, so
+        that the copies are asynchronous; the same tensors on the CPU). The
+        dense step reads no active mask: ``decode_step`` takes none."""
+        b = self.max_batch
+        spec = {"tokens": ((b,), torch.int32), "lengths": ((b,), torch.int32)}
+        if self.paged:
+            spec["active"] = ((b,), torch.bool)
+            spec["tables"] = (self.block_tables.shape, torch.int32)
+        on_card = self.device.type == "cuda"
+        self._step_host = {k: torch.zeros(shape, dtype=dtype, pin_memory=on_card)
+                           for k, (shape, dtype) in spec.items()}
+        self._step_in = ({k: torch.zeros(shape, dtype=dtype, device=self.device)
+                          for k, (shape, dtype) in spec.items()}
+                         if on_card else self._step_host)
 
     def active_mask(self) -> np.ndarray:
         return np.array([r is not None for r in self.slot_req])
@@ -595,6 +649,7 @@ class Pool:
             cache1 = init_cache(self.cfg, 1, self.max_seq_len, device=self.device)
             logits, cache1, _ = prefill(self.params, self.cfg, self._tensor(toks),
                                         cache1, prompt_lengths=self._tensor(true_len))
+            self.jit_dispatches += 1
             row = logits[0]
             if req.temperature > 0.0:
                 u = torch.rand(row.shape, generator=self.generator, device=self.device)
@@ -674,6 +729,7 @@ class Pool:
             for (big_blk, key, _), (small_blk, _, _) in zip(
                     _leaves(self.cache, self._layout), _leaves(cache1, self._layout)):
                 big_blk[key][:, slot] = small_blk[key][:, 0]
+        self.jit_dispatches += 1
         return slot
 
     def _req_eos(self, req: Request) -> int:
@@ -681,8 +737,8 @@ class Pool:
 
     def _decode_begin(self) -> Optional[dict]:
         """Host-side first half of ``decode_once``: block-table growth,
-        active mask, and the step's device inputs. ``None`` when no slot
-        is live."""
+        active mask, and the host mirrors copied into the step's static
+        inputs. ``None`` when no slot is live."""
         if self.paged and any(r is not None for r in self.slot_req):
             self._grow_tables()
         active = self.active_mask()
@@ -690,18 +746,74 @@ class Pool:
             return None
         self._ensure_decode_state()
         t0 = self.clock()
-        # ship the host mirrors once per step (placements only wrote numpy)
-        pre = {
-            "active": active,
-            "t0": t0,
-            "tokens": self._tensor(self._host_cur_token),
-            "lengths": self._tensor(self._host_lengths.astype(np.int32)),
-            "active_t": self._tensor(active),
-            "temps": self._slot_temp.copy(),
-        }
+        # ship the host mirrors once per step (placements only wrote numpy).
+        # The staging buffers are written again only after the step's
+        # result was read back (``_decode_finish`` waits for the device),
+        # so the asynchronous copies out of them have finished by then.
+        host = self._step_host
+        host["tokens"].numpy()[:] = self._host_cur_token
+        host["lengths"].numpy()[:] = self._host_lengths
         if self.paged:
-            pre["tables"] = self._tensor(self.block_tables)
-        return pre
+            host["active"].numpy()[:] = active
+            host["tables"].numpy()[:] = self.block_tables
+        if self._step_in is not host:
+            for key, dst in self._step_in.items():
+                dst.copy_(host[key], non_blocking=True)
+        return {"active": active, "t0": t0, "temps": self._slot_temp.copy()}
+
+    def _decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode step over the static inputs and the pool's cache
+        (updated in place): (logits (B, V) fp32, greedy (B,) int32). This
+        is the function a CUDA graph captures."""
+        s = self._step_in
+        if self.paged:
+            logits, _, _ = decode_step_paged(self.params, self.cfg, s["tokens"], self.cache,
+                                             s["lengths"], s["active"], s["tables"])
+        else:
+            logits, _, _ = decode_step(self.params, self.cfg, s["tokens"], self.cache,
+                                       s["lengths"])
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _run_decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decode step: eager on the CPU and with ``cuda_graphs=False``;
+        on a card, eager at the pool's first step (on the side stream the
+        graph is captured on), captured at its second and replayed from
+        then on. A failed capture or replay raises."""
+        self.jit_dispatches += 1
+        self._decode_steps_run += 1
+        if not self.cuda_graphs:
+            return self._decode_fn()
+        if self._graph is None:
+            if self._graph_stream is None:
+                self._graph_stream = torch.cuda.Stream(self.device)
+            side, main = self._graph_stream, torch.cuda.current_stream(self.device)
+            if self._decode_steps_run == 1:
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    out = self._decode_fn()
+                main.wait_stream(side)
+                return out
+            self._capture(side)
+        self._graph.replay()
+        self.graph_replays += 1
+        return self._graph_out
+
+    def _capture(self, stream) -> None:
+        """Capture ``_decode_fn`` into the pool's graph. Capture records and
+        runs nothing, so the counted kernel wrappers' launch counts are put
+        back where they were, and how far each moved is kept as the
+        launches of one replay (``captured_launches``)."""
+        t0 = time.perf_counter()
+        before = {fn.__name__: fn.launches for fn in COUNTED_KERNELS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._decode_fn()
+        self.captured_launches = {fn.__name__: fn.launches - before[fn.__name__]
+                                  for fn in COUNTED_KERNELS}
+        for fn in COUNTED_KERNELS:
+            fn.launches = before[fn.__name__]
+        self._graph, self._graph_out = graph, out
+        self.graph_capture_ms = (time.perf_counter() - t0) * 1e3
 
     @torch.inference_mode()
     def decode_once(self) -> List[Request]:
@@ -714,14 +826,8 @@ class Pool:
             return []
         # the host mirror ``_host_lengths`` stays the authority on lengths;
         # the cache is updated in place
-        if self.paged:
-            logits, _, _ = decode_step_paged(
-                self.params, self.cfg, pre["tokens"], self.cache, pre["lengths"],
-                pre["active_t"], pre["tables"])
-        else:
-            logits, _, _ = decode_step(
-                self.params, self.cfg, pre["tokens"], self.cache, pre["lengths"])
-        return self._decode_finish(pre, self._sample(logits, pre["temps"]))
+        logits, greedy = self._run_decode_fn()
+        return self._decode_finish(pre, self._sample(logits, greedy, pre["temps"]))
 
     def _decode_finish(self, pre: dict, next_tok: torch.Tensor) -> List[Request]:
         """Second half of ``decode_once``: read the sampled tokens, advance
@@ -817,6 +923,7 @@ class Pool:
         for old, new in mapping.items():
             perm[new] = old
         perm_t = self._tensor(perm)
+        # in place: a captured decode graph reads these very tensors
         for blk, key, is_paged in _leaves(self.cache, self._layout):
             if is_paged:
-                blk[key] = blk[key][:, perm_t]
+                blk[key].copy_(blk[key][:, perm_t])

@@ -3,7 +3,9 @@ decode attention (GQA) and MLA latent decode, dense and paged (in bf16 all
 four on the tensor cores, replayed from CUDA graphs too; the paged ones
 never reading a page past a request's keys); the SSD and gated-delta-rule
 prefill scans (the chunked GDN scan at every head dim, strong decay and
-from a CUDA graph).
+from a CUDA graph); the serving pool's decode step replayed from its CUDA
+graph against the eager step (streams, recurrent state, launch counts,
+defrag under a captured graph).
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -11,12 +13,15 @@ runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import reduced_config
 from repro_torch.kernels import (
+    COUNTED_KERNELS,
     decode_attention,
     gdn_prefill,
     gdn_scan,
@@ -38,6 +43,8 @@ from repro_torch.kernels.decode_attn.ref import (
 from repro_torch.kernels.mla_decode.mla_decode import plan as mla_plan
 from repro_torch.kernels.ssd.ssd import CHUNK
 from repro_torch.models import decode_step, init_cache, init_params, prefill
+from repro_torch.serving import ServingEngine
+from repro_torch.training import make_prompts
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # tests/test_kernels.py, SSD / GDN
@@ -587,3 +594,113 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# reduced model -> (its decode kernels (dense, paged), its prefill scan)
+GRAPH_MODELS = {
+    "gemma-2b": (("decode_attention", "paged_decode_attention"), None),
+    "minitron-4b-mla": (("mla_latent_decode", "mla_paged_latent_decode"), None),
+    "mamba2-4b": (None, "ssd_scan"),
+    "gdn-4b": (None, "gdn_scan"),
+}
+
+
+def _reduced(arch, dtype):
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype=dtype, compute_dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+
+def _serve(cfg, params, *, paged, graphs, steps=None, defrag=False,
+           max_new=(16, 5, 9, 12, 7, 14)):
+    """A reduced engine over six prompts of ``max_new`` new tokens each
+    (max_batch 4; staggered lengths, so that admissions and finishes
+    interleave and freed pages leave holes); ``steps`` stops it early. With ``defrag``,
+    the pool compacts its pages after every step once its graph exists.
+    Returns (engine, streams, launch counts moved, defrags that moved pages)."""
+    engine = ServingEngine(cfg, params, max_batch=4, max_seq_len=128, paged=paged,
+                           kv_block_size=8, device="cuda", cuda_graphs=graphs)
+    reqs = [engine.submit(p, max_new_tokens=m)
+            for p, m in zip(make_prompts(cfg, 6, 5, 40, seed=1), max_new)]
+    before = {fn.__name__: fn.launches for fn in COUNTED_KERNELS}
+    n, moved = 0, 0
+    while (engine.waiting or engine.pool.occupancy()) and n != steps:
+        engine.step()
+        n += 1
+        if defrag and engine.pool._graph is not None:
+            tables = engine.pool.block_tables.copy()
+            engine.pool.defrag()
+            moved += not np.array_equal(tables, engine.pool.block_tables)
+    torch.cuda.synchronize()
+    counted = {fn.__name__: fn.launches - before[fn.__name__] for fn in COUNTED_KERNELS}
+    return engine, [r.output for r in reqs], counted, moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(GRAPH_MODELS))
+def test_graph_engine_matches_eager(arch, dtype, paged):
+    """The pool's decode step replayed from its CUDA graph gives the eager
+    step's greedy streams, runs one eager step and replays every later one,
+    and launches each counted kernel as often as the eager engine: eager
+    launches plus replays x captured launches = layers x decode steps for
+    the model's decode kernel, layers x prefills for its scan, 0 for the
+    others."""
+    _need_card()
+    cfg, params = _reduced(arch, dtype)
+    decode, scan = GRAPH_MODELS[arch]
+    layers = sum(st.n_units * len(st.unit) for st in cfg.stages)
+    streams = {}
+    for graphs in (True, False):
+        engine, streams[graphs], counted, _ = _serve(cfg, params, paged=paged, graphs=graphs)
+        pool, st = engine.pool, engine.stats
+        want = dict.fromkeys(counted, 0)
+        if decode:
+            want[decode[paged]] = layers * st.decode_steps
+        if scan:
+            want[scan] = layers * st.prefill_calls
+        got = {k: n + pool.graph_replays * pool.captured_launches.get(k, 0)
+               for k, n in counted.items()}
+        assert got == want
+        assert pool.graph_replays == (st.decode_steps - 1 if graphs else 0)
+        assert (pool._graph is not None) == graphs
+        assert pool.jit_dispatches == 2 * st.prefill_calls + st.decode_steps
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-4b", "gdn-4b"])
+def test_graph_replays_advance_recurrent_state_as_eager_steps(arch, paged):
+    """After N decode steps (one eager, one captured, N - 2 replayed) the
+    recurrent state equals N eager steps': neither the warm-up nor the
+    capture advanced it."""
+    _need_card()
+    cfg, params = _reduced(arch, "float32")
+    caches = []
+    for graphs in (True, False):
+        engine, _, _, _ = _serve(cfg, params, paged=paged, graphs=graphs, steps=6,
+                                 max_new=(30,) * 6)
+        assert engine.pool.graph_replays == (5 if graphs else 0)
+        caches.append(engine.pool.cache)
+    for got, want in zip(_leaf_list(caches[0]), _leaf_list(caches[1])):
+        torch.testing.assert_close(got, want)
+
+
+@pytest.mark.gpu
+def test_defrag_under_a_captured_graph_matches_eager():
+    """A graph-captured paged pool compacted after every step keeps replaying
+    the right pages: its streams equal the eager pool's without defrag."""
+    _need_card()
+    cfg, params = _reduced("gemma-2b", "float32")
+    engine, got, _, moved = _serve(cfg, params, paged=True, graphs=True, defrag=True)
+    assert engine.pool.graph_replays > 0 and moved > 0
+    assert got == _serve(cfg, params, paged=True, graphs=False)[1]
+
+
+def _leaf_list(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaf_list(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaf_list(v)]
+    return [tree]

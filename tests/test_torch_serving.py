@@ -1,13 +1,16 @@
 """Greedy serving replays: the port's ``ServingEngine`` against the JAX one.
 
-Reduced gemma-2b, reduced minitron-4b-mla (absorbed MLA, latent cache) and
-the reduced recurrent models mamba2-4b (Mamba2 SSD) and gdn-4b (Gated
+Reduced gemma-2b, reduced minitron-4b (squared-ReLU GQA, the MLA
+ablation's control), reduced minitron-4b-mla (absorbed MLA, latent cache)
+and the reduced recurrent models mamba2-4b (Mamba2 SSD) and gdn-4b (Gated
 DeltaNet), weights from ``repro.models.init_params`` through numpy,
 the same ``make_prompts`` set, dense and paged (with a block budget tight
 enough to force preemption). Token streams, ``PhaseStats`` token, step,
-byte and (under a lock-mode ``ClockController``) joule counts, preemptions
-and ``TrafficCounter`` totals must all be equal; on a virtual clock, so
-must every latency stamp and the sampler's measured joules.
+byte and (under a lock-mode ``ClockController``) joule counts, preemptions,
+``TrafficCounter`` totals and the pool's dispatch count (prefills, places
+and decode steps) must all be equal; on a virtual clock, so must every
+latency stamp and the sampler's measured joules. On the CPU the pool calls
+its decode-step function directly over its static buffers (no graph).
 ``run_serving``'s analytic fields must equal the JAX driver's at
 ``chip="h200-sxm"``. Sampling at temperature > 0 draws from a
 ``torch.Generator`` (other bits than ``jax.random``), so it is checked for
@@ -56,6 +59,11 @@ def weights():
 
 
 @pytest.fixture(scope="module")
+def ctrl_weights():
+    return _weights("minitron-4b")
+
+
+@pytest.fixture(scope="module")
 def mla_weights():
     return _weights("minitron-4b-mla")
 
@@ -81,6 +89,7 @@ def _replay(engine_cls, controller, cfg, params, prompts, **kw):
         "joules": (st.prefill_j, st.decode_j),
         "clock": (st.configured_clock_mhz, st.actual_clock_mhz, st.lever_engaged),
         "traffic": traffic,
+        "dispatches": engine.pool.jit_dispatches,
     }
 
 
@@ -91,6 +100,17 @@ def _replay(engine_cls, controller, cfg, params, prompts, **kw):
 ])
 def test_engine_replay_matches_reference(weights, paged, kv_blocks, metered):
     _check_replay(weights, paged, kv_blocks, metered)
+
+
+@pytest.mark.parametrize("paged,kv_blocks,metered", [
+    (False, None, True),
+    (True, None, True),
+    (True, 9, True),           # 9 blocks of 16 for 3 slots: forces preemption
+])
+def test_ctrl_engine_replay_matches_reference(ctrl_weights, paged, kv_blocks, metered):
+    """minitron-4b: squared-ReLU MLP and an untied table, through the same
+    GQA decode kernels as gemma-2b."""
+    _check_replay(ctrl_weights, paged, kv_blocks, metered)
 
 
 @pytest.mark.parametrize("paged,kv_blocks,metered", [
@@ -205,6 +225,40 @@ def test_defrag_keeps_paged_decode_invariant(weights):
         return [r.output for r in reqs]
 
     assert run(defrag_at=6) == run(defrag_at=-1)
+
+
+def test_defrag_moves_pages_in_place(weights):
+    """``defrag`` keeps every cache leaf's storage (a captured decode graph
+    reads those addresses) and still moves the pages: the streams equal
+    the run without defrag, and the live pages did move."""
+    _, _, cfg, tp = weights
+    prompts = make_prompts(cfg, 5, 5, 40, seed=2)
+
+    def run(defrag_at):
+        e = TEngine(cfg, tp, max_batch=3, max_seq_len=128, paged=True, device="cpu")
+        reqs = [e.submit(p, max_new_tokens=12) for p in prompts]
+        step, moved = 0, None
+        while e.waiting or e.pool.occupancy():
+            e.step()
+            step += 1
+            if step == defrag_at:
+                leaves = [blk[key] for blk, key, _ in _pool_leaves(e.pool)]
+                ptrs = [t.data_ptr() for t in leaves]
+                tables = e.pool.block_tables.copy()
+                e.pool.defrag()
+                assert [t.data_ptr() for t in leaves] == ptrs
+                assert all(a is blk[key] for a, (blk, key, _) in zip(leaves, _pool_leaves(e.pool)))
+                moved = not np.array_equal(tables, e.pool.block_tables)
+        return [r.output for r in reqs], moved
+
+    got, moved = run(defrag_at=14)      # two live slots, holes below their pages
+    assert moved
+    assert got == run(defrag_at=-1)[0]
+
+
+def _pool_leaves(pool):
+    from repro_torch.serving.pool import _leaves
+    return list(_leaves(pool.cache, pool._layout))
 
 
 def test_run_serving_analytic_fields_match_reference():
