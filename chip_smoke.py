@@ -30,7 +30,25 @@ Phases; any failure exits non-zero:
    recurrent models the prefill logits, the final states and one decode
    step after them); then fp32 graph and eager engines whose dense and
    paged greedy streams must all agree;
-5. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
+5. ``[cluster]``: the phase-disaggregated ``Cluster`` (a prefill pool handing
+   its cache rows to a paged decode pool whose step is a CUDA graph) on
+   ``serve_cluster``'s recipe at full width, driven through the recipe's
+   own ``run``, bf16, minicpm-2b and mamba2-780m under the modes default /
+   cap / lock: the recipe's ordering (lock >= cap tokens/J, the cap never
+   engaged on decode and at the default clock), completion, traffic and
+   occupancy asserted; lock served again eagerly, greedy streams equal;
+6. ``[trace]``: ``serve_trace``'s 60-request smoke recipe through its own
+   ``run`` (``Cluster.from_spec`` on a virtual clock, barrier engine),
+   full width, the modes default / cap / lock / slo: its claims and a
+   deterministic second replay asserted;
+7. ``[fleet]``: a heterogeneous full-width fleet (qwen3-4b, minitron-4b-mla,
+   gdn-4b; three pools on one card) replaying 24 requests of a diurnal
+   mixed trace behind the routers jsq, energy and affinity, twice each:
+   completion and equal replays asserted. In phases 5-7 every run counts
+   its kernel launches across the prefill and decode pools (decode kernel
+   layers x decode steps, as eager launches + replays x captured launches;
+   scan layers x prefill calls; every other kernel never);
+8. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
@@ -51,6 +69,7 @@ import math
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -113,6 +132,16 @@ MODELS = {
     "qwen3-4b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
     "minitron-4b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
 }
+# phases 5-7 (the disaggregated serving stack): the archs served there that
+# phase 4 does not serve, with their kernels as in MODELS
+STACK_MODELS = {
+    "minicpm-2b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
+    "mamba2-780m": {"decode": None, "prefill": "ssd_scan"},
+}
+KERNELS_OF = {**MODELS, **STACK_MODELS}
+FLEET_ARCHS = ("qwen3-4b", "minitron-4b-mla", "gdn-4b")      # GQA / MLA / GDN
+FLEET_ROUTERS = ("jsq", "energy", "affinity")
+FLEET_REQUESTS = 24
 # the scans' plain versions run ~10 PyTorch ops per token: time fewer calls
 PLAIN_SCAN_REPS = 3
 
@@ -211,7 +240,12 @@ KERNEL_CASES = (
     ("paged_decode_attention", True, 3, 6, 6, 16, 16, 32, 8, False),
     ("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 8, False),   # pages < a warp step
     ("paged_decode_attention", True, 4, 24, 8, 128, 128, 512, 32, False),  # minitron-4b: G = 3
+    ("decode_attention", False, 12, 36, 36, 64, 64, 128, 0, False),    # minicpm-2b: G = 1
+    ("paged_decode_attention", True, 12, 36, 36, 64, 64, 128, 8, False),   # its [cluster] shape
 )
+# not main cases, but timed (and printed) as well: minicpm-2b's decode at
+# the [cluster] phase's shapes, where one query row fills a 16-row MMA tile
+TIMED_EXTRA = KERNEL_CASES[-2:]
 # MLA latent decode: (name, paged, B, H, rank, rope, L, bs, main); the first
 # of each kind is the minitron-4b-mla decode shape at batch 8 and
 # max_seq_len 1024, the one timed
@@ -234,6 +268,8 @@ SSD_CASES = (
     (2, 128, 4, 32, 16, False),      # reduced mamba2-4b
     (1, 300, 80, 64, 128, False),    # not a chunk multiple: ssd_prefill pads
     (2, 256, 80, 64, 128, False),    # B = 2
+    (1, 32, 48, 64, 128, False),     # mamba2-780m, the [trace] phase's short prompts
+    (1, 512, 48, 64, 128, False),    # mamba2-780m, a 512-token bucket
 )
 # GDN scan: (B, S, H, K, main); the first is the gdn-4b prefill of a
 # 512-token bucket, the one timed (fp32, as the model calls it)
@@ -245,6 +281,12 @@ GDN_CASES = (
 )
 SCAN_TIMED_DTYPE = {"ssd_scan": "bfloat16", "gdn_scan": "float32"}
 SCAN_NO_LIBRARY = "no single PyTorch call computes a selective scan or a delta rule"
+
+
+def case_seed(case) -> int:
+    """The seed of a kernel case's inputs, made from the case itself, so
+    that adding a case leaves every other case's inputs as they were."""
+    return zlib.crc32(repr(tuple(case)).encode())
 
 
 def _valid_lens(torch, g, b, l):
@@ -468,7 +510,7 @@ def check_kernels(torch, F, kmod):
     records = {}
     cases = ([(c, make_inputs, bound) for c in KERNEL_CASES]
              + [(c, make_mla_inputs, mla_bound) for c in MLA_CASES])
-    for ci, (case, make, bound_fn) in enumerate(cases):
+    for case, make, bound_fn in cases:
         name, paged, main, l = case[0], case[1], case[-1], case[-3]
         mla = name.startswith("mla")
         kernel = getattr(kmod, name)
@@ -479,7 +521,7 @@ def check_kernels(torch, F, kmod):
             case[2:-2]))
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
-            inputs = make(torch, case, dtype, seed=100 + ci)
+            inputs = make(torch, case, dtype, seed=case_seed(case))
             out = kernel(*inputs, scale=scale)
             want = plain(*inputs, scale=scale)
             torch.cuda.synchronize()
@@ -489,6 +531,15 @@ def check_kernels(torch, F, kmod):
                   f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version ({dname})")
+            if case in TIMED_EXTRA and dname == "bfloat16":
+                sets = cold_sets(inputs)
+                ms = cuda_time_ms(torch, lambda *a: kernel(*a, scale=scale), sets)[0]
+                plain_ms = cuda_time_ms(torch, lambda *a: plain(*a, scale=scale), sets)[0]
+                bound_ms, bound_by = bound_fn(torch, case, dname, inputs, out.element_size())
+                print(f"[kernels] {name} {shape} bf16 (not a main case), device ms (CUDA "
+                      f"graph): kernel {ms:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} "
+                      f"({bound_by})")
+                del sets
             if not (main and dname == "bfloat16"):
                 continue
             elem = out.element_size()
@@ -529,12 +580,12 @@ def check_scan_kernels(torch, kmod, records) -> None:
              ("gdn_scan", GDN_CASES, make_gdn_inputs, kmod.gdn_prefill, kmod.gdn_scan_ref,
               ("B", "S", "H", "K")))
     for name, cases, make, prefill_fn, plain, dims in specs:
-        for ci, case in enumerate(cases):
+        for case in cases:
             shape, main = case[:-1], case[-1]
             label = " ".join(f"{k}={v}" for k, v in zip(dims, shape))
             for dname in ("float32", "bfloat16"):
                 dtype = getattr(torch, dname)
-                inputs = make(torch, shape, dtype, seed=200 + ci)
+                inputs = make(torch, shape, dtype, seed=case_seed((name, *case)))
                 y, fs = prefill_fn(*inputs)
                 want_y, want_fs = plain(*inputs)
                 torch.cuda.synchronize()
@@ -571,7 +622,7 @@ def check_scan_kernels(torch, kmod, records) -> None:
 def expected_launches(arch, paged, n_layers, stats) -> dict:
     """Each counted kernel's launches in one serving run of ``arch``."""
     want = dict.fromkeys(COUNTED, 0)
-    kernels = MODELS[arch]
+    kernels = KERNELS_OF[arch]
     if kernels["decode"]:
         want[kernels["decode"][paged]] = n_layers * stats.decode_steps
     if kernels["prefill"]:
@@ -960,11 +1011,14 @@ def main_case(torch, name) -> tuple:
             mla = name.startswith("mla")
             make = make_mla_inputs if mla else make_inputs
             scale = MLA_SCALE if mla else 1.0 / math.sqrt(case[5])
-            return "bfloat16", make(torch, case, torch.bfloat16, seed=100), {"scale": scale}
+            return ("bfloat16", make(torch, case, torch.bfloat16, seed=case_seed(case)),
+                    {"scale": scale})
     cases, make = {"ssd_scan": (SSD_CASES, make_ssd_inputs),
                    "gdn_scan": (GDN_CASES, make_gdn_inputs)}[name]
     dname = SCAN_TIMED_DTYPE[name]
-    return dname, make(torch, cases[0][:-1], getattr(torch, dname), seed=200), {}
+    case = next(c for c in cases if c[-1])
+    return dname, make(torch, case[:-1], getattr(torch, dname),
+                       seed=case_seed((name, *case))), {}
 
 
 def load_kernels(torch, src: Path):
@@ -1076,6 +1130,13 @@ def main() -> int:
     # ---- 4. full-width models through ServingEngine
     for arch in MODELS:
         serve_model(torch, kmod, get_config(arch), records)
+
+    # ---- 5-7. the disaggregated serving stack at full width
+    params_for = cluster_phase(torch, kmod, records)
+    trace_phase(torch, kmod, records, params_for)
+    del params_for
+    torch.cuda.empty_cache()
+    fleet_phase(torch, kmod, records)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi("name,power.limit"))
@@ -1216,6 +1277,234 @@ def serve_model(torch, kmod, cfg, records) -> None:
     del params32
     torch.cuda.empty_cache()
     print(f"[serve] {arch} phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def zero_counts(torch, kmod) -> None:
+    """Every counted wrapper's launch count set to 0 (the card idle first)."""
+    torch.cuda.synchronize()
+    for name in COUNTED:
+        getattr(kmod, name).launches = 0
+
+
+def check_stack_launches(torch, kmod, replicas, what, records=None, graphs=True) -> dict:
+    """Launches of one run across the replicas' prefill and decode pools,
+    read just after it: each counted wrapper's count plus, for every pool,
+    its graph replays x the launches its capture recorded. Each must equal
+    ``expected_launches`` summed over the replicas (the arch's decode
+    kernel layers x the decode pool's steps, its scan layers x the prefill
+    pool's prefill calls, every other kernel 0), and a graph-replaying
+    decode pool must have run exactly one eager step. Adds the launches to
+    ``records``' main-path counts when given."""
+    torch.cuda.synchronize()
+    got = {name: getattr(kmod, name).launches for name in COUNTED}
+    want = dict.fromkeys(COUNTED, 0)
+    for r in replicas:
+        for pool in r.pools().values():
+            for name, n in pool.captured_launches.items():
+                got[name] += pool.graph_replays * n
+        for name, n in expected_launches(r.arch, r.decode_pool.paged, _n_layers(r.cfg),
+                                         r.stats).items():
+            want[name] += n
+        steps, replays = r.decode_stats.decode_steps, r.decode_pool.graph_replays
+        if replays != (max(steps - 1, 0) if graphs else 0) or r.prefill_pool.graph_replays:
+            raise SystemExit(f"{what} {r.name}: {replays} graph replays in {steps} decode "
+                             f"steps (graphs={graphs})")
+    if got != want:
+        raise SystemExit(f"{what}: launches {got} != {want}")
+    if records is not None:
+        for name, n in got.items():
+            records[name]["launches"] += n
+    return {k: n for k, n in got.items() if n}
+
+
+def cluster_phase(torch, kmod, records) -> dict:
+    """Phase 5, ``[cluster]``: ``serve_cluster.run`` at full width (bf16,
+    random weights from a seeded generator) on the card, the recipe and
+    assertions ``python -m repro_torch.benchmarks.serve_cluster
+    --full-config`` runs, after one unmeasured warm-up run per arch. Each
+    run's launch invariant across the two pools is read as it ends
+    (``on_run``), which then sets the counts to 0 for the next run. Then
+    each arch's lock mode again with ``cuda_graphs=False``, whose greedy
+    streams must equal those of every mode's graph run. Returns
+    {arch: weights}."""
+    from repro_torch.benchmarks import serve_cluster as sc
+    from repro_torch.benchmarks.common import random_params
+    from repro_torch.configs import get_config
+
+    params_for, streams, rows = {}, {}, {}
+    t_phase = time.perf_counter()
+    for arch in sc.ARCHS:
+        t0 = time.perf_counter()
+        cfg, params = get_config(arch), random_params(arch, full_config=True)
+        torch.cuda.synchronize()
+        params_for[arch] = params
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"[cluster] {arch} {cfg.param_dtype}: {n_params / 1e9:.3f} B params, "
+              f"{_n_layers(cfg)} layers, init {time.perf_counter() - t0:.1f} s")
+        sc.serve(arch, "lock", requests=2, params=params, full_config=True)    # warm-up
+
+    def report(row, cluster, reqs, graphs=True):
+        tag = f"{row['arch']} {row['mode']} {'graph' if graphs else 'eager'}"
+        launches = check_stack_launches(torch, kmod, [cluster._replica], f"[cluster] {tag}",
+                                        records if graphs else None, graphs)
+        streams.setdefault(row["arch"], {})[tag] = [r.output for r in reqs]
+        rows[tag] = row
+        run = row["run"]
+        print(f"[cluster] {tag}: " + json.dumps({
+            "completed": row["completed"], "decode_tok_per_j": row["decode_tokens_per_j"],
+            "decode_clock_mhz": row["decode_clock_mhz"],
+            "prefill_clock_mhz": row["prefill_clock_mhz"],
+            "lever_engaged": row["decode_engaged"], "peak_occupancy": row["peak_occupancy"],
+            "decode_bytes": row["decode_read_bytes"] + row["decode_write_bytes"],
+            "steady_decode_tok_s": run["steady_decode_tok_s"],
+            "steady_decode_steps": run["steady_decode_steps"], "wall_s": run["wall_s"],
+            "decode_steps": run["decode_steps"], "prefill_calls": run["prefill_calls"],
+            "graph_replays": run["graph_replays"],
+            "captured_launches": {k: n for k, n in
+                                  cluster.decode_pool.captured_launches.items() if n},
+            "host_ms_per_step": run["host_ms_per_step"], "launches": launches}))
+        zero_counts(torch, kmod)        # the next run starts from 0
+
+    zero_counts(torch, kmod)
+    for name, _, derived in sc.run(full_config=True, device="cuda", params_for=params_for,
+                                   on_run=report):
+        print(f"[cluster] {name}: {derived}")
+    for arch in sc.ARCHS:
+        zero_counts(torch, kmod)
+        row, cluster, reqs = sc.serve(arch, "lock", params=params_for[arch], full_config=True,
+                                      device="cuda", cuda_graphs=False)
+        report(row, cluster, reqs, graphs=False)
+        if len({json.dumps(v) for v in streams[arch].values()}) != 1:
+            raise SystemExit(f"[cluster] {arch}: greedy streams differ between the modes or "
+                             "between graph and eager")
+        lock, cap = rows[f"{arch} lock graph"], rows[f"{arch} cap graph"]
+        print(f"[cluster] {arch}: lock {lock['decode_tokens_per_j']:.1f} >= cap "
+              f"{cap['decode_tokens_per_j']:.1f} decode tok/J, cap inert at the default "
+              f"{cap['decode_clock_mhz']:.0f} MHz, streams equal across modes and graph == "
+              f"eager: ok")
+    print(f"[cluster] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return params_for
+
+
+def trace_phase(torch, kmod, records, params_for) -> None:
+    """Phase 6, ``[trace]``: ``serve_trace.run(smoke=True)`` at full width,
+    the recipe and assertions ``python -m repro_torch.benchmarks.serve_trace
+    --smoke --full-config`` runs: 60-request traces made against the full
+    config, replayed through ``Cluster.from_spec`` on a ``VirtualClock``
+    with the barrier engine, the claims per arch and a byte-identical
+    second replay. Each replay's launch invariant and wall seconds are read
+    as it ends (``on_run``), which then sets the counts to 0 for the
+    next."""
+    from repro_torch.benchmarks import serve_trace as st
+
+    def report(row, wall_s, cluster):
+        tag = f"{row['arch']} {row['mode']}"
+        launches = check_stack_launches(torch, kmod, [cluster._replica], f"[trace] {tag}",
+                                        records)
+        print(f"[trace] {tag}: " + json.dumps({
+            "completed": row["completed"], "decode_j": row["decode_j"],
+            "p99_tbt_s": row["p99_tbt_s"], "tbt_target_s": row["tbt_target_s"],
+            "slo_met": row["slo_met"], "decode_clock_mhz": row["decode_clock_mhz"],
+            "engaged": row["decode_engaged"], "transitions": row["transitions"],
+            "decode_steps": cluster.decode_stats.decode_steps,
+            "graph_replays": cluster.decode_pool.graph_replays, "wall_s": wall_s,
+            "launches": launches}))
+        zero_counts(torch, kmod)        # the next replay starts from 0
+
+    t_phase = time.perf_counter()
+    zero_counts(torch, kmod)
+    for name, _, derived in st.run(smoke=True, full_config=True, device="cuda",
+                                   params_for=params_for, on_run=report):
+        print(f"[trace] {name}: {derived}")
+    print(f"[trace] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def fleet_rate(emodel) -> float:
+    """``serve_fleet``'s arrival rate: 0.75 x the summed floor-clock
+    full-batch decode throughput of the three replicas over the mixed
+    profile's mean decode budget (``benchmarks/serve_fleet.py``
+    ``fleet_targets``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.workload import decode_workload
+
+    f_floor = min(emodel.clock_grid())
+    throughput = sum(
+        8 / emodel.profile(decode_workload(get_config(arch), 8, int(60 * 256.0), fused=True),
+                           f_floor).t_total
+        for arch in FLEET_ARCHS)
+    return 0.75 * throughput / 12.5
+
+
+def fleet_phase(torch, kmod, records) -> None:
+    """Phase 7, ``[fleet]``: ``serve_fleet``'s heterogeneous fleet at full
+    width (qwen3-4b, minitron-4b-mla and gdn-4b, bf16, lock mode, a paged
+    decode batch of 8 with 128 blocks of 8; three replicas, three pools on
+    one card), replaying 24 requests of the diurnal mixed trace (seed 23)
+    with the barrier engine behind each router, twice: all complete, the
+    two replays equal (placements, streams, joules, latency) and the launch
+    invariant holds across the six pools. Prints per router the fleet's
+    joules, p99 TBT and the requests each replica took."""
+    from repro_torch.benchmarks.common import h200_model, random_params
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency import summarize_latency
+    from repro_torch.core.traces import generate_trace
+    from repro_torch.serving import ClockSpec, Fleet, FleetSpec, PoolSpec, ReplicaSpec
+
+    params_for = {}
+    t_phase = time.perf_counter()
+    for arch in FLEET_ARCHS:
+        t0 = time.perf_counter()
+        params_for[arch] = random_params(arch, full_config=True)
+        torch.cuda.synchronize()
+        print(f"[fleet] {arch}: init {time.perf_counter() - t0:.1f} s")
+    rate = fleet_rate(h200_model())
+    trace = generate_trace(
+        get_config(FLEET_ARCHS[0]), FLEET_REQUESTS, arrival="diurnal", lengths="mixed",
+        mix_long=0.5, seed=23, max_total_len=128, rate_rps=rate,
+        arrival_kwargs={"period_s": max(1.0, FLEET_REQUESTS / rate / 2.0)})
+    replicas = tuple(
+        ReplicaSpec(name=f"r{i}-{arch}", arch=arch,
+                    clock=ClockSpec(mode="lock", context_scale=256.0, fused=True),
+                    decode=PoolSpec(batch=8, paged=True, kv_block_size=8, kv_blocks=128),
+                    max_seq_len=128, prefill_chunk_tokens=64, reduced=False)
+        for i, arch in enumerate(FLEET_ARCHS))
+    for router in FLEET_ROUTERS:
+        spec = FleetSpec(replicas=replicas, router=router,
+                         router_args={"headroom": 0.75} if router == "energy" else {})
+        prints = []
+        for turn in (1, 2):
+            zero_counts(torch, kmod)
+            fleet = Fleet.from_spec(spec, emodel=h200_model(), params_for=params_for,
+                                    device="cuda")
+            t0 = time.perf_counter()
+            done = fleet.run_trace(trace, engine="barrier")
+            wall_s = time.perf_counter() - t0
+            launches = check_stack_launches(torch, kmod, fleet.replicas,
+                                            f"[fleet] {router} #{turn}", records)
+            if len(done) != FLEET_REQUESTS:
+                raise SystemExit(f"[fleet] {router}: {len(done)}/{FLEET_REQUESTS} completed")
+            lat = summarize_latency(done)
+            done.sort(key=lambda r: (r.ledger.arrival_s, r.uid))
+            prints.append(json.dumps({
+                "placements": [r.replica for r in done], "streams": [r.output for r in done],
+                "total_j": fleet.total_energy_j(), "lat": dataclasses.asdict(lat),
+                "stats": {n: dataclasses.asdict(s) for n, s in fleet.stats_by_replica().items()}},
+                sort_keys=True))
+            print(f"[fleet] {router} replay {turn}: " + json.dumps({
+                "total_j": fleet.total_energy_j(), "p99_tbt_s": lat.p99_tbt_s,
+                "requests_by_replica": {r.name: sum(q.replica == r.name for q in done)
+                                        for r in fleet.replicas},
+                "decode_steps": {r.name: r.decode_stats.decode_steps for r in fleet.replicas},
+                "graph_replays": {r.name: r.decode_pool.graph_replays for r in fleet.replicas},
+                "wall_s": wall_s, "launches": launches}))
+            del fleet
+        if prints[0] != prints[1]:
+            raise SystemExit(f"[fleet] {router}: the two replays differ")
+        print(f"[fleet] {router}: {FLEET_REQUESTS}/{FLEET_REQUESTS} completed, two replays "
+              f"equal: ok")
+    del params_for
+    torch.cuda.empty_cache()
+    print(f"[fleet] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_launches(arch, what, paged, n_layers, stats, info) -> None:

@@ -1,0 +1,97 @@
+"""Shared benchmark plumbing of the port: the perf-record JSON writer, the
+CSV writer and the energy-model fixture, copied from the parts of the
+reference's ``benchmarks/common.py`` the serving benchmarks use (that module
+imports ``repro.core``, which loads JAX), and the benchmarks' random
+weights."""
+from __future__ import annotations
+
+import csv
+import json
+import os
+from typing import Any, Dict, Iterable, Optional, Sequence
+
+import torch
+
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.core.energy import EnergyModel
+from repro_torch.device import resolve_device
+from repro_torch.hw import H200_SXM
+from repro_torch.models import init_params
+
+# version of the committed perf-record layout; bump on breaking field changes
+BENCH_SCHEMA_VERSION = 1
+# field names that vary run-to-run (wall timings) and must never land in the
+# committed record — the JSON stays byte-stable unless serving behaviour
+# actually changed
+VOLATILE_FIELDS = frozenset({"wall_s", "wall_secs", "wall_time_s"})
+
+
+def results_dir() -> str:
+    """Where ``write_csv`` puts its tables: ``$REPRO_BENCH_OUT``, else
+    ``results/benchmarks`` under the working directory."""
+    return os.environ.get("REPRO_BENCH_OUT", "results/benchmarks")
+
+
+def deterministic_fields(obj: Any, volatile=VOLATILE_FIELDS) -> Any:
+    """Recursively drop volatile (wall-clock) keys from a JSON-able tree."""
+    if isinstance(obj, dict):
+        return {k: deterministic_fields(v, volatile)
+                for k, v in obj.items() if k not in volatile}
+    if isinstance(obj, (list, tuple)):
+        return [deterministic_fields(v, volatile) for v in obj]
+    return obj
+
+
+def write_bench_json(
+    bench: str,
+    results: Any,
+    *,
+    smoke: bool = False,
+    trace: Optional[Dict[str, Any]] = None,
+    extra: Optional[Dict[str, Any]] = None,
+    path: Optional[str] = None,
+    volatile=VOLATILE_FIELDS,
+) -> str:
+    """The shared ``--json`` writer: schema-versioned payload, volatile
+    fields filtered, keys sorted — so two identical replays produce
+    byte-identical artefacts."""
+    payload: Dict[str, Any] = {
+        "bench": bench,
+        "schema_version": BENCH_SCHEMA_VERSION,
+        "smoke": smoke,
+        "results": deterministic_fields(results, volatile),
+    }
+    if trace is not None:
+        payload["trace"] = deterministic_fields(trace, volatile)
+    if extra:
+        payload.update(deterministic_fields(extra, volatile))
+    path = path or f"BENCH_{bench}.json"
+    with open(path, "w") as f:
+        json.dump(payload, f, sort_keys=True, indent=1)
+    return path
+
+
+def write_csv(name: str, header: Sequence[str], rows: Iterable[Sequence]) -> str:
+    out = results_dir()
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{name}.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        for r in rows:
+            w.writerow(r)
+    return path
+
+
+def h200_model() -> EnergyModel:
+    return EnergyModel(H200_SXM)
+
+
+def random_params(arch: str, *, full_config: bool = False, device="cuda"):
+    """Weights of the config the benchmarks' pools run (``get_config`` with
+    ``full_config``, else ``reduced_config``), drawn from a
+    ``torch.Generator`` seeded with 0 on ``device``: other values than the
+    reference benchmarks' ``jax.random.PRNGKey(0)`` init."""
+    dev = resolve_device(device)
+    cfg = get_config(arch) if full_config else reduced_config(arch)
+    return init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)

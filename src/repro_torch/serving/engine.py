@@ -5,10 +5,12 @@ prefill and every decode step is accounted separately in ``PhaseStats`` —
 wall time, token counts and (when a ``ClockController`` is attached) joules
 at the pool's current operating point. One pool runs both phases (the
 colocated deployment the paper measures). The public API is the
-reference's: ``submit`` / ``step`` / ``run_to_completion`` / ``stats``.
-``from_spec`` is not ported yet. On a card the pool replays its decode
-step from a CUDA graph; ``cuda_graphs=False`` runs it eagerly, as the
-comparison for the graph (``Pool``).
+reference's: ``submit`` / ``step`` / ``run_to_completion`` / ``stats``,
+and ``from_spec`` builds it from a ``ReplicaSpec``. On a card the pool
+replays its decode step from a CUDA graph; ``cuda_graphs=False`` runs it
+eagerly, as the comparison for the graph (``Pool``). Not ported yet: prefix
+sharing (``prefix_sharing=True`` raises), and so the shared-prefix
+admission of the reference's ``_admit``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.serving.pool import (
     popleft,
     requeue_front,
 )
+from repro_torch.serving.spec import ReplicaSpec
 
 __all__ = ["EOS", "PhaseStats", "Request", "ServingEngine"]
 
@@ -70,6 +73,51 @@ class ServingEngine:
         self.waiting: Deque[Request] = deque()
         self._uid = 0
         self._step_no = 0
+
+    @classmethod
+    def from_spec(
+        cls,
+        spec: ReplicaSpec,
+        *,
+        emodel=None,
+        params: Any = None,
+        clock: Callable[[], float] = time.perf_counter,
+        device="cuda",
+    ) -> "ServingEngine":
+        """Build the colocated engine from a declarative spec: the decode
+        ``PoolSpec`` sizes the one mixed-phase pool (a colocated deployment
+        has no separate prefill pool to budget), and ``spec.clock`` builds
+        the controller against the FULL config's policy table. Without
+        ``params`` the weights come from a ``torch.Generator`` on
+        ``device`` seeded with ``spec.rng_seed`` (other values than the
+        reference's ``jax.random`` init)."""
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.core.energy import EnergyModel
+        from repro_torch.device import resolve_device
+        from repro_torch.hw import H200_SXM
+        from repro_torch.models import init_params
+
+        emodel = emodel if emodel is not None else EnergyModel(H200_SXM)
+        full = get_config(spec.arch)
+        cfg = reduced_config(spec.arch) if spec.reduced else full
+        if params is None:
+            dev = resolve_device(device)
+            params = init_params(cfg, torch.Generator(dev).manual_seed(spec.rng_seed),
+                                 device=dev)
+        controller = ClockController(emodel, full, **spec.clock.controller_kwargs())
+        return cls(
+            cfg, params,
+            max_batch=spec.decode.batch,
+            max_seq_len=spec.max_seq_len,
+            rng_seed=spec.rng_seed,
+            clock=clock,
+            controller=controller,
+            paged=spec.decode.paged,
+            kv_block_size=spec.decode.kv_block_size,
+            kv_blocks=spec.decode.kv_blocks,
+            prefix_sharing=spec.decode.prefix_sharing,
+            device=device,
+        )
 
     # ------------------------------------------------------------------ api
     @property

@@ -43,8 +43,11 @@ prefill runs eagerly (no graph per bucket yet); greedy sampling is
 ``argmax`` (first maximum, as ``jnp.argmax``), and a temperature above 0
 samples from the pool's own ``torch.Generator``, outside the step, which
 gives other bits than ``jax.random``. Prefix sharing / copy-on-write, the
-replica ``CacheBank``, ``place_many`` and the ``Request`` free list are not
-ported yet (``prefix_sharing=True`` raises).
+replica ``CacheBank`` and ``place_many`` are not ported yet
+(``prefix_sharing=True`` raises). The prefix hooks the fleet and the
+routers call are: ``prefix_acquire`` finds no hit, ``_peek_fitted``
+shares nothing, ``prefill_cost_tokens`` charges the whole prompt, and
+``prefill_request`` / ``place`` refuse a ``shared`` hit.
 """
 from __future__ import annotations
 
@@ -76,6 +79,7 @@ from repro_torch.models import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
+from repro_torch.serving.prefix import PrefixHit, PrefixStats
 
 # Back-compat default: seed code stopped on token id 0. The real stop id now
 # comes from ``ModelConfig.eos_token_id`` (per-request override on Request).
@@ -156,6 +160,55 @@ class Request:
     @property
     def e2e_s(self) -> Optional[float]:
         return self.ledger.e2e_s
+
+
+# ------------------------------------------------------- request freelist
+# Replaying 10^6 requests builds (and drops) 10^6 Request + LatencyLedger
+# pairs; the freelist recycles them once a streaming consumer is done with
+# one. Only such a consumer calls ``release_request``: the barrier engine
+# never does, so its replays hand out fresh requests.
+_REQUEST_FREELIST: List[Request] = []
+_REQUEST_FREELIST_CAP = 8192
+
+
+def acquire_request(uid: int, prompt: np.ndarray, *, max_new_tokens: int = 32,
+                    temperature: float = 0.0,
+                    eos_token_id: Optional[int] = None,
+                    bucket: str = "mixed",
+                    replica: Optional[str] = None) -> Request:
+    """A fresh-looking Request, recycled from the freelist when one is
+    available (fields fully reset by ``release_request``)."""
+    if _REQUEST_FREELIST:
+        req = _REQUEST_FREELIST.pop()
+        req.uid = uid
+        req.prompt = prompt
+        req.max_new_tokens = max_new_tokens
+        req.temperature = temperature
+        req.eos_token_id = eos_token_id
+        req.bucket = bucket
+        req.replica = replica
+        return req
+    return Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
+                   temperature=temperature, eos_token_id=eos_token_id,
+                   bucket=bucket, replica=replica)
+
+
+def release_request(req: Request) -> None:
+    """Return a FINISHED request to the freelist. The caller promises to
+    hold no further references: output, ledger stamps and energy fields are
+    wiped here so the next ``acquire_request`` hands out a blank."""
+    if len(_REQUEST_FREELIST) >= _REQUEST_FREELIST_CAP:
+        return
+    req.output = []
+    req.prefill_s = req.decode_s = 0.0
+    req.prefill_j = req.decode_j = 0.0
+    req.decode_read_bytes = req.decode_write_bytes = 0
+    req.preemptions = 0
+    req.prefix_tokens = 0
+    req.saved_prefill_j = 0.0
+    req.done = False
+    req.ledger.reset()
+    _REQUEST_FREELIST.append(req)
 
 
 @dataclasses.dataclass
@@ -366,6 +419,9 @@ class Pool:
             self._state_read_bytes = recurrent_state_bytes(cfg)
             self._state_write_bytes = recurrent_state_bytes(cfg, mutable_only=True)
             self._weight_bytes = weight_stream_bytes(cfg)
+        # prefix sharing is not ported: the counters stay zero (the fleet
+        # sums them into ``prefix_stats_total``)
+        self.prefix_stats = PrefixStats()
         self._host_lengths = np.zeros(max_batch, np.int64)
         self._admit_seq = np.zeros(max_batch, np.int64)
         self._admit_counter = 0
@@ -624,6 +680,27 @@ class Pool:
                 if victim == slot:
                     break                         # evicted ourselves; requeued
 
+    # ------------------------------------------------------- prefix hooks
+    def _peek_fitted(self, prompt) -> Tuple[int, int]:
+        """(shared_entries, prefix_tokens) the prompt would get from the
+        prefix index: (0, 0), as nothing is shared (the prefix router then
+        degrades to join-shortest-queue)."""
+        return 0, 0
+
+    def prefix_acquire(self, req: Request) -> Optional[PrefixHit]:
+        """The shared-prefix hit to pin for ``req``: always None here."""
+        return None
+
+    def prefill_cost_tokens(self, req: Request) -> int:
+        """Prompt tokens prefill will compute for ``req``: the scheduler's
+        token-budget charge (the whole prompt, as nothing is shared)."""
+        return len(req.prompt)
+
+    @staticmethod
+    def _refuse_shared(shared: Optional[PrefixHit]) -> None:
+        if shared is not None:
+            raise NotImplementedError("prefix sharing is not ported yet")
+
     # ------------------------------------------------------------ phase work
     def prefill_tokens(self, req: Request) -> Tuple[np.ndarray, np.ndarray, int]:
         """The (tokens, true_len, bucket) triple of ``req``'s padded
@@ -635,10 +712,15 @@ class Pool:
         return toks, np.asarray([l], np.int32), bucket
 
     @torch.inference_mode()
-    def prefill_request(self, req: Request) -> Tuple[int, Any]:
+    def prefill_request(self, req: Request, *, shared: Optional[PrefixHit] = None,
+                        donor: Optional["Pool"] = None) -> Tuple[int, Any]:
         """Run the bucketed batch-1 prefill; returns (first_token, cache row).
 
-        The returned cache row is placed with ``place``."""
+        The returned cache row is placed with ``place``: on this pool for
+        the single-pool engine, on the decode pool for the disaggregated
+        cluster. ``shared`` / ``donor`` are the reference's suffix-only
+        prefill over a prefix hit, which is not ported: a hit raises."""
+        self._refuse_shared(shared)
         l = len(req.prompt)
         self._in_phase_call = True
         self._refresh_gauge()
@@ -696,14 +778,20 @@ class Pool:
 
     @torch.inference_mode()
     def place(self, req: Request, cache1: Any, first_token: int, length: int,
-              *, first_token_s: Optional[float] = None) -> int:
+              *, first_token_s: Optional[float] = None,
+              shared: Optional[PrefixHit] = None) -> int:
         """Move a filled batch-1 cache row into a free slot (migration).
 
         Dense: the row is copied into the slot. Paged: the request's block
         table is allocated first and the row's first ``need`` blocks are
         copied to those pages (copy-on-migrate); the reference also writes
         the unused blocks to the null page, which holds nothing anyone
-        reads, so they are skipped here."""
+        reads, so they are skipped here. Every copy writes into the cache's
+        own storage, on the current stream: a captured decode graph reads
+        these very tensors. ``first_token_s`` overrides the first-token
+        stamp: with per-pool clocks the prefill timeline produced the token
+        at its own time. A ``shared`` prefix hit raises (not ported)."""
+        self._refuse_shared(shared)
         slot = self._place_bookkeeping(req, first_token, length, first_token_s)
         if self.paged:
             bs = self.kv_block_size

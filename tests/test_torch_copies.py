@@ -4,7 +4,8 @@ Each copy keeps the original's path and names with only its import lines
 changed (checked on the text), and behaves the same on the same inputs:
 every registry config field for field, the analytic workload / DVFS /
 policy functions on several archs and levers, the block allocator under one
-random operation sequence, and ``make_prompts`` byte for byte.
+random operation sequence, the prefix index under another, and
+``make_prompts`` byte for byte.
 """
 import dataclasses
 import re
@@ -20,6 +21,7 @@ import repro.core.policy as jpolicy
 import repro.core.workload as jwork
 import repro.hw.chips as jchips
 import repro.serving.paged_cache as jpaged
+import repro.serving.prefix as jprefix
 import repro.training.data as jdata
 import repro_torch.configs as tcfg
 import repro_torch.core.dvfs as tdvfs
@@ -28,6 +30,7 @@ import repro_torch.core.policy as tpolicy
 import repro_torch.core.workload as twork
 import repro_torch.hw.chips as tchips
 import repro_torch.serving.paged_cache as tpaged
+import repro_torch.serving.prefix as tprefix
 import repro_torch.training.data as tdata
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -36,6 +39,8 @@ VERBATIM = [
     "core/workload.py", "core/energy.py", "core/dvfs.py", "core/policy.py",
     "core/metering.py", "core/clock.py", "core/latency.py",
     "serving/paged_cache.py", "serving/controller.py",
+    "core/traces.py", "serving/spec.py", "serving/router.py", "serving/autoscaler.py",
+    "serving/prefix.py",
     "configs/__init__.py", "configs/registry.py", "configs/shapes.py",
     "configs/paper_models.py", "configs/gemma_2b.py", "configs/gemma2_9b.py",
     "configs/mamba2_780m.py", "configs/minicpm_2b.py", "configs/musicgen_large.py",
@@ -135,3 +140,40 @@ def test_make_prompts_bytes_equal(arch, n, lo, hi, seed):
     tp = tdata.make_prompts(tcfg.get_config(arch), n, lo, hi, seed=seed)
     assert [p.tobytes() for p in jp] == [p.tobytes() for p in tp]
     assert all(p.dtype == np.int32 for p in tp)
+
+
+def _drive_prefix_index(paged, prefix, seed):
+    """Random register / match / peek / evict / remap operations on a
+    ``PrefixIndex`` over a ``BlockAllocator``; every observable along the
+    way."""
+    rng = np.random.default_rng(seed)
+    alloc = paged.BlockAllocator(40, 4)
+    index = prefix.PrefixIndex(alloc)
+    stems = [rng.integers(1, 9, size=12) for _ in range(3)]
+    log = []
+    for step in range(60):
+        op = rng.integers(0, 4)
+        toks = np.concatenate([stems[rng.integers(0, 3)], rng.integers(1, 9, size=6)])
+        if op == 0 and alloc.can_alloc(5):
+            blocks = alloc.alloc(5, owner=step)
+            n = int(rng.integers(4, 19))
+            log.append(("reg", index.register(toks[:n], blocks, n)))
+            alloc.free(blocks, owner=step)
+        elif op == 1:
+            hit = index.match(toks)
+            log.append(("match", None if hit is None else dataclasses.astuple(hit)))
+        elif op == 2:
+            log.append(("peek", index.peek(toks), index.reclaimable_blocks()))
+        else:
+            log.append(("evict", index.evict_one(), index.held_blocks))
+        if step % 17 == 16:
+            mapping = alloc.defrag()
+            log.append(("remap", index.remap(mapping), sorted(mapping.items())))
+        log.append((alloc.free_blocks, sorted(index.blocks())))
+    return log
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prefix_index_behaves_the_same(seed):
+    assert (_drive_prefix_index(jpaged, jprefix, seed)
+            == _drive_prefix_index(tpaged, tprefix, seed))

@@ -5,7 +5,10 @@ never reading a page past a request's keys); the SSD and gated-delta-rule
 prefill scans (the chunked GDN scan at every head dim, strong decay and
 from a CUDA graph); the serving pool's decode step replayed from its CUDA
 graph against the eager step (streams, recurrent state, launch counts,
-defrag under a captured graph).
+defrag under a captured graph); the disaggregated ``Cluster`` (a prefill
+pool handing its cache rows to a graph-captured decode pool) against the
+eager one, the handoff writing into the captured cache's own storage, and
+a two-replica ``Fleet`` replayed twice.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -43,7 +46,8 @@ from repro_torch.kernels.decode_attn.ref import (
 from repro_torch.kernels.mla_decode.mla_decode import plan as mla_plan
 from repro_torch.kernels.ssd.ssd import CHUNK
 from repro_torch.models import decode_step, init_cache, init_params, prefill
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ClockSpec, Cluster, Fleet, FleetSpec, PoolSpec, ReplicaSpec, \
+    ServingEngine
 from repro_torch.training import make_prompts
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
@@ -704,3 +708,119 @@ def _leaf_list(tree):
     if isinstance(tree, list):
         return [x for v in tree for x in _leaf_list(v)]
     return [tree]
+
+
+# reduced disaggregated-cluster models -> (decode kernels (dense, paged), scan)
+CLUSTER_MODELS = {
+    "minicpm-2b": (("decode_attention", "paged_decode_attention"), None),
+    "mamba2-780m": (None, "ssd_scan"),
+}
+
+
+def _cluster(cfg, params, *, paged, graphs, chunk=48):
+    return Cluster(cfg, params, decode_batch=4, max_seq_len=128, prefill_chunk_tokens=chunk,
+                   paged=paged, kv_block_size=8, device="cuda", cuda_graphs=graphs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(CLUSTER_MODELS))
+def test_graph_cluster_matches_eager(arch, dtype, paged):
+    """A ``Cluster`` whose decode pool replays its step from a CUDA graph,
+    while the prefill pool hands it cache rows between replays, gives the
+    eager cluster's greedy streams; launches across both pools are the
+    decode kernel layers x decode steps (eager + replays x captured) and the
+    scan layers x prefill calls."""
+    _need_card()
+    cfg, params = _reduced(arch, dtype)
+    decode, scan = CLUSTER_MODELS[arch]
+    layers = sum(st.n_units * len(st.unit) for st in cfg.stages)
+    prompts = make_prompts(cfg, 6, 5, 40, seed=1)
+    streams = {}
+    for graphs in (True, False):
+        cl = _cluster(cfg, params, paged=paged, graphs=graphs)
+        reqs = [cl.submit(p, max_new_tokens=m) for p, m in zip(prompts, (16, 5, 9, 12, 7, 14))]
+        before = {fn.__name__: fn.launches for fn in COUNTED_KERNELS}
+        cl.run_to_completion()
+        torch.cuda.synchronize()
+        dec, pre = cl.decode_pool, cl.prefill_pool
+        got = {fn.__name__: fn.launches - before[fn.__name__]
+               + dec.graph_replays * dec.captured_launches.get(fn.__name__, 0)
+               for fn in COUNTED_KERNELS}
+        want = dict.fromkeys(got, 0)
+        if decode:
+            want[decode[paged]] = layers * cl.decode_stats.decode_steps
+        if scan:
+            want[scan] = layers * cl.prefill_stats.prefill_calls
+        assert got == want
+        assert dec.graph_replays == (cl.decode_stats.decode_steps - 1 if graphs else 0)
+        assert pre.graph_replays == 0 and pre.cache is None
+        streams[graphs] = [r.output for r in reqs]
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", list(CLUSTER_MODELS))
+def test_handoff_into_a_captured_cache_keeps_addresses(arch, paged):
+    """Admissions placed into the decode cache after its graph was captured
+    write into every leaf's own storage (``data_ptr()`` unchanged), and the
+    next step's logits from a graph replay equal the eager step's on a copy
+    of the same cache, exactly."""
+    _need_card()
+    cfg, params = _reduced(arch, "bfloat16")
+    prompts = make_prompts(cfg, 4, 5, 40, seed=2)
+    cl = _cluster(cfg, params, paged=paged, graphs=True, chunk=128)
+    for p in prompts[:2]:
+        cl.submit(p, max_new_tokens=30)
+    for _ in range(3):                           # eager step, capture, one replay
+        cl.step()
+    pool = cl.decode_pool
+    assert pool._graph is not None and pool.graph_replays == 2   # the capture step replays too
+    leaves = _leaf_list(pool.cache)
+    ptrs = [t.data_ptr() for t in leaves]
+    for p in prompts[2:]:
+        cl.submit(p, max_new_tokens=30)
+    admitted = cl.scheduler.tick(cl.waiting, cl.prefill_pool, pool)
+    assert len(admitted) == 2 and pool.occupancy() == 4
+    assert [t.data_ptr() for t in _leaf_list(pool.cache)] == ptrs
+    with torch.inference_mode():
+        pool._decode_begin()
+        saved = [t.clone() for t in leaves]
+        pool._graph.replay()
+        graph_logits = pool._graph_out[0].clone()
+        for dst, src in zip(leaves, saved):
+            dst.copy_(src)
+        eager_logits = pool._decode_fn()[0]
+    torch.cuda.synchronize()
+    assert torch.equal(graph_logits, eager_logits)
+    assert bool(torch.isfinite(graph_logits).all())
+
+
+@pytest.mark.gpu
+def test_two_replica_fleet_replays_equal_on_the_card():
+    """A reduced two-replica fleet (GQA and Mamba2, weights made on the card
+    from each spec's seed), replayed twice with the barrier engine on split
+    virtual clocks: equal placements, streams, stamps and joules."""
+    _need_card()
+    from repro_torch.core.traces import generate_trace
+
+    spec = FleetSpec(replicas=tuple(
+        ReplicaSpec(name=f"r{i}", arch=arch, clock=ClockSpec(mode="lock"),
+                    decode=PoolSpec(batch=4, paged=True, kv_block_size=8, kv_blocks=48),
+                    max_seq_len=128, prefill_chunk_tokens=64)
+        for i, arch in enumerate(("qwen3-4b", "mamba2-780m"))), router="jsq")
+    trace = generate_trace(reduced_config("qwen3-4b"), 10, arrival="poisson",
+                           lengths="short_chat", rate_rps=40.0, seed=3, max_total_len=96)
+
+    def replay():
+        fleet = Fleet.from_spec(spec, device="cuda")
+        done = sorted(fleet.run_trace(trace, engine="barrier"), key=lambda r: r.uid)
+        assert all(r.decode_pool.graph_replays > 0 for r in fleet.replicas)
+        return ([(r.replica, r.output, r.ledger.finish_s, r.decode_j) for r in done],
+                fleet.total_energy_j())
+
+    first = replay()
+    assert len(first[0]) == 10 and {r[0] for r in first[0]} == {"r0", "r1"}
+    assert replay() == first

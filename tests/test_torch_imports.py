@@ -25,6 +25,14 @@ KERNEL_MODULES = (
     "repro_torch.models.attention", "repro_torch.models.mla",
     "repro_torch.models.ssm", "repro_torch.models.gdn",
 )
+# the serving stack and its benchmarks: the walk must reach each of them too
+SERVING_MODULES = (
+    "repro_torch.core.traces", "repro_torch.serving.spec", "repro_torch.serving.router",
+    "repro_torch.serving.autoscaler", "repro_torch.serving.prefix",
+    "repro_torch.serving.pool", "repro_torch.serving.fleet", "repro_torch.serving.cluster",
+    "repro_torch.serving.engine", "repro_torch.benchmarks.common",
+    "repro_torch.benchmarks.serve_cluster", "repro_torch.benchmarks.serve_trace",
+)
 
 
 def _port_sources():
@@ -39,7 +47,7 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        f"missing = sorted(set({KERNEL_MODULES!r}) - set(mods))\n"
+        f"missing = sorted(set({KERNEL_MODULES + SERVING_MODULES!r}) - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n"
     )
