@@ -38,17 +38,30 @@ Phases; any failure exits non-zero:
    engaged on decode and at the default clock), completion, traffic and
    occupancy asserted; lock served again eagerly, greedy streams equal;
 6. ``[trace]``: ``serve_trace``'s 60-request smoke recipe through its own
-   ``run`` (``Cluster.from_spec`` on a virtual clock, barrier engine),
+   ``run`` (``Cluster.from_spec`` on a virtual clock, the event engine),
    full width, the modes default / cap / lock / slo: its claims and a
    deterministic second replay asserted;
 7. ``[fleet]``: a heterogeneous full-width fleet (qwen3-4b, minitron-4b-mla,
    gdn-4b; three pools on one card) replaying 24 requests of a diurnal
-   mixed trace behind the routers jsq, energy and affinity, twice each:
-   completion and equal replays asserted. In phases 5-7 every run counts
-   its kernel launches across the prefill and decode pools (decode kernel
-   layers x decode steps, as eager launches + replays x captured launches;
-   scan layers x prefill calls; every other kernel never);
-8. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
+   mixed trace on the event engine behind the routers jsq, energy and
+   affinity, twice each: completion and equal replays asserted;
+8. ``[prefix]``: ``serve_prefix``'s smoke recipe through its own ``run``
+   (gemma-2b; dense, paged and copy-on-write prefix-sharing fleets over
+   three shares of tree-shaped traffic, the routing pair, a repeat replay)
+   on the event engine: its claims asserted, kernel 2's launches over
+   block tables whose rows share pages counted; where the bf16 streams of
+   the three configurations part, the first parting is printed and the
+   phase fails;
+9. ``[events]``: ``serve_events``' fleet (16 gemma-2b replicas on one
+   weight set, 32 pools on one card) on its wave trace cut to 256
+   requests, twice (equal sha256, fused decode coverage), then its burst
+   trace on the event engine against the barrier; then the fold
+   measurement (one decode step folded to batch K x 8 against the K member
+   steps, K 4 and 16). In phases 5-9 every run counts its kernel launches
+   across the prefill and decode pools (decode kernel layers x decode
+   steps, as eager launches + replays x captured launches; scan layers x
+   prefill calls; every other kernel never);
+10. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
@@ -242,10 +255,21 @@ KERNEL_CASES = (
     ("paged_decode_attention", True, 4, 24, 8, 128, 128, 512, 32, False),  # minitron-4b: G = 3
     ("decode_attention", False, 12, 36, 36, 64, 64, 128, 0, False),    # minicpm-2b: G = 1
     ("paged_decode_attention", True, 12, 36, 36, 64, 64, 128, 8, False),   # its [cluster] shape
+    ("decode_attention", False, 8, 8, 1, 256, 256, 64, 0, False),      # the [events] shape
+    ("paged_decode_attention", True, 8, 8, 1, 256, 256, 128, 16, False),   # the [prefix] shape
 )
 # not main cases, but timed (and printed) as well: minicpm-2b's decode at
 # the [cluster] phase's shapes, where one query row fills a 16-row MMA tile
-TIMED_EXTRA = KERNEL_CASES[-2:]
+TIMED_EXTRA = KERNEL_CASES[-4:-2]
+# kernel 2 over block tables whose rows share pages, at the [prefix] shape
+# (gemma-2b, bs 16, max_seq_len 128): per row its valid_len and its table
+# entries (page ids); rows 0-4 share a three-page trunk, rows 3 and 4 also
+# the page after it (a boundary tail), rows 5-7 hold private pages
+ALIASED_VALID = (128, 113, 60, 52, 56, 17, 33, 1)
+ALIASED_TABLES = (
+    (1, 2, 3, 5, 6, 7, 8, 9), (1, 2, 3, 10, 11, 12, 13, 14), (1, 2, 3, 15),
+    (1, 2, 3, 4), (1, 2, 3, 4), (16, 17), (18, 19, 20), (21,),
+)
 # MLA latent decode: (name, paged, B, H, rank, rope, L, bs, main); the first
 # of each kind is the minitron-4b-mla decode shape at batch 8 and
 # max_seq_len 1024, the one timed
@@ -325,6 +349,55 @@ def make_inputs(torch, case, dtype, seed):
     kp = torch.randn((n_pages, bs, kv, dk), generator=g, device=dev).to(dtype)
     vp = torch.randn((n_pages, bs, kv, dv), generator=g, device=dev).to(dtype)
     return (q, kp, vp, _tables(torch, g, valid, bs, nb, n_pages), valid)
+
+
+def aliased_page_inputs(torch, dtype, h=8, kv=1, d=256, bs=16, nb=8, seed=29):
+    """Kernel 2's inputs over ``ALIASED_TABLES``: (kernel inputs, plain
+    inputs). In the kernel's, every page no entry below ceil(valid_len /
+    bs) names is NaN (entries past it name a NaN page), and so is every row
+    of a named page past the longest valid_len reading it, so a read of
+    any of them shows; the plain version's have those entries on the null
+    page 0 and finite rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    valid = torch.tensor(ALIASED_VALID, dtype=torch.int32, device="cuda")
+    b = len(ALIASED_VALID)
+    n_pages = 2 + max(max(t) for t in ALIASED_TABLES)          # + the NaN page
+    kp = torch.randn((n_pages, bs, kv, d), generator=g, device="cuda")
+    vp = torch.randn((n_pages, bs, kv, d), generator=g, device="cuda")
+    kp[0] = vp[0] = 0
+    tables = torch.zeros((b, nb), dtype=torch.int32, device="cuda")
+    nan_tables = torch.full((b, nb), n_pages - 1, dtype=torch.int32, device="cuda")
+    rows_read = [0] * n_pages
+    for i, (vl, row) in enumerate(zip(ALIASED_VALID, ALIASED_TABLES)):
+        assert len(row) == -(-vl // bs)
+        tables[i, :len(row)] = nan_tables[i, :len(row)] = torch.tensor(row)
+        for j, page in enumerate(row):
+            rows_read[page] = max(rows_read[page], min(bs, vl - j * bs))
+    nan_kp, nan_vp = kp.clone(), vp.clone()
+    for page in range(1, n_pages):
+        nan_kp[page, rows_read[page]:] = nan_vp[page, rows_read[page]:] = float("nan")
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    return ((q, nan_kp.to(dtype), nan_vp.to(dtype), nan_tables, valid),
+            (q, kp.to(dtype), vp.to(dtype), tables, valid))
+
+
+def check_aliased_pages(torch, kmod) -> None:
+    """Kernel 2 against its plain version over block tables whose rows name
+    the same pages (prefix sharing), fp32 and bf16, with every page and row
+    no request may read filled with NaN."""
+    for dname in ("float32", "bfloat16"):
+        nan_inputs, inputs = aliased_page_inputs(torch, getattr(torch, dname))
+        out = kmod.paged_decode_attention(*nan_inputs, scale=1.0 / 16)
+        want = kmod.paged_decode_attention_ref(*inputs, scale=1.0 / 16)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), want.float(),
+                                                                **TOL[dname])
+        print(f"[kernels] paged_decode_attention over aliased tables (rows 0-4 share 3 "
+              f"pages, rows 3-4 a 4th) {dname}: max_abs_err={err:.3e} tol={TOL[dname]} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"paged_decode_attention disagrees over aliased tables ({dname})")
 
 
 def make_mla_inputs(torch, case, dtype, seed):
@@ -1125,6 +1198,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions
     records = check_kernels(torch, F, kmod)
+    check_aliased_pages(torch, kmod)
     check_scan_kernels(torch, kmod, records)
 
     # ---- 4. full-width models through ServingEngine
@@ -1137,6 +1211,8 @@ def main() -> int:
     del params_for
     torch.cuda.empty_cache()
     fleet_phase(torch, kmod, records)
+    prefix_phase(torch, kmod, records)
+    events_phase(torch, kmod, records)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi("name,power.limit"))
@@ -1391,8 +1467,8 @@ def trace_phase(torch, kmod, records, params_for) -> None:
     the recipe and assertions ``python -m repro_torch.benchmarks.serve_trace
     --smoke --full-config`` runs: 60-request traces made against the full
     config, replayed through ``Cluster.from_spec`` on a ``VirtualClock``
-    with the barrier engine, the claims per arch and a byte-identical
-    second replay. Each replay's launch invariant and wall seconds are read
+    with the event engine (the default, as in the reference), the claims
+    per arch and a byte-identical second replay. Each replay's launch invariant and wall seconds are read
     as it ends (``on_run``), which then sets the counts to 0 for the
     next."""
     from repro_torch.benchmarks import serve_trace as st
@@ -1440,7 +1516,8 @@ def fleet_phase(torch, kmod, records) -> None:
     width (qwen3-4b, minitron-4b-mla and gdn-4b, bf16, lock mode, a paged
     decode batch of 8 with 128 blocks of 8; three replicas, three pools on
     one card), replaying 24 requests of the diurnal mixed trace (seed 23)
-    with the barrier engine behind each router, twice: all complete, the
+    on the event engine, under which ``serve_fleet``'s claims were stated,
+    behind each router, twice: all complete, the
     two replays equal (placements, streams, joules, latency) and the launch
     invariant holds across the six pools. Prints per router the fleet's
     joules, p99 TBT and the requests each replica took."""
@@ -1477,7 +1554,7 @@ def fleet_phase(torch, kmod, records) -> None:
             fleet = Fleet.from_spec(spec, emodel=h200_model(), params_for=params_for,
                                     device="cuda")
             t0 = time.perf_counter()
-            done = fleet.run_trace(trace, engine="barrier")
+            done = fleet.run_trace(trace)
             wall_s = time.perf_counter() - t0
             launches = check_stack_launches(torch, kmod, fleet.replicas,
                                             f"[fleet] {router} #{turn}", records)
@@ -1505,6 +1582,213 @@ def fleet_phase(torch, kmod, records) -> None:
     del params_for
     torch.cuda.empty_cache()
     print(f"[fleet] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def _aliased_steps(pool_cls):
+    """Count, per decode pool, the decode steps whose live block-table rows
+    name a page more than once (prefix sharing): wraps
+    ``Pool._decode_begin`` until the returned function restores it;
+    returns (counts {id(pool): steps}, restore)."""
+    counts, original = {}, pool_cls._decode_begin
+
+    def counted(self, *args, **kw):
+        pre = original(self, *args, **kw)
+        if pre is not None and self.paged:
+            pages = self.block_tables[pre["active"]]
+            pages = pages[pages != 0]
+            if len(pages) != len(set(pages.tolist())):
+                counts[id(self)] = counts.get(id(self), 0) + 1
+        return pre
+
+    pool_cls._decode_begin = counted
+    return counts, lambda: setattr(pool_cls, "_decode_begin", original)
+
+
+def _first_parting(streams) -> dict:
+    """Where token streams of one trace (lists of (prompt, output) by
+    arrival, one per config) first part: the request and the step."""
+    names = list(streams)
+    base = streams[names[0]]
+    for i, (prompt, out) in enumerate(base):
+        for name in names[1:]:
+            other = streams[name][i][1]
+            if other != out:
+                step = next((j for j, (a, b) in enumerate(zip(out, other)) if a != b),
+                            min(len(out), len(other)))
+                return {"request": i, "prompt_len": len(prompt), "step": step,
+                        "configs": [names[0], name], "tokens": [out[step:step + 3],
+                                                                other[step:step + 3]]}
+    return {}
+
+
+def prefix_phase(torch, kmod, records) -> None:
+    """Phase 8, ``[prefix]``: ``serve_prefix.run(smoke=True)`` at full width
+    (gemma-2b, lock, batch 8, ``max_seq_len`` 128, blocks of 16, 192
+    pages; shares 0 / 0.5 / 1 through dense, paged and cow fleets, the
+    routing pair on two replicas, the repeat replay), the recipe and
+    assertions ``python -m repro_torch.benchmarks.serve_prefix --smoke
+    --full-config`` runs, on the event engine, in bf16. Each replay's
+    launch invariant across its pools, prefix counters, p99 TTFT, wall
+    seconds and kernel 2's launches over aliased tables (steps whose live
+    rows share a page x layers) are read as it ends (``on_run``). Where the
+    recipe's checks fail, the first point at which the streams of dense /
+    paged / cow part is printed for every share whose three replays ran
+    (another GEMM shape for the suffix prefill, another attention kernel:
+    random-weight bf16 stacks are chaotic), and the phase fails; any other
+    error propagates as it is."""
+    from repro_torch.benchmarks import serve_prefix as sp
+    from repro_torch.benchmarks.common import random_params
+    from repro_torch.configs import get_config
+    from repro_torch.serving.pool import Pool
+
+    t_phase = time.perf_counter()
+    n_layers = _n_layers(get_config(sp.ARCH))
+    params = random_params(sp.ARCH, full_config=True)
+    torch.cuda.synchronize()
+    print(f"[prefix] {sp.ARCH} bf16: init {time.perf_counter() - t_phase:.1f} s")
+    streams = {}
+    counts, restore = _aliased_steps(Pool)
+
+    def report(tag, m, wall, fleet, done):
+        share, config = tag
+        launches = check_stack_launches(torch, kmod, fleet.replicas,
+                                        f"[prefix] {share} {config}", records)
+        aliased = sum(counts.pop(id(r.decode_pool), 0) for r in fleet.replicas)
+        ps = m["prefix_stats"]
+        print(f"[prefix] share={share} {config}: " + json.dumps({
+            "completed": m["completed"], "hit_rate": m["hit_rate"],
+            "shared_blocks": ps["shared_blocks"], "cow_splits": m["cow_splits"],
+            "saved_prefill_j": m["saved_prefill_j"], "p99_ttft_s": m["p99_ttft_s"],
+            "total_j": m["total_j"], "wall_s": wall,
+            "decode_steps": {r.name: r.decode_stats.decode_steps for r in fleet.replicas},
+            "graph_replays": {r.name: r.decode_pool.graph_replays for r in fleet.replicas},
+            "launches": launches,
+            "paged_decode_attention_over_aliased_tables": aliased * n_layers}))
+        streams[tag] = [(r.prompt.tolist(), r.output) for r in done]
+        zero_counts(torch, kmod)
+
+    zero_counts(torch, kmod)
+    try:
+        for name, _, derived in sp.run(smoke=True, full_config=True, device="cuda",
+                                       params_for={sp.ARCH: params}, on_run=report):
+            print(f"[prefix] {name}: {derived}")
+    except sp.RecipeViolation as e:
+        for share in sp.SHARE_LEVELS:
+            if all((share, c) in streams for c in sp.CONFIGS):
+                at = _first_parting({c: streams[share, c] for c in sp.CONFIGS})
+                if at:
+                    print(f"[prefix] share={share}: streams first part at " + json.dumps(at))
+        raise SystemExit(f"[prefix]: {'; '.join(e.violations)}")
+    finally:
+        restore()
+    del params
+    torch.cuda.empty_cache()
+    print("[prefix] every claim of the recipe holds, bf16 streams equal across dense / "
+          "paged / cow: ok")
+    print(f"[prefix] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+EVENTS_REQUESTS = 256      # serve_events' wave trace, cut from 2000 (smoke) / 100 000
+
+
+def fold_measurement(torch, cfg, params, ks=(4, 16), b=8, l=64, seed=5) -> dict:
+    """The replica fold of a fused dense decode: K caches of B rows stepped
+    as K member steps (what the port's fused dispatch runs) and as ONE step
+    folded to batch K x B, on copies of the same random cache, lengths and
+    tokens; the logits compared bit for bit, and both timed (CUDA events,
+    eager, median of 5)."""
+    from repro_torch.models import decode_step, init_cache
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for k in ks:
+        cache = _map(lambda t: (torch.randn(t.shape, generator=g, device="cuda") * 0.5)
+                     .to(t.dtype), init_cache(cfg, k * b, l, device="cuda"))
+        lengths = torch.randint(1, l - 1, (k * b,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        tokens = torch.randint(1, cfg.vocab_size, (k * b,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        members = [_map(lambda t, i=i: t[:, i * b:(i + 1) * b].clone(), cache)
+                   for i in range(k)]
+
+        def folded():
+            return decode_step(params, cfg, tokens, cache, lengths)[0]
+
+        def member_steps():
+            return torch.cat([decode_step(params, cfg, tokens[i * b:(i + 1) * b], members[i],
+                                          lengths[i * b:(i + 1) * b])[0] for i in range(k)])
+
+        with torch.inference_mode():
+            a, m = folded(), member_steps()
+            times = {}
+            for name, fn in (("folded", folded), ("members", member_steps)):
+                ms = []
+                for _ in range(5):
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    e0.record()
+                    fn()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    ms.append(e0.elapsed_time(e1))
+                times[name] = sorted(ms)[2]
+        diff = (a - m).abs()
+        out[k] = {"bitwise_equal": bool(torch.equal(a, m)),
+                  "max_abs_diff": diff.max().item(),
+                  "rows_differing": int((diff.amax(-1) > 0).sum()), "rows": k * b,
+                  "argmax_equal": bool(torch.equal(a.argmax(-1), m.argmax(-1))),
+                  "folded_ms": times["folded"], "member_steps_ms": times["members"]}
+        del cache, members, a, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def events_phase(torch, kmod, records) -> None:
+    """Phase 9, ``[events]``: ``serve_events``' fleet at full width (16 dense
+    gemma-2b replicas on one weight set, lock, batch 8, ``max_seq_len`` 64,
+    waves of 16 prompts of 16 tokens, 4 new tokens each; 32 pools on one
+    card), through ``serve_events.run`` with the wave trace cut to
+    ``EVENTS_REQUESTS`` requests: two replays (sha256 equal, fused decode
+    covering >= 80 % of the steps), then the burst trace on the event
+    engine and on the barrier (event p99 TTFT strictly lower). Each run's
+    launch invariant across its pools, ``EngineStats``, wall seconds, graph
+    captures and replays are read as it ends (``on_run``). Then the fold
+    measurement (``fold_measurement``, K 4 and 16)."""
+    from repro_torch.benchmarks import serve_events as se
+    from repro_torch.benchmarks.common import random_params
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    params = random_params(se.ARCH, full_config=True)
+    torch.cuda.synchronize()
+
+    def report(tag, m, wall, fleet):
+        launches = check_stack_launches(torch, kmod, fleet.replicas, f"[events] {tag}", records)
+        st = fleet.last_engine_stats
+        pools = [r.decode_pool for r in fleet.replicas]
+        print(f"[events] {tag}: " + json.dumps({
+            "completed": m["completed"], "p99_ttft_s": m["p99_ttft_s"], "wall_s": wall,
+            "engine_stats": (st.as_dict() if st is not None else None),
+            "graph_captures": sum(p._graph is not None for p in pools),
+            "graph_replays": sum(p.graph_replays for p in pools),
+            "capture_ms_mean": (sum(p.graph_capture_ms for p in pools)
+                                / max(1, sum(p._graph is not None for p in pools))),
+            "launches": launches}, default=float))
+        zero_counts(torch, kmod)
+
+    zero_counts(torch, kmod)
+    for name, _, derived in se.run(smoke=True, full_config=True, device="cuda",
+                                   params_for={se.ARCH: params}, n_requests=EVENTS_REQUESTS,
+                                   on_run=report):
+        print(f"[events] {name}: {derived}")
+    print(f"[events] wave trace cut to {EVENTS_REQUESTS} requests (smoke 2000, full 100 000)")
+    fold = fold_measurement(torch, get_config(se.ARCH), params)
+    zero_counts(torch, kmod)          # the fold's launches are no run's
+    for k, row in fold.items():
+        print(f"[events] fold K={k} x B=8 (gemma-2b bf16, L 64): " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+    print(f"[events] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_launches(arch, what, paged, n_layers, stats, info) -> None:

@@ -20,9 +20,8 @@ Asserted, per architecture:
         target  (the loop only ever refines the table downward in energy)
     the replay is deterministic: two runs -> byte-identical JSON
 
-The reference replays on its event engine; the port's is not ported, so the
-replays run the barrier engine (``engine="barrier"``). On the cluster's one
-shared clock the reference's two engines give the same streams and joules.
+Replays run on the discrete-event engine, the default of ``run_trace``, as
+the reference's do.
 
 By default the pools run ``reduced_config`` widths and the trace is made
 against that config; ``--full-config`` runs ``get_config`` widths (random
@@ -116,8 +115,8 @@ def make_trace(arch: str, n_requests: int, rate_rps: float, *, full_config: bool
 
 def replay(arch: str, mode: str, trace, tbt_s: float, ttft_s: float, *,
            params: Any = None, full_config: bool = False, device="cuda"):
-    """One virtual-time barrier replay; returns (metrics, wall secs, the
-    cluster). The metrics hold no wall-clock field."""
+    """One virtual-time replay; returns (metrics, wall secs, the cluster).
+    The metrics hold no wall-clock field."""
     if params is None:
         params = random_params(arch, full_config=full_config, device=device)
     cluster = Cluster.from_spec(
@@ -127,7 +126,7 @@ def replay(arch: str, mode: str, trace, tbt_s: float, ttft_s: float, *,
     )
     ctl = cluster.controller
     t0 = time.perf_counter()
-    done = cluster.run_trace(trace, engine="barrier")
+    done = cluster.run_trace(trace)
     wall_s = time.perf_counter() - t0
     lat = summarize_latency(done)
     dec = cluster.decode_stats

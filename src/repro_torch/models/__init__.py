@@ -18,6 +18,7 @@ from repro_torch.models.model import (
     paged_layout,
     params_from_numpy,
     prefill,
+    prefill_suffix,
 )
 
 __all__ = [
@@ -35,4 +36,5 @@ __all__ = [
     "paged_layout",
     "params_from_numpy",
     "prefill",
+    "prefill_suffix",
 ]

@@ -1,7 +1,7 @@
 """GQA/MQA self-attention: prefill, dense decode and paged decode.
 
 Counterpart of ``repro.models.attention`` (self-attention only; cross-
-attention and suffix prefill are not ported yet). Same cache convention: a
+attention is not ported yet). Same cache convention: a
 cache is ``{"k": (B, L_max, n_kv, hd), "v": ...}`` plus external per-example
 ``lengths: (B,)`` giving the tokens already cached; decode writes the new
 token at ``lengths`` and attends over ``lengths + 1`` entries.
@@ -112,6 +112,59 @@ def self_attention_prefill(
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
     return out, cache
+
+
+def self_attention_prefill_suffix(
+    params: Dict,
+    x: torch.Tensor,                 # (1, S, d) suffix tokens only
+    cache: Dict,                     # holds valid K/V for [0, prefix_len)
+    prefix_len: torch.Tensor,        # (1,) int32
+    cfg,
+    *,
+    is_global: bool,
+) -> Tuple[torch.Tensor, Dict]:
+    """Prefill a suffix on top of an already populated cache prefix (prefix
+    sharing): only the suffix is projected, at positions ``prefix_len + i``,
+    and written into the cache there IN PLACE (the start clamped so the S
+    rows fit, as the reference's dynamic slice clamps); its queries attend
+    over the whole buffer with the mask ``kpos <= position`` (and the window
+    on local blocks), so the math matches a full prefill position for
+    position. Batch is 1, as in the reference.
+
+    Rounding, as the reference's ``_grouped_scores`` / ``_attend`` (which
+    this path takes instead of the flash switch): scores are products of
+    the ``x.dtype`` q and cached k summed in fp32 (here both operands are
+    cast to fp32 first; bf16 products are exact in fp32, so only the
+    summation order can differ), softmax in fp32, and the probabilities are
+    rounded to v's dtype before P.V."""
+    b, s, _ = x.shape
+    if b != 1:
+        raise ValueError(f"suffix prefill is batch-1 (got batch={b})")
+    steps = torch.arange(s, device=x.device)
+    positions = prefix_len.long()[:, None] + steps[None, :]            # (1, S)
+    q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
+    v = _project(x, params["wv"])
+    l_max = cache["k"].shape[1]
+    rows = prefix_len.long().clamp(max=l_max - s)[0] + steps
+    cache["k"][0, rows] = k[0].to(cache["k"].dtype)
+    cache["v"][0, rows] = v[0].to(cache["v"].dtype)
+
+    kpos = torch.arange(l_max, device=x.device)[None, None, :]         # (1, 1, L)
+    valid = kpos <= positions[:, :, None]                              # (1, S, L)
+    if not is_global and cfg.sliding_window > 0:
+        valid &= (positions[:, :, None] - kpos) < cfg.sliding_window
+    h, n_kv, hd = q.shape[2], cache["k"].shape[2], q.shape[3]
+    qg = q.reshape(b, s, n_kv, h // n_kv, hd)
+    sc = torch.einsum("bskgd,blkd->bkgsl", qg.float(),
+                      cache["k"].to(x.dtype).float()) * _attn_scale(cfg)
+    sc = softcap_logits(sc, cfg.attn_softcap)
+    sc = torch.where(valid[:, None, None], sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    vb = cache["v"].to(x.dtype)
+    ctx = torch.einsum("bkgsl,blkd->bskgd", p.to(vb.dtype), vb)
+    ctx = ctx.reshape(b, s, h, vb.shape[-1]).to(x.dtype)
+    return _out_project(ctx, params["wo"]), cache
 
 
 @dataclasses.dataclass

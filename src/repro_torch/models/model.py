@@ -26,6 +26,7 @@ return new ones); they still return the cache so call sites read alike.
     init_paged_cache(cfg, batch, n_pages, block_size, device=)
     paged_layout(cfg)
     prefill(params, cfg, tokens, cache, prompt_lengths=, plain=)  -> (logits, cache, lengths)
+    prefill_suffix(params, cfg, tokens, cache, prefix_len=, suffix_lengths=)
     decode_step(params, cfg, token, cache, lengths)       -> (logits, cache, lengths+1)
     decode_step_paged(params, cfg, token, cache, lengths, active, block_tables)
 """
@@ -204,8 +205,11 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
                 cache: Dict, lengths: Optional[torch.Tensor],
                 block_tables: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False,
+                prefix_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run every unit of every stage over ``x``; caches update in place.
+    ``prefix_len`` (suffix prefill) takes the attention blocks through
+    ``self_attention_prefill_suffix``; any other kind raises.
     A decode step's rope tables, write positions and ``valid_len`` are the
     same for every layer of one kind and are computed once per kind
     (``attn.decode_index``), from that block's own cache leaves."""
@@ -232,6 +236,10 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
             for i, kind in enumerate(stage.unit):
                 bp = _map(lambda a, _, _u=u: a[_u], sp[f"b{i}"])
                 bc = {key: t[u] for key, t in sc[f"b{i}"].items()}
+                if prefix_len is not None and kind not in ATTN_KINDS:
+                    raise NotImplementedError(
+                        f"suffix prefill (prefix sharing) supports attention-family "
+                        f"blocks only, got {kind!r}")
                 h = rmsnorm(bp["norm1"], x, cfg.rms_eps)
                 if kind == "ssm":             # no MLP
                     if mode == "prefill":
@@ -258,7 +266,10 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
                             index=step_index(kind, bc))
                 else:
                     is_global = kind == "attn_global"
-                    if mode == "prefill":
+                    if mode == "prefill" and prefix_len is not None:
+                        a_out, _ = attn.self_attention_prefill_suffix(
+                            bp["attn"], h, bc, prefix_len, cfg, is_global=is_global)
+                    elif mode == "prefill":
                         a_out, _ = attn.self_attention_prefill(
                             bp["attn"], h, cfg, is_global=is_global, cache=bc)
                     elif block_tables is not None:
@@ -299,6 +310,27 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     last = x[torch.arange(b, device=x.device), prompt_lengths.long() - 1]
     return logits(params, cfg, last[:, None])[:, 0], cache, prompt_lengths
+
+
+def prefill_suffix(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *,
+                   prefix_len: torch.Tensor, suffix_lengths: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """Prefill only the un-shared suffix of a prompt (prefix sharing).
+    ``cache`` (batch 1) already holds valid K/V for positions
+    ``[0, prefix_len)``, gathered from shared pages by the serving pool; the
+    suffix ``inputs`` (1, S), bucket-padded, run at positions
+    ``prefix_len + i`` and are written into the cache there. Returns the
+    last valid suffix token's logits (the first-token logits a full prefill
+    of the whole prompt gives), the cache and ``prefix_len +
+    suffix_lengths``. Attention-family configs only: other kinds raise."""
+    b = inputs.shape[0]
+    if b != 1:
+        raise ValueError(f"suffix prefill is batch-1 (got batch={b})")
+    x = _embed_inputs(params, cfg, inputs)
+    x = _run_stages(params, cfg, x, "prefill", cache, None, prefix_len=prefix_len)
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    last = x[0, suffix_lengths.long() - 1]
+    return logits(params, cfg, last[:, None])[:, 0], cache, prefix_len + suffix_lengths
 
 
 def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor, cache: Dict,

@@ -2,10 +2,11 @@
 batching), the single-pool engine, the phase-disaggregated cluster and —
 spec-first — fleets of N heterogeneous replicas behind pluggable routers,
 each replica holding its own energy-aware clock controller on one shared
-wall or virtual timeline. Exports the reference's names
-(``repro.serving``) apart from the event engine (``EventDrivenFleet``,
-``EngineStats``) and the replica cache bank (``CacheBank``, ``BankRow``,
-``clear_program_caches``, ``params_token_for``), which are not ported."""
+wall or virtual timeline (trace replay on the discrete-event engine, with
+an SLO-regulated DVFS loop). Exports the reference's names
+(``repro.serving``) but ``CacheBank``, ``BankRow`` and
+``clear_program_caches``: the port stacks no replica caches and keeps no
+program caches."""
 from repro_torch.core.clock import VirtualClock
 from repro_torch.core.latency import LatencyLedger, LatencySummary, summarize_latency
 from repro_torch.core.traces import (
@@ -26,9 +27,10 @@ from repro_torch.serving.autoscaler import (
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.controller import ClockController, Transition
 from repro_torch.serving.engine import EOS, PhaseStats, Request, ServingEngine
+from repro_torch.serving.events import EngineStats, EventDrivenFleet
 from repro_torch.serving.fleet import Fleet, Replica, Scheduler
 from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
-from repro_torch.serving.pool import Pool
+from repro_torch.serving.pool import Pool, params_token_for
 from repro_torch.serving.prefix import PrefixHit, PrefixIndex, PrefixStats
 from repro_torch.serving.router import (
     ROUTERS,
@@ -56,10 +58,13 @@ __all__ = [
     "Request",
     "ServingEngine",
     "Pool",
+    "params_token_for",
     "Cluster",
     "Scheduler",
     "Replica",
     "Fleet",
+    "EventDrivenFleet",
+    "EngineStats",
     "ClockController",
     "Transition",
     "BlockAllocator",
@@ -74,7 +79,7 @@ __all__ = [
     "generate_trace",
     "generate_conversation_trace",
     "generate_fanout_trace",
-    # prefix-sharing data types (sharing itself is not ported)
+    # prefix sharing
     "PrefixIndex",
     "PrefixHit",
     "PrefixStats",

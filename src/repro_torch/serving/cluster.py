@@ -37,12 +37,11 @@ With ``clock=VirtualClock()`` the cluster replays in virtual time exactly
 as before: ``run_trace`` releases a seeded arrival trace as simulated time
 crosses each stamp, pools advance the shared clock by modelled step
 durations, idle joules accrue across gaps, and the controller's ``slo``
-mode closes the loop on measured TTFT/TBT percentiles. The reference
-replays on its discrete-event engine by default, which is not ported: on a
-virtual clock pass ``engine="barrier"`` (the default ``"events"`` raises).
-Because both cluster pools share ONE clock, the reference's event schedule
-degenerates to the legacy round order, so its tokens and modelled joules
-equal the barrier's. The pools run on ``device`` (default ``"cuda"``);
+mode closes the loop on measured TTFT/TBT percentiles. Replay runs on the
+discrete-event engine (``repro_torch.serving.events``) by default; because
+both cluster pools share ONE clock, the event schedule degenerates to the
+legacy round order and tokens/modelled joules equal the barrier engine's
+(``engine="barrier"``). The pools run on ``device`` (default ``"cuda"``);
 ``cuda_graphs=False`` runs the decode step eagerly on a card.
 """
 from __future__ import annotations
@@ -189,11 +188,12 @@ class Cluster:
         engine_opts: Optional[Dict[str, Any]] = None,
     ) -> List[Request]:
         """Replay an arrival trace on the one replica — subsumed by (and
-        delegated to) ``Fleet.run_trace``. On a virtual clock pass
-        ``engine="barrier"``: the reference's ``"events"`` is not ported and
-        raises (with the cluster's single shared clock the reference's two
-        engines give identical token streams and modelled joules).
-        ``engine_opts`` are the event engine's options."""
+        delegated to) ``Fleet.run_trace``. ``engine`` picks the engine
+        (``"events"`` or ``"barrier"``); with the cluster's single shared
+        clock the two produce identical token streams and modelled joules
+        (measured joules may part in the last bits: ``ROADMAP.md``).
+        ``engine_opts`` forward to the event engine (fusion quantum,
+        fused-prefill toggle, streaming ``on_finish``)."""
         return self._fleet.run_trace(trace, max_steps=max_steps,
                                      engine=engine, engine_opts=engine_opts)
 

@@ -8,9 +8,9 @@ colocated deployment the paper measures). The public API is the
 reference's: ``submit`` / ``step`` / ``run_to_completion`` / ``stats``,
 and ``from_spec`` builds it from a ``ReplicaSpec``. On a card the pool
 replays its decode step from a CUDA graph; ``cuda_graphs=False`` runs it
-eagerly, as the comparison for the graph (``Pool``). Not ported yet: prefix
-sharing (``prefix_sharing=True`` raises), and so the shared-prefix
-admission of the reference's ``_admit``.
+eagerly, as the comparison for the graph (``Pool``). With
+``prefix_sharing=True`` admission prefills only the suffix a prefix hit
+leaves, the one pool being donor and target alike.
 """
 from __future__ import annotations
 
@@ -153,8 +153,10 @@ class ServingEngine:
         while self.waiting and self.pool.can_admit(self.waiting[0]):
             req = validated_head()
             popleft(self.waiting)
-            first, cache1 = self.pool.prefill_request(req)
-            self.pool.place(req, cache1, first, len(req.prompt))
+            # colocated engine: the one pool is donor and target alike
+            hit = self.pool.prefix_acquire(req)
+            first, cache1 = self.pool.prefill_request(req, shared=hit)
+            self.pool.place(req, cache1, first, len(req.prompt), shared=hit)
             admitted.append(req)
         return admitted
 

@@ -30,11 +30,11 @@ replica a decode ``VirtualClock`` and an independent prefill
 ``VirtualClock`` that meet only at migration (``place``). Two engines run
 the same replicas:
 
-* ``run_trace(engine="events")`` (default) — the reference's
-  discrete-event engine (``repro.serving.events``), which is not ported
-  yet: on a virtual clock it raises ``NotImplementedError``. It schedules
-  otherwise than the barrier under split pool clocks, so nothing falls
-  back to the barrier in its place.
+* ``run_trace(engine="events")`` (default) — the discrete-event engine in
+  ``repro_torch.serving.events``: arrivals, admissions, decode steps,
+  warm-up completions and autoscaler evaluations pop from one per-fleet
+  heap in virtual-time order, so admission prefills genuinely overlap
+  concurrent decode and nothing waits for the slowest replica's round.
 * ``step()`` / ``run_trace(engine="barrier")`` — the legacy lockstep
   engine: every busy replica takes one concurrent tick, the fleet syncs
   all pool clocks to the round maximum at a barrier (idle and faster
@@ -47,11 +47,10 @@ A fleet built around one shared clock (the single-replica ``Cluster``
 facade) keeps both pools on one timeline; under the barrier engine that
 degenerates to exactly the pre-fleet behaviour.
 
-Counterpart of ``repro.serving.fleet``, the same code but in two places:
+Counterpart of ``repro.serving.fleet``, the same code but in one place:
 ``Replica.from_spec`` draws random weights from a ``torch.Generator``
 seeded with ``spec.rng_seed`` (other values than ``jax.random`` gives for
-the same seed: carry weights across with ``params=`` / ``params_for=``),
-and ``run_trace(engine="events")`` raises on a virtual clock. Replicas,
+the same seed: carry weights across with ``params=`` / ``params_for=``). Replicas,
 fleets and their builders take ``device=`` (default ``"cuda"``) for their
 pools, and a ``Replica`` takes ``cuda_graphs=False`` to run its decode
 step eagerly on a card.
@@ -116,9 +115,8 @@ class Scheduler:
         gate: Optional[Callable[[Request], bool]] = None,
         accrue: bool = True,
     ) -> List[Request]:
-        """One admission tick. The three keyword hooks exist for the
-        reference's event engine (not ported; the defaults are what the
-        barrier runs): ``admit`` replaces the default prefill-then-place handoff
+        """One admission tick. The three keyword hooks exist for the event
+        engine: ``admit`` replaces the default prefill-then-place handoff
         (the engine defers placement until the decode timeline reaches the
         prefill's completion), ``gate`` replaces ``decode_pool.can_admit``
         (the engine must also count placements still in flight), and
@@ -373,8 +371,8 @@ class Replica:
         """One replica tick: retune clocks, admit/migrate, decode. This is
         the BARRIER engine's body: admission prefills serialise against the
         decode step on one timeline (``sync_clocks`` after admission), the
-        legacy colocated-device view. The reference's event engine overlaps
-        the two timelines instead (``repro.serving.events``, not ported)."""
+        legacy colocated-device view. The event engine overlaps the two
+        timelines instead — see ``repro_torch.serving.events``."""
         self._step_no += 1
         self.sync_clocks()
         if self.warming():
@@ -523,6 +521,10 @@ class Fleet:
         self.engine_opts: Dict[str, Any] = dict(engine_opts or {})
         if not self.replicas:
             raise ValueError("a Fleet needs at least one replica")
+        # the last event-engine replay's EngineStats counter block (None
+        # until run_trace(engine="events") completes) — what the serving
+        # benchmarks write into their JSON artifacts
+        self.last_engine_stats = None
         names = [r.name for r in self.replicas]
         if len(set(names)) != len(names):
             raise ValueError(f"replica names must be unique, got {names}")
@@ -934,17 +936,21 @@ class Fleet:
 
         ``engine`` picks how the trace is replayed:
 
-        * ``"events"`` (default) — the reference's discrete-event engine
-          (``repro.serving.events``), not ported yet: on a virtual clock it
-          raises ``NotImplementedError`` rather than run the barrier, which
-          schedules otherwise under split pool clocks. Wall-clock fleets
-          run the barrier, as in the reference (real time cannot be
-          event-skipped).
+        * ``"events"`` (default) — the discrete-event engine
+          (``repro_torch.serving.events``): arrivals, admissions, decode
+          steps, warm-up completions and autoscaler evaluations fire from
+          one per-fleet heap in virtual-time order, per-pool timelines
+          overlap prefill with decode, and homogeneous replica decode steps
+          share one fused dispatch. Wall-clock fleets fall back to the
+          barrier (real time cannot be event-skipped).
         * ``"barrier"`` — the legacy lockstep engine: every busy replica
           takes one tick per round and the round syncs to the slowest.
 
-        ``engine_opts`` are the event engine's options; the barrier engine
-        ignores them.
+        ``engine_opts`` are forwarded to the ``EventDrivenFleet``
+        constructor (``fusion_quantum_s``, ``fuse_prefill``,
+        ``batch_replicas``, ``on_finish``, ...) on top of the fleet's own
+        defaults (``FleetSpec.engine_opts``), overriding key-by-key;
+        ignored by the barrier engine.
         """
         if self.virtual and any(r.controller is None for r in self.replicas):
             raise ValueError(
@@ -954,9 +960,10 @@ class Fleet:
             raise ValueError(f"unknown engine {engine!r}: "
                              "expected 'events' or 'barrier'")
         if engine == "events" and self.virtual:
-            raise NotImplementedError(
-                "the event engine (repro.serving.events) is not ported yet "
-                "(ROADMAP queue 1 item 10): pass engine='barrier'")
+            from repro_torch.serving.events import EventDrivenFleet
+            opts = {**self.engine_opts, **(engine_opts or {})}
+            return EventDrivenFleet(self, **opts).run(
+                trace, max_steps=max_steps)
         pending = sorted(trace, key=lambda t: t.arrival_s)
         t_start = self.now_s()
         done: List[Request] = []

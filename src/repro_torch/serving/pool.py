@@ -36,25 +36,39 @@ own cache, parameter and buffer addresses: nothing may reallocate them
 (``defrag`` moves pages in place). ``cuda_graphs=False`` runs the step
 eagerly on the card, as the comparison for the graph; on the CPU the
 function is always called directly. ``jit_dispatches`` counts one per
-prefill, ``place`` and decode step, as the reference counts its dispatches.
+prefill, ``place`` / ``place_many``, decode step and copy-on-write split, as
+the reference counts its dispatches.
+
+Prefix sharing (``prefix_sharing=True``, paged attention-family pools
+only), as in the reference: a ``PrefixIndex`` holds refcounted pages of
+finished transcripts; ``prefix_acquire`` pins a hit's pages for an
+admitted request, whose prefill then computes only the un-shared suffix
+over the hit's pages gathered into a batch-1 row (``shared_prefill``), and
+``place`` writes the hit's page ids into the slot's table row without
+copying them. A shared page is never written: before a decode step
+``_cow_guard`` copies a shared page the step would write into a fresh one
+(copy-on-write). Both go through the host mirror of the tables and copy
+pages in place, on the stream the graph replays on, so a captured decode
+step keeps every address it bound.
 
 Differences from the reference: caches are updated in place; the bucketed
 prefill runs eagerly (no graph per bucket yet); greedy sampling is
 ``argmax`` (first maximum, as ``jnp.argmax``), and a temperature above 0
 samples from the pool's own ``torch.Generator``, outside the step, which
-gives other bits than ``jax.random``. Prefix sharing / copy-on-write, the
-replica ``CacheBank`` and ``place_many`` are not ported yet
-(``prefix_sharing=True`` raises). The prefix hooks the fleet and the
-routers call are: ``prefix_acquire`` finds no hit, ``_peek_fitted``
-shares nothing, ``prefill_cost_tokens`` charges the whole prompt, and
-``prefill_request`` / ``place`` refuse a ``shared`` hit.
+gives other bits than ``jax.random``. There is no replica ``CacheBank``:
+a pool keeps its own cache, which its captured graph binds, and the event
+engine's fused decode steps the member pools one by one. The reference's
+process-wide program caches (and ``clear_program_caches``) have no
+counterpart: prefill and placement run eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
-from collections import deque
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+import weakref
+from collections import OrderedDict, deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,15 +89,65 @@ from repro_torch.models import (
     kv_cache_bytes_per_token,
     paged_layout,
     prefill,
+    prefill_suffix,
     recurrent_state_bytes,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
-from repro_torch.serving.prefix import PrefixHit, PrefixStats
+from repro_torch.serving.prefix import PrefixHit, PrefixIndex, PrefixStats
+
+# Attention paradigms whose KV rows depend only on their own prefix — the
+# precondition for sharing cached pages across requests. Recurrent/MoE-state
+# blocks carry slot-indexed O(1) state that is NOT position-addressable, so
+# a pool holding any other kind refuses prefix sharing loudly.
+SHAREABLE_KINDS = ("attn", "attn_global", "shared_attn")
 
 # Back-compat default: seed code stopped on token id 0. The real stop id now
 # comes from ``ModelConfig.eos_token_id`` (per-request override on Request).
 EOS = 0
+
+
+# ---------------------------------------------------------------------------
+# Stable params identity. Fused-dispatch group signatures need "same weights"
+# as a hashable token that (unlike ``id(params)``) can never be recycled onto
+# a different pool's weights after a GC. Tokens come from one monotonic
+# counter; the registry is a small LRU keyed on ``id(params)``, so repeated
+# pool constructions over the same object share a token. An evicted and
+# re-registered params gets a FRESH token: the failure mode is a missed
+# fusion, never a wrong grouping. The reference's registry holds each params
+# tree strongly; on a card that would keep up to 64 models' weights alive, so
+# an entry here holds a weak reference to the tree's first leaf (a tensor:
+# the weights themselves), and a recycled id is recognised by that leaf. A
+# tree whose first leaf cannot be weakly referenced (a scalar) is held
+# strongly, as in the reference.
+_PARAMS_TOKEN_CAP = 64
+_PARAMS_TOKENS: "OrderedDict[int, Tuple[Callable[[], Any], int]]" = OrderedDict()
+_params_token_counter = itertools.count(1)
+
+
+def _params_anchor(params: Any) -> Tuple[Any, Callable[[], Any]]:
+    """(what identifies ``params``, a reference the registry may keep to it)."""
+    leaf = params
+    while isinstance(leaf, (dict, list, tuple)) and leaf:
+        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) else leaf[0]
+    try:
+        return leaf, weakref.ref(leaf)
+    except TypeError:
+        return params, lambda: params
+
+
+def params_token_for(params: Any) -> int:
+    """The stable monotonic token for this exact params object."""
+    anchor, ref = _params_anchor(params)
+    ent = _PARAMS_TOKENS.get(id(params))
+    if ent is not None and ent[0]() is anchor:
+        _PARAMS_TOKENS.move_to_end(id(params))
+        return ent[1]
+    tok = next(_params_token_counter)
+    _PARAMS_TOKENS[id(params)] = (ref, tok)
+    while len(_PARAMS_TOKENS) > _PARAMS_TOKEN_CAP:
+        _PARAMS_TOKENS.popitem(last=False)
+    return tok
 
 
 def _leaves(cache, layout):
@@ -351,10 +415,11 @@ class Pool:
         device="cuda",
         cuda_graphs: bool = True,
     ):
-        if prefix_sharing:
-            raise NotImplementedError("prefix sharing is not ported yet")
         self.cfg = cfg
         self.params = params
+        # stable weights identity for fused-dispatch grouping: pools built
+        # over the SAME params object share it
+        self.params_token = params_token_for(params)
         self.device = resolve_device(device)
         self.role = role
         self.max_batch = max_batch
@@ -419,9 +484,25 @@ class Pool:
             self._state_read_bytes = recurrent_state_bytes(cfg)
             self._state_write_bytes = recurrent_state_bytes(cfg, mutable_only=True)
             self._weight_bytes = weight_stream_bytes(cfg)
-        # prefix sharing is not ported: the counters stay zero (the fleet
-        # sums them into ``prefix_stats_total``)
+        # prefix sharing: the index holds refcounted page references on THIS
+        # pool's allocator; ``prefix_acquire`` hands shared table entries to
+        # admitted requests, and ``prefix_stats`` meters what the reuse
+        # avoided (side-channel, never added to totals)
+        self.prefix_sharing = prefix_sharing
+        self._prefix: Optional[PrefixIndex] = None
         self.prefix_stats = PrefixStats()
+        self._pending_hits: Dict[int, PrefixHit] = {}
+        if prefix_sharing:
+            if not paged:
+                raise ValueError("prefix_sharing requires paged=True")
+            bad = sorted(set(k for k in cfg.block_kinds_flat()
+                             if k not in SHAREABLE_KINDS))
+            if bad:
+                raise ValueError(
+                    f"prefix_sharing supports attention-family blocks only "
+                    f"({'/'.join(SHAREABLE_KINDS)}); config has {bad}"
+                )
+            self._prefix = PrefixIndex(self.allocator)
         self._host_lengths = np.zeros(max_batch, np.int64)
         self._admit_seq = np.zeros(max_batch, np.int64)
         self._admit_counter = 0
@@ -431,7 +512,8 @@ class Pool:
         # host mirror of the current-token vector: placements write here and
         # ``_decode_begin`` ships the mirrors to the device once per step
         self._host_cur_token = np.zeros(max_batch, np.int32)
-        # prefill + place + decode-step dispatches made by this pool
+        # prefill + place + decode-step + copy-on-write dispatches made by
+        # this pool (the event engine's fused dispatches count on its side)
         self.jit_dispatches = 0
 
         # the decode step's static buffers (allocated with the cache) and,
@@ -554,13 +636,23 @@ class Pool:
     def can_admit(self, req: Request) -> bool:
         """Admission test: a slot AND (paged) blocks for prompt + first
         token. Growth past that is served by alloc-or-preempt, so this is
-        the continuous-batching gate: admit whenever blocks are free."""
+        the continuous-batching gate: admit whenever blocks are free.
+
+        A prefix-sharing pool admits on *private* need — shared table
+        entries cost nothing — and may count index-only pages it could
+        evict; the count excludes the hit's own pages, which acquisition
+        pins (refcount 2) and so makes unreclaimable."""
         if not self.has_free_slot():
             return False
         if not self.paged:
             return True
-        return self.allocator.can_alloc(
-            self.allocator.blocks_for_tokens(len(req.prompt) + 1))
+        need = self.allocator.blocks_for_tokens(len(req.prompt) + 1)
+        if self._prefix is not None:
+            entries, _ = self._peek_fitted(req.prompt)
+            avail = self.allocator.free_blocks + max(
+                self._prefix.reclaimable_blocks() - entries, 0)
+            return max(need - entries, 0) <= avail
+        return self.allocator.can_alloc(need)
 
     def occupancy(self) -> int:
         return sum(r is not None for r in self.slot_req)
@@ -675,63 +767,253 @@ class Pool:
                 if blk is not None:
                     self.block_tables[slot, want] = blk
                     break
+                if self._evict_index_one():
+                    continue                      # index page reclaimed; retry
                 victim = self._youngest_active_slot()
                 self._evict(victim)
                 if victim == slot:
                     break                         # evicted ourselves; requeued
 
-    # ------------------------------------------------------- prefix hooks
+    # ------------------------------------------------------- prefix sharing
+    def _evict_index_one(self) -> bool:
+        """Reclaim one index-only page (allocator pressure relief: tried
+        before preempting a live slot). False when sharing is off or the
+        index holds nothing reclaimable."""
+        if self._prefix is None or not self._prefix.evict_one():
+            return False
+        self.prefix_stats.evictions += 1
+        self.prefix_stats.index_blocks = self._prefix.held_blocks
+        return True
+
+    def _alloc_blocks(self, n: int, owner: int) -> List[int]:
+        """``allocator.alloc`` with index eviction under pressure — the
+        placement-time twin of ``can_admit``'s reclaimable accounting."""
+        while not self.allocator.can_alloc(n) and self._evict_index_one():
+            pass
+        return self.allocator.alloc(n, owner)
+
+    def _fits(self, prefix_tokens: int, prompt_len: int) -> bool:
+        """Does the suffix bucket fit the cache row after ``prefix_tokens``
+        shared positions (so the suffix write is never clamped)?"""
+        bucket = min(_bucket(prompt_len - prefix_tokens), self.max_seq_len)
+        return prefix_tokens + bucket <= self.max_seq_len
+
+    def _fitted_entries(self, entries: int, prompt_len: int) -> int:
+        """The most whole shared blocks (at most ``entries``, never the
+        prompt's last token) whose suffix bucket fits the cache row."""
+        bs = self.kv_block_size
+        n = min(entries, (prompt_len - 1) // bs)
+        while n > 0 and not self._fits(n * bs, prompt_len):
+            n -= 1
+        return n
+
+    def _fit_hit(self, hit: Optional[PrefixHit],
+                 prompt_len: int) -> Optional[PrefixHit]:
+        """Cap a hit so the suffix bucket still fits the cache row:
+        ``prefix_len + bucket(suffix) <= max_seq_len`` keeps the suffix
+        write un-clamped. Demotes to fewer whole shared blocks (never a
+        partial boundary) or to a miss."""
+        if hit is None or self._fits(hit.prefix_tokens, prompt_len):
+            return hit
+        n = self._fitted_entries(len(hit.full_blocks), prompt_len)
+        if n == 0:
+            return None
+        bs = self.kv_block_size
+        return PrefixHit(hit.full_blocks[:n], None, n * bs, n * bs)
+
     def _peek_fitted(self, prompt) -> Tuple[int, int]:
-        """(shared_entries, prefix_tokens) the prompt would get from the
-        prefix index: (0, 0), as nothing is shared (the prefix router then
-        degrades to join-shortest-queue)."""
-        return 0, 0
+        """Non-mutating (shared_entries, prefix_tokens) the prompt would
+        get after the bucket-fit cap — for admission gates, scheduler token
+        budgets and the prefix router."""
+        if self._prefix is None:
+            return 0, 0
+        entries, pt = self._prefix.peek(prompt)
+        if entries == 0:
+            return 0, 0
+        if self._fits(pt, len(prompt)):
+            return entries, pt
+        n = self._fitted_entries(entries, len(prompt))
+        return n, n * self.kv_block_size
 
     def prefix_acquire(self, req: Request) -> Optional[PrefixHit]:
-        """The shared-prefix hit to pin for ``req``: always None here."""
-        return None
+        """Look the prompt up in the prefix index and pin the hit: one
+        allocator reference per shared table entry, owned by ``req.uid`` —
+        the same references the block table will carry, so eviction and
+        finish free them through the normal table path. Returns None when
+        sharing is off or nothing matched. Call only on the admission path;
+        every acquired hit MUST flow into ``place(..., shared=hit)``."""
+        if self._prefix is None:
+            return None
+        self.prefix_stats.lookups += 1
+        hit = self._fit_hit(self._prefix.match(req.prompt), len(req.prompt))
+        if hit is None:
+            self.prefix_stats.misses += 1
+            return None
+        for b in hit.table_blocks:
+            self.allocator.retain(b, req.uid)
+        self._pending_hits[req.uid] = hit
+        self.prefix_stats.hits += 1
+        self.prefix_stats.shared_blocks += hit.shared_entries
+        self.prefix_stats.shared_tokens += hit.prefix_tokens
+        return hit
 
     def prefill_cost_tokens(self, req: Request) -> int:
-        """Prompt tokens prefill will compute for ``req``: the scheduler's
-        token-budget charge (the whole prompt, as nothing is shared)."""
-        return len(req.prompt)
+        """Prompt tokens prefill will actually compute for ``req`` — the
+        scheduler's token-budget charge (suffix only under a prefix hit;
+        at least one token is always recomputed)."""
+        if self._prefix is None:
+            return len(req.prompt)
+        _, pt = self._peek_fitted(req.prompt)
+        return max(len(req.prompt) - pt, 1)
 
-    @staticmethod
-    def _refuse_shared(shared: Optional[PrefixHit]) -> None:
-        if shared is not None:
-            raise NotImplementedError("prefix sharing is not ported yet")
+    def suffix_tokens(self, req: Request,
+                      prefix_tokens: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The (tokens, true_len, bucket) triple for a suffix-only prefill:
+        the un-shared tail of the prompt, padded to its own bucket."""
+        sl = len(req.prompt) - prefix_tokens
+        bucket = min(_bucket(sl), self.max_seq_len)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :sl] = req.prompt[prefix_tokens:]
+        return toks, np.asarray([sl], np.int32), bucket
+
+    def shared_prefill(self, params, toks, true_len, hit: PrefixHit):
+        """Donor side of a suffix prefill over THIS pool's paged cache:
+        gather the hit's pages into a dense batch-1 row (null-page padding
+        fills the unused entries; those rows sit above ``prefix_len``,
+        where the causal mask never looks), then run ``prefill_suffix`` for
+        the un-shared tokens. Returns (logits, cache row) shaped like the
+        plain prefill's, so placement is uniform. Runs on the current
+        stream, after every decode step issued before it."""
+        nb, bs = self.block_tables.shape[1], self.kv_block_size
+        gather = hit.gather_blocks(bs)
+        page_map = np.full(nb, NULL_PAGE, np.int64)
+        page_map[:len(gather)] = gather
+        pages = self._tensor(page_map)
+        cache1 = init_cache(self.cfg, 1, self.max_seq_len, device=self.device)
+        for (row_blk, key, is_paged), (pool_blk, _, _) in zip(
+                _leaves(cache1, self._layout), _leaves(self.cache, self._layout)):
+            if is_paged:
+                rows = pool_blk[key][:, pages]                  # (n_units, nb, bs, ...)
+                row_blk[key][:, 0] = rows.reshape(rows.shape[0], nb * bs, *rows.shape[3:])
+        logits, cache1, _ = prefill_suffix(
+            params, self.cfg, self._tensor(toks), cache1,
+            prefix_len=self._tensor(np.asarray([hit.prefix_tokens], np.int32)),
+            suffix_lengths=self._tensor(true_len))
+        return logits, cache1
+
+    def _register_finished(self, req: Request, slot: int):
+        """Donate a finished request's cached transcript to the prefix
+        index (prompt + all generated tokens whose KV was written). Runs
+        BEFORE the request's blocks are freed, so the pages the index newly
+        retains survive the free."""
+        cached_len = int(self._host_lengths[slot])
+        if cached_len < self.kv_block_size:
+            return
+        toks = np.concatenate([
+            np.asarray(req.prompt, np.int64),
+            np.asarray(req.output[:-1], np.int64),
+        ])[:cached_len]
+        self._prefix.register(toks, self._slot_blocks(slot), cached_len)
+        self.prefix_stats.registrations += 1
+        self.prefix_stats.index_blocks = self._prefix.held_blocks
+
+    def _cow_guard(self):
+        """Copy-on-write: before a decode step, any live slot whose write
+        target page is shared (refcount > 1) gets a private copy — alloc a
+        fresh page (evicting index entries, then preempting the youngest
+        slot, under pressure), copy the page in place in every paged cache
+        leaf, swap the host table entry, drop the shared reference. Shared
+        pages are thereby never written. The copy runs on the current
+        stream, before the step's tables reach the device."""
+        bs = self.kv_block_size
+        block_bytes = bs * self._kv_token_bytes
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            entry = int(self._host_lengths[slot]) // bs
+            blk = int(self.block_tables[slot, entry])
+            if blk == NULL_PAGE or not self.allocator.is_shared(blk):
+                continue
+            while True:
+                fresh = self.allocator.alloc_one(owner=req.uid)
+                if fresh is not None:
+                    break
+                if self._evict_index_one():
+                    continue
+                victim = self._youngest_active_slot()
+                self._evict(victim)
+                if victim == slot:
+                    break
+            if self.slot_req[slot] is None:       # preempted ourselves
+                continue
+            for leaf_blk, key, is_paged in _leaves(self.cache, self._layout):
+                if is_paged:
+                    leaf_blk[key][:, fresh] = leaf_blk[key][:, blk]
+            self.jit_dispatches += 1
+            self.block_tables[slot, entry] = fresh
+            self.allocator.release(blk, owner=req.uid)
+            self.prefix_stats.cow_splits += 1
+            # the split physically moves one block through HBM
+            self.traffic.count_reads(1, block_bytes)
+            self.traffic.count_writes(1, block_bytes)
 
     # ------------------------------------------------------------ phase work
     def prefill_tokens(self, req: Request) -> Tuple[np.ndarray, np.ndarray, int]:
         """The (tokens, true_len, bucket) triple of ``req``'s padded
-        batch-1 prefill."""
+        batch-1 prefill (also what the event engine's fused admission
+        issues for it)."""
         l = len(req.prompt)
         bucket = min(_bucket(l), self.max_seq_len)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :l] = req.prompt
         return toks, np.asarray([l], np.int32), bucket
 
+    def prefill_row(self, toks: np.ndarray, true_len: np.ndarray) -> Tuple[Any, Any]:
+        """The bucketed batch-1 prefill itself: (logits (1, V), cache row)
+        of ``prefill_tokens``' triple, with no accounting."""
+        cache1 = init_cache(self.cfg, 1, self.max_seq_len, device=self.device)
+        logits, cache1, _ = prefill(self.params, self.cfg, self._tensor(toks), cache1,
+                                    prompt_lengths=self._tensor(true_len))
+        return logits, cache1
+
     @torch.inference_mode()
-    def prefill_request(self, req: Request, *, shared: Optional[PrefixHit] = None,
+    def prefill_request(self, req: Request, *,
+                        precomputed: Optional[Tuple[Any, Any]] = None,
+                        shared: Optional[PrefixHit] = None,
                         donor: Optional["Pool"] = None) -> Tuple[int, Any]:
         """Run the bucketed batch-1 prefill; returns (first_token, cache row).
 
         The returned cache row is placed with ``place``: on this pool for
         the single-pool engine, on the decode pool for the disaggregated
-        cluster. ``shared`` / ``donor`` are the reference's suffix-only
-        prefill over a prefix hit, which is not ported: a hit raises."""
-        self._refuse_shared(shared)
+        cluster.
+
+        ``precomputed`` is the fused-admission handoff: a (logits, cache
+        row) pair the event engine already issued. Only the model call is
+        skipped — clock advance, gauge bracketing, ledger stamps, sampling
+        order and energy accounting run exactly as the serial path.
+
+        ``shared`` (a hit from ``donor.prefix_acquire``, donor defaulting to
+        this pool) switches to suffix-only prefill: compute, time, and
+        joules scale to the un-shared tokens, and the avoided prefill is
+        banked in the donor's ``prefix_stats.saved_*`` side-channel — never
+        added to any energy total, so conservation is untouched."""
         l = len(req.prompt)
+        work = l if shared is None else l - shared.prefix_tokens
         self._in_phase_call = True
         self._refresh_gauge()
         t0 = self.clock()
         req.ledger.mark_admitted(t0)
         try:
-            toks, true_len, _ = self.prefill_tokens(req)
-            cache1 = init_cache(self.cfg, 1, self.max_seq_len, device=self.device)
-            logits, cache1, _ = prefill(self.params, self.cfg, self._tensor(toks),
-                                        cache1, prompt_lengths=self._tensor(true_len))
-            self.jit_dispatches += 1
+            if precomputed is not None:
+                logits, cache1 = precomputed
+            elif shared is not None:
+                dp = donor if donor is not None else self
+                toks, true_len, _ = self.suffix_tokens(req, shared.prefix_tokens)
+                logits, cache1 = dp.shared_prefill(self.params, toks, true_len, shared)
+                self.jit_dispatches += 1
+            else:
+                logits, cache1 = self.prefill_row(*self.prefill_tokens(req)[:2])
+                self.jit_dispatches += 1
             row = logits[0]
             if req.temperature > 0.0:
                 u = torch.rand(row.shape, generator=self.generator, device=self.device)
@@ -741,23 +1023,33 @@ class Pool:
                 first = int(torch.argmax(row))   # waits for the device
             if self.virtual and self.prefill_op is not None:
                 # modelled prefill duration: the operating point's profile
-                # is per prefill_seq tokens — scale to the prompt
+                # is per prefill_seq tokens — scale to the tokens actually
+                # computed (the suffix only, under a prefix hit)
                 prof = self.prefill_op.profile
-                self.advance_time(prof.t_total * l / max(prof.tokens, 1))
+                self.advance_time(prof.t_total * work / max(prof.tokens, 1))
         finally:
             dt = self.clock() - t0
             self._in_phase_call = False
             self._refresh_gauge()
-        joules = self._mj_per_token("prefill") * l / 1e3
-        self.stats.merge_prefill(l, dt, joules)
+        mj = self._mj_per_token("prefill")
+        joules = mj * work / 1e3
+        self.stats.merge_prefill(work, dt, joules)
         req.prefill_s += dt
         req.prefill_j += joules
+        if shared is not None:
+            dp = donor if donor is not None else self
+            saved_j = mj * shared.prefix_tokens / 1e3
+            req.prefix_tokens = shared.prefix_tokens
+            req.saved_prefill_j += saved_j
+            dp.prefix_stats.saved_prefill_tokens += shared.prefix_tokens
+            dp.prefix_stats.saved_prefill_j += saved_j
         return first, cache1
 
     def _place_bookkeeping(self, req: Request, first_token: int, length: int,
                            first_token_s: Optional[float]) -> int:
         """Everything ``place`` does EXCEPT the cache copy: slot choice,
-        host-mirror writes, stamps, gauge."""
+        host-mirror writes, stamps, gauge. Shared by ``place`` and the
+        multi-row ``place_many``."""
         free = self.free_slots()
         if not free:
             raise RuntimeError("place() on a full pool — check can_admit() first")
@@ -783,36 +1075,51 @@ class Pool:
         """Move a filled batch-1 cache row into a free slot (migration).
 
         Dense: the row is copied into the slot. Paged: the request's block
-        table is allocated first and the row's first ``need`` blocks are
-        copied to those pages (copy-on-migrate); the reference also writes
-        the unused blocks to the null page, which holds nothing anyone
-        reads, so they are skipped here. Every copy writes into the cache's
-        own storage, on the current stream: a captured decode graph reads
-        these very tensors. ``first_token_s`` overrides the first-token
-        stamp: with per-pool clocks the prefill timeline produced the token
-        at its own time. A ``shared`` prefix hit raises (not ported)."""
-        self._refuse_shared(shared)
+        table is allocated first and the row's blocks are copied to those
+        pages (copy-on-migrate); the reference also writes the unused
+        blocks to the null page, which holds nothing anyone reads, so they
+        are skipped here. Every copy writes into the cache's own storage,
+        on the current stream: a captured decode graph reads these very
+        tensors. ``first_token_s`` overrides the first-token stamp: with
+        per-pool clocks the prefill timeline produced the token at its own
+        time.
+
+        With ``shared`` (the hit ``prefix_acquire`` pinned for this
+        request; re-found from the pool's stash when not passed), the
+        leading table entries are the hit's pages — already referenced by
+        ``req.uid``, so nothing is allocated or copied for them, and the
+        bytes the migration avoided are banked in ``prefix_stats``."""
         slot = self._place_bookkeeping(req, first_token, length, first_token_s)
         if self.paged:
+            if shared is None and self._prefix is not None:
+                shared = self._pending_hits.get(req.uid)
             bs = self.kv_block_size
             nb = self.block_tables.shape[1]
             need = self.allocator.blocks_for_tokens(length + 1)
-            blocks = self.allocator.alloc(need, owner=req.uid)
+            se = shared.shared_entries if shared is not None else 0
+            blocks = self._alloc_blocks(need - se, owner=req.uid)
             self.block_tables[slot] = NULL_PAGE
-            self.block_tables[slot, :need] = blocks
+            if se:
+                self.block_tables[slot, :se] = shared.table_blocks
+                self._pending_hits.pop(req.uid, None)
+            self.block_tables[slot, se:need] = blocks
             pages = self._tensor(np.asarray(blocks, np.int64))
             for (big_blk, key, is_paged), (small_blk, _, _) in zip(
                     _leaves(self.cache, self._layout), _leaves(cache1, self._layout)):
                 small = small_blk[key][:, 0]                   # (n_units, L_max, ...)
                 if is_paged:
                     rows = small.reshape(small.shape[0], nb, bs, *small.shape[2:])
-                    big_blk[key][:, pages] = rows[:, :need]
+                    big_blk[key][:, pages] = rows[:, se:need]  # shared pages: never written
                 else:
                     big_blk[key][:, slot] = small
-            # copy-on-migrate moves the request's blocks of KV into the pool
+            # copy-on-migrate moves the PRIVATE blocks of KV into the pool;
+            # shared entries move nothing (the avoided bytes are metered)
+            npriv = need - se
             self.traffic.count_writes(
-                need, need * bs * self._kv_token_bytes + self._state_write_bytes,
+                npriv, npriv * bs * self._kv_token_bytes + self._state_write_bytes,
             )
+            if se:
+                self.prefix_stats.saved_migrate_bytes += se * bs * self._kv_token_bytes
         else:
             for (big_blk, key, _), (small_blk, _, _) in zip(
                     _leaves(self.cache, self._layout), _leaves(cache1, self._layout)):
@@ -820,15 +1127,45 @@ class Pool:
         self.jit_dispatches += 1
         return slot
 
+    @torch.inference_mode()
+    def place_many(self, items: Sequence[Tuple[Request, Any, int, int,
+                                               Optional[float]]]) -> List[int]:
+        """Place K prefilled rows with ONE scatter per cache leaf (dense
+        pools). ``items`` are (req, cache1, first_token, length,
+        first_token_s) in placement order; per-request bookkeeping, stamps
+        and gauge updates run request by request exactly like K ``place``
+        calls — only the K copies fuse (distinct slots, so the final cache
+        is the same). Exactly the K rows are scattered: the reference pads
+        to a power of two to reuse a jitted program, which eager PyTorch
+        has none of. Paged pools fall back to sequential ``place`` (block
+        allocation is request-granular)."""
+        if self.paged or len(items) == 1:
+            return [self.place(req, cache1, first, length, first_token_s=ts)
+                    for req, cache1, first, length, ts in items]
+        slots = [self._place_bookkeeping(req, first, length, ts)
+                 for req, cache1, first, length, ts in items]
+        rows = [cache1 for _, cache1, _, _, _ in items]
+        index = self._tensor(np.asarray(slots, np.int64))
+        for (big_blk, key, _), *smalls in zip(
+                _leaves(self.cache, self._layout),
+                *(_leaves(c1, self._layout) for c1 in rows)):
+            big_blk[key][:, index] = torch.cat([blk[key] for blk, _, _ in smalls], dim=1)
+        self.jit_dispatches += 1
+        return slots
+
     def _req_eos(self, req: Request) -> int:
         return self.eos_token_id if req.eos_token_id is None else req.eos_token_id
 
     def _decode_begin(self) -> Optional[dict]:
         """Host-side first half of ``decode_once``: block-table growth,
-        active mask, and the host mirrors copied into the step's static
-        inputs. ``None`` when no slot is live."""
+        copy-on-write splits, active mask, and the host mirrors copied into
+        the step's static inputs. ``None`` when no slot is live. The event
+        engine composes this with ``_run_decode_fn`` and ``_decode_finish``
+        to step many pools in one fused dispatch."""
         if self.paged and any(r is not None for r in self.slot_req):
             self._grow_tables()
+            if self._prefix is not None:
+                self._cow_guard()
         active = self.active_mask()
         if not active.any():
             return None
@@ -867,7 +1204,6 @@ class Pool:
         on a card, eager at the pool's first step (on the side stream the
         graph is captured on), captured at its second and replayed from
         then on. A failed capture or replay raises."""
-        self.jit_dispatches += 1
         self._decode_steps_run += 1
         if not self.cuda_graphs:
             return self._decode_fn()
@@ -915,16 +1251,18 @@ class Pool:
         # the host mirror ``_host_lengths`` stays the authority on lengths;
         # the cache is updated in place
         logits, greedy = self._run_decode_fn()
-        return self._decode_finish(pre, self._sample(logits, greedy, pre["temps"]))
+        self.jit_dispatches += 1
+        next_tok = self._sample(logits, greedy, pre["temps"])
+        return self._decode_finish(pre, next_tok.cpu().numpy())   # waits for the device
 
-    def _decode_finish(self, pre: dict, next_tok: torch.Tensor) -> List[Request]:
-        """Second half of ``decode_once``: read the sampled tokens, advance
-        the (virtual) clock by the modelled step duration, and do the
-        per-slot token/energy/EOS accounting."""
+    def _decode_finish(self, pre: dict, next_np: np.ndarray) -> List[Request]:
+        """Second half of ``decode_once``: take the step's sampled tokens
+        (read back to the host), advance the (virtual) clock by the
+        modelled step duration, and do the per-slot token/energy/EOS
+        accounting."""
         active = pre["active"]
         t0 = pre["t0"]
         finished: List[Request] = []
-        next_np = next_tok.cpu().numpy()         # waits for the device
         if self.virtual and self.op is not None:
             # the modelled step duration at the live operating point IS the
             # virtual-time cost of this decode step
@@ -983,6 +1321,10 @@ class Pool:
                 self.slot_req[i] = None
                 self._slot_temp[i] = 0.0
                 if self.paged:
+                    if self._prefix is not None:
+                        # donate the transcript to the index BEFORE freeing:
+                        # newly-retained pages survive the request's free
+                        self._register_finished(req, i)
                     self.allocator.free(self._slot_blocks(i), owner=req.uid)
                     self.block_tables[i] = NULL_PAGE
                     self._host_lengths[i] = 0
@@ -999,6 +1341,14 @@ class Pool:
         if not self.paged or self.cache is None:
             return
         mapping = self.allocator.defrag()
+        if self._prefix is not None:
+            # every held page is live, so it appears in the mapping; each
+            # trie entry (and stashed hit) is rewritten exactly once
+            self._prefix.remap(mapping)
+            for hit in self._pending_hits.values():
+                hit.full_blocks = [mapping[b] for b in hit.full_blocks]
+                if hit.tail_block is not None:
+                    hit.tail_block = mapping[hit.tail_block]
         remap = np.arange(self.allocator.num_blocks + 1)
         for old, new in mapping.items():
             remap[old] = new

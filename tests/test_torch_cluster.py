@@ -8,11 +8,10 @@ greedy token streams, every ledger stamp, both pools' ``PhaseStats``, the
 sampler's measured joules, the controller's transitions, the decode pool's
 ``TrafficCounter`` and the scheduler's migrations must all be equal. On a
 wall clock the tokens and the traffic-derived decode joules must be. Trace
-replays (``serve_trace``'s recipe, 20 requests) through the port's barrier
-engine give the sha256 of the reference's barrier replay; against the
-reference's default (event-engine) replay every field but the measured
-joules is equal, and those agree to 1e-12 (the reference's two engines part
-in the last bits there: ``ROADMAP.md`` section 3). Then the properties of
+replays (``serve_trace``'s recipe, 20 requests) give the sha256 of the
+reference's replay on each engine: the default (event) engine and the
+barrier, which parts from the event engine in the last bits of the
+measured joules (``ROADMAP.md`` section 3). Then the properties of
 ``tests/test_cluster.py`` held on the port, the request freelist and the
 ``Scheduler.tick`` hooks.
 """
@@ -153,48 +152,78 @@ def _sha(row) -> str:
                           .encode()).hexdigest()
 
 
+def _trace_pair(arch, n=20):
+    """(reference trace, port trace, tbt_s, ttft_s) of ``serve_trace``'s
+    recipe at ``n`` requests, against the reduced config."""
+    tbt_s, ttft_s, rate = j_serve_trace.slo_targets(j_serve_trace.h200_model(),
+                                                    jax_get_config(arch))
+    jtrace = j_serve_trace.generate_trace(
+        jax_reduced_config(arch), n, arrival="poisson", lengths="short_chat",
+        rate_rps=rate, seed=j_serve_trace.TRACE_SEED, max_total_len=j_serve_trace.MAX_SEQ_LEN)
+    return jtrace, t_serve_trace.make_trace(arch, n, rate), tbt_s, ttft_s
+
+
 @pytest.mark.parametrize("mode", ["lock", "slo"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_trace_replay_matches_reference(weights, arch, mode):
     """``serve_trace``'s replay (20 requests) through ``Cluster.from_spec``
-    on one shared ``VirtualClock``: the port's barrier replay has the
-    reference barrier replay's sha256, and equals the reference's default
-    (event-engine) replay in every field but the measured joules, which
-    agree to 1e-12 relative."""
+    on one shared ``VirtualClock``, on the default engine of both sides
+    (the event engine): every field equal and the same sha256."""
     _, jp, _, tp = weights[arch]
-    tbt_s, ttft_s, rate = j_serve_trace.slo_targets(j_serve_trace.h200_model(),
-                                                    jax_get_config(arch))
-    jtrace = j_serve_trace.generate_trace(
-        jax_reduced_config(arch), 20, arrival="poisson", lengths="short_chat",
-        rate_rps=rate, seed=j_serve_trace.TRACE_SEED, max_total_len=j_serve_trace.MAX_SEQ_LEN)
-    trace = t_serve_trace.make_trace(arch, 20, rate)
-    got, _, _ = t_serve_trace.replay(arch, mode, trace, tbt_s, ttft_s, params=tp, device="cpu")
+    jtrace, trace, tbt_s, ttft_s = _trace_pair(arch)
+    got, _, cluster = t_serve_trace.replay(arch, mode, trace, tbt_s, ttft_s, params=tp,
+                                           device="cpu")
+    ref, _ = j_serve_trace.replay(arch, mode, jtrace, tbt_s, ttft_s)
+    assert got["completed"] == 20
+    assert cluster._fleet.last_engine_stats.decode_steps == cluster.decode_stats.decode_steps
+    assert got == ref
+    assert _sha(got) == _sha(ref)
 
-    def reference(engine):
-        cluster = JCluster.from_spec(
-            j_serve_trace.replica_spec(arch, mode, tbt_s, ttft_s),
-            emodel=j_serve_trace.h200_model(), params=jp, clock=JVirtualClock())
-        done = cluster.run_trace(jtrace, engine=engine)
-        return done, cluster
 
-    done, cluster = reference("barrier")
-    dec = cluster.decode_stats
-    measured = cluster.measured_energy_j()
-    assert got["completed"] == len(done) == 20
-    assert got["decode_tokens"] == dec.decode_tokens
-    assert got["decode_j"] == dec.decode_j
-    assert got["measured_decode_j"] == measured["decode"]
-    assert got["measured_prefill_j"] == measured["prefill"]
-    assert got["transitions"] == len(cluster.controller.transitions)
-    ref_events, _ = j_serve_trace.replay(arch, mode, jtrace, tbt_s, ttft_s)
-    measured_keys = ("measured_decode_j", "measured_prefill_j")
-    assert ({k: v for k, v in got.items() if k not in measured_keys}
-            == {k: v for k, v in ref_events.items() if k not in measured_keys})
-    for k in measured_keys:
-        assert got[k] == pytest.approx(ref_events[k], rel=1e-12)
-    ref_barrier = dict(ref_events, measured_decode_j=measured["decode"],
-                       measured_prefill_j=measured["prefill"])
-    assert _sha(got) == _sha(ref_barrier)
+def _replay_fields(cluster, done):
+    """What ``serve_trace``'s metrics are read from: streams and ledger
+    stamps by arrival, both phases' stats, measured joules, transitions."""
+    done = sorted(done, key=lambda r: r.ledger.arrival_s)
+    return {
+        "outputs": [list(r.output) for r in done],
+        "stamps": [[r.ledger.arrival_s, r.ledger.admitted_s, r.ledger.first_token_s,
+                    list(r.ledger.token_s), r.ledger.finish_s] for r in done],
+        "decode": dataclasses.asdict(cluster.decode_stats),
+        "prefill": dataclasses.asdict(cluster.prefill_stats),
+        "measured": cluster.measured_energy_j(),
+        "transitions": len(cluster.controller.transitions),
+    }
+
+
+@pytest.mark.parametrize("mode", ["lock", "slo"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_trace_replay_barrier_matches_reference(weights, arch, mode):
+    """``serve_trace``'s replay (20 requests) on the barrier engine, the
+    port's ``Cluster`` and the reference's built from the recipe's spec:
+    every stream, stamp, phase stat, measured joule and transition equal.
+    The port's barrier replay equals its event replay in all of them but
+    the measured joules, which agree to 1e-12 relative (the reference's two
+    engines part in the last bits there: ``ROADMAP.md`` section 3)."""
+    _, jp, _, tp = weights[arch]
+    jtrace, trace, tbt_s, ttft_s = _trace_pair(arch)
+    fields = {}
+    for engine in ("barrier", "events"):
+        cluster = Cluster.from_spec(
+            t_serve_trace.replica_spec(arch, mode, tbt_s, ttft_s),
+            emodel=t_serve_trace.h200_model(), params=tp, clock=VirtualClock(),
+            device="cpu")
+        fields[engine] = _replay_fields(cluster, cluster.run_trace(trace, engine=engine))
+    cluster = JCluster.from_spec(
+        j_serve_trace.replica_spec(arch, mode, tbt_s, ttft_s),
+        emodel=j_serve_trace.h200_model(), params=jp, clock=JVirtualClock())
+    ref = _replay_fields(cluster, cluster.run_trace(jtrace, engine="barrier"))
+    assert len(ref["outputs"]) == 20
+    assert fields["barrier"] == ref
+    events = fields["events"]
+    assert ({k: v for k, v in fields["barrier"].items() if k != "measured"}
+            == {k: v for k, v in events.items() if k != "measured"})
+    for k, v in fields["barrier"]["measured"].items():
+        assert v == pytest.approx(events["measured"][k], rel=1e-12)
 
 
 # ------------------------------------------- tests/test_cluster.py, on the port

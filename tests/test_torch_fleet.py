@@ -60,7 +60,6 @@ from repro_torch.serving import (
     ReplicaSpec,
     ServingEngine,
 )
-from repro_torch.serving.prefix import PrefixHit
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -337,36 +336,49 @@ def _leaves(tree):
 
 # ---------------------------------------------------------------- refusals
 def test_event_engine_is_refused_on_a_virtual_clock(weights):
+    """The event engine runs on a virtual clock, and refuses there what the
+    port cannot run: ``batch_layout="shard_map"`` (the replica axis over
+    several devices), naming the single card, before anything runs; and,
+    as the reference, a fleet whose replicas have no controller."""
     tp = weights["qwen3-4b"][1]
     rspec = _rspec("solo", "qwen3-4b")
     fleet = Fleet.from_spec(FleetSpec(replicas=(rspec,)), emodel=EnergyModel(H200_SXM),
                             params_for={"qwen3-4b": tp}, device="cpu")
-    with pytest.raises(NotImplementedError, match="engine='barrier'"):
-        fleet.run_trace(_trace(generate_trace, 2))
+    with pytest.raises(ValueError, match="one card"):
+        fleet.run_trace(_trace(generate_trace, 2), engine_opts={"batch_layout": "shard_map"})
     cluster = Cluster.from_spec(rspec, params=tp, clock=VirtualClock(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        cluster.run_trace(_trace(generate_trace, 2), engine="events")
-    assert not fleet.busy() and not cluster.busy()        # nothing ran
+    with pytest.raises(ValueError, match="one card"):
+        cluster.run_trace(_trace(generate_trace, 2), engine="events",
+                          engine_opts={"batch_layout": "shard_map"})
+    bare = Fleet([Replica(reduced_config("qwen3-4b"), tp, max_seq_len=64, decode_batch=2,
+                          clock=VirtualClock(), device="cpu")])
+    with pytest.raises(ValueError, match="ClockController"):
+        bare.run_trace(_trace(generate_trace, 2))
+    assert not fleet.busy() and not cluster.busy() and not bare.busy()   # nothing ran
 
 
 def test_prefix_sharing_is_refused(weights):
-    spec = ReplicaSpec(name="p", arch="qwen3-4b",
-                       decode=PoolSpec(batch=2, paged=True, kv_block_size=8,
-                                       prefix_sharing=True),
-                       max_seq_len=64)
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        Replica.from_spec(spec, params=weights["qwen3-4b"][1], device="cpu")
-    replica = Replica.from_spec(dataclasses.replace(spec, decode=PoolSpec(batch=2)),
-                                params=weights["qwen3-4b"][1], device="cpu")
+    """Prefix sharing is refused where the reference refuses it: on a dense
+    decode pool and on a config with a block kind whose state is not
+    position-addressable. A pool with sharing off shares nothing."""
+    tp = weights["qwen3-4b"][1]
+    with pytest.raises(ValueError, match="requires paged=True"):
+        PoolSpec(batch=2, prefix_sharing=True)
+    with pytest.raises(ValueError, match="requires paged=True"):
+        Replica(reduced_config("qwen3-4b"), tp, max_seq_len=64, decode_batch=2,
+                prefix_sharing=True, device="cpu")
+    spec = ReplicaSpec(name="p", arch="qwen3-4b", decode=PoolSpec(batch=2), max_seq_len=64)
+    gdn = ReplicaSpec(name="g", arch="gdn-4b",
+                      decode=PoolSpec(batch=2, paged=True, kv_block_size=8,
+                                      prefix_sharing=True),
+                      max_seq_len=64)
+    with pytest.raises(ValueError, match="attention-family blocks only"):
+        Replica.from_spec(gdn, params=weights["gdn-4b"][1], device="cpu")
+    replica = Replica.from_spec(spec, params=tp, device="cpu")
     req = replica.submit(np.arange(1, 9, dtype=np.int32), 2)
     pool = replica.decode_pool
     assert pool.prefix_acquire(req) is None and pool._peek_fitted(req.prompt) == (0, 0)
     assert pool.prefill_cost_tokens(req) == 8
-    hit = PrefixHit(full_blocks=[1], tail_block=None, prefix_tokens=8, tokens_covered=8)
-    with pytest.raises(NotImplementedError):
-        replica.prefill_pool.prefill_request(req, shared=hit, donor=pool)
-    with pytest.raises(NotImplementedError):
-        pool.place(req, None, 1, 8, shared=hit)
     assert pool.occupancy() == 0 and req.ledger.admitted_s is None
 
 

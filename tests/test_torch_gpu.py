@@ -8,7 +8,11 @@ graph against the eager step (streams, recurrent state, launch counts,
 defrag under a captured graph); the disaggregated ``Cluster`` (a prefill
 pool handing its cache rows to a graph-captured decode pool) against the
 eager one, the handoff writing into the captured cache's own storage, and
-a two-replica ``Fleet`` replayed twice.
+a two-replica ``Fleet`` replayed twice; prefix sharing on the card (the
+paged kernel over tables whose rows share pages, a prefix hit and a
+copy-on-write split into a captured decode graph, the guard broken on
+purpose), a fused event replay equal to its serial replay, and the fold of
+the fused decode.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -824,3 +828,224 @@ def test_two_replica_fleet_replays_equal_on_the_card():
     first = replay()
     assert len(first[0]) == 10 and {r[0] for r in first[0]} == {"r0", "r1"}
     assert replay() == first
+
+
+# ------------------------------------------------ prefix sharing on the card
+# kernel 2 over block tables whose rows share pages (as prefix hits make
+# them): rows 0-4 share a three-page trunk, rows 3 and 4 the page after it
+SHARED_VALID = (128, 113, 60, 52, 56, 17, 33, 1)
+SHARED_TABLES = ((1, 2, 3, 5, 6, 7, 8, 9), (1, 2, 3, 10, 11, 12, 13, 14), (1, 2, 3, 15),
+                 (1, 2, 3, 4), (1, 2, 3, 4), (16, 17), (18, 19, 20), (21,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_over_shared_pages_matches_plain(dtype):
+    """Kernel 2 at the ``serve_prefix`` shape (gemma-2b heads, bs 16, L 128)
+    over tables whose rows name the same pages: equal to its plain version,
+    with every page no entry below ceil(valid_len / bs) names, and every
+    row of a named page past the longest valid_len reading it, NaN."""
+    _need_card()
+    bs, nb, d = 16, 8, 256
+    rng = np.random.default_rng(4)
+    n_pages = 2 + max(max(t) for t in SHARED_TABLES)
+    kp = rng.standard_normal((n_pages, bs, 1, d), np.float32)
+    vp = rng.standard_normal((n_pages, bs, 1, d), np.float32)
+    kp[0] = vp[0] = 0
+    tables = np.zeros((8, nb), np.int32)
+    nan_tables = np.full((8, nb), n_pages - 1, np.int32)
+    rows_read = np.zeros(n_pages, np.int64)
+    for i, (vl, row) in enumerate(zip(SHARED_VALID, SHARED_TABLES)):
+        tables[i, :len(row)] = nan_tables[i, :len(row)] = row
+        for j, page in enumerate(row):
+            rows_read[page] = max(rows_read[page], min(bs, vl - j * bs))
+    nan_kp, nan_vp = kp.copy(), vp.copy()
+    for page in range(1, n_pages):
+        nan_kp[page, rows_read[page]:] = nan_vp[page, rows_read[page]:] = np.nan
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    q = cuda(rng.standard_normal((8, 8, d), np.float32)).to(dtype)
+    valid = cuda(np.asarray(SHARED_VALID, np.int32))
+    got = paged_decode_attention(q, cuda(nan_kp).to(dtype), cuda(nan_vp).to(dtype),
+                                 cuda(nan_tables), valid, scale=1.0 / 16)
+    want = paged_decode_attention_ref(q, cuda(kp).to(dtype), cuda(vp).to(dtype),
+                                      cuda(tables), valid, scale=1.0 / 16)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _sharing_engine(cfg, params, graphs):
+    return ServingEngine(cfg, params, max_batch=4, max_seq_len=128, paged=True,
+                         kv_block_size=8, prefix_sharing=True, device="cuda",
+                         cuda_graphs=graphs)
+
+
+def _fork_setup(cfg, params, graphs):
+    """A sharing engine whose decode graph is captured and whose index holds
+    a finished 20-token request's transcript; its exact fork is queued
+    (a boundary tail hit, so the fork's first decode write lands in a
+    shared page). A long anchor request keeps the pool stepping."""
+    anchor, trunk = make_prompts(cfg, 2, 20, 21, seed=3)
+    trunk = trunk[:20]
+    engine = _sharing_engine(cfg, params, graphs)
+    engine.submit(anchor, max_new_tokens=60)
+    first = engine.submit(trunk, max_new_tokens=3)
+    while not first.done:
+        engine.step()
+    assert engine.pool.prefix_stats.registrations == 1
+    fork = engine.submit(trunk, max_new_tokens=8)
+    return engine, fork
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefix_hit_and_cow_split_into_a_captured_graph(dtype):
+    """A prefix hit placed into a captured decode cache and the COW split of
+    its shared tail page before the next step: every cache leaf keeps its
+    ``data_ptr()``, the index's page is not written, and the step's logits
+    from the graph replay equal the eager step's on a copy of the same
+    cache. A graph engine and an eager one then give the same streams."""
+    _need_card()
+    cfg, params = _reduced("gemma-2b", dtype)
+    engine, fork = _fork_setup(cfg, params, graphs=True)
+    pool = engine.pool
+    assert pool._graph is not None
+    leaves = _leaf_list(pool.cache)
+    ptrs = [t.data_ptr() for t in leaves]
+    with torch.inference_mode():
+        assert engine._admit() == [fork]
+        assert pool.prefix_stats.hits == 1 and fork.prefix_tokens > 0
+        slot = pool.slot_req.index(fork)
+        entry = int(pool._host_lengths[slot]) // pool.kv_block_size
+        shared = int(pool.block_tables[slot, entry])
+        assert pool.allocator.is_shared(shared)
+        before = [t[:, shared].clone() for t in leaves]
+        pool._decode_begin()
+        assert pool.prefix_stats.cow_splits == 1
+        assert int(pool.block_tables[slot, entry]) != shared
+        assert [t.data_ptr() for t in leaves] == ptrs
+        saved = [t.clone() for t in leaves]
+        pool._graph.replay()
+        graph_logits = pool._graph_out[0].clone()
+        assert all(torch.equal(t[:, shared], b) for t, b in zip(leaves, before))
+        for dst, src in zip(leaves, saved):
+            dst.copy_(src)
+        eager_logits = pool._decode_fn()[0]
+    torch.cuda.synchronize()
+    assert torch.equal(graph_logits, eager_logits)
+    assert bool(torch.isfinite(graph_logits).all())
+
+    streams = []
+    for graphs in (True, False):
+        engine, fork = _fork_setup(cfg, params, graphs)
+        engine.run_to_completion()
+        assert engine.pool.prefix_stats.cow_splits >= 1
+        streams.append(fork.output)
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.gpu
+def test_cow_guard_is_what_keeps_shared_pages_unwritten():
+    """Break the copy-on-write guard on purpose: the fork's first decode
+    step then writes its new token into the page the prefix index (and the
+    finished request's transcript) shares. With the guard the page is
+    split first and stays as it was. The fork continues with another token
+    than its parent did (a greedy fork would write the very bytes the page
+    holds), so that a write into the shared row shows."""
+    _need_card()
+    cfg, params = _reduced("gemma-2b", "bfloat16")
+    written = {}
+    for guard in (True, False):
+        engine, fork = _fork_setup(cfg, params, graphs=True)
+        pool = engine.pool
+        if not guard:
+            pool._cow_guard = lambda: None
+        with torch.inference_mode():
+            engine._admit()
+            slot = pool.slot_req.index(fork)
+            pool._host_cur_token[slot] = (pool._host_cur_token[slot] + 1) % cfg.vocab_size
+            entry = int(pool._host_lengths[slot]) // pool.kv_block_size
+            shared = int(pool.block_tables[slot, entry])
+            before = [t[:, shared].clone() for t in _leaf_list(pool.cache)]
+            pool.decode_once()
+        torch.cuda.synchronize()
+        written[guard] = not all(torch.equal(t[:, shared], b)
+                                 for t, b in zip(_leaf_list(pool.cache), before))
+        assert pool.prefix_stats.cow_splits == (1 if guard else 0)
+    assert written == {True: False, False: True}
+
+
+@pytest.mark.gpu
+def test_fused_event_replay_equals_serial_on_the_card():
+    """A 4-replica reduced gemma-2b fleet (fp32, the reduced config's own
+    dtype; one weight set) on the event engine: the batched dispatch, the tuple dispatch and the serial
+    engine replay byte-identically, every decode pool steps through its
+    own captured graph, and the launch invariant holds across the pools."""
+    _need_card()
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.traces import TracedRequest
+    from repro_torch.hw import H200_SXM
+
+    cfg, params = _reduced("gemma-2b", "float32")
+    spec = FleetSpec(replicas=tuple(
+        ReplicaSpec(name=f"r{i}", arch="gemma-2b", clock=ClockSpec(mode="lock"),
+                    decode=PoolSpec(batch=2), max_seq_len=64, prefill_chunk_tokens=64)
+        for i in range(4)), router="jsq")
+    rng = np.random.default_rng(0)
+    trace = [TracedRequest(arrival_s=1e-4 * (i % 3), prompt=rng.integers(1, 100, 16)
+                           .astype(np.int32), max_new_tokens=6, bucket="mixed")
+             for i in range(12)]
+    layers = sum(st.n_units * len(st.unit) for st in cfg.stages)
+    blobs = {}
+    for mode, opts in (("batched", {"fast_path_min": 2}),
+                       ("tuple", {"fast_path_min": 2, "batch_replicas": False}),
+                       ("serial", {"fast_path_min": 99, "batch_replicas": False})):
+        fleet = Fleet.from_spec(spec, emodel=EnergyModel(H200_SXM), params_for={"gemma-2b": params},
+                                device="cuda")
+        before = {fn.__name__: fn.launches for fn in COUNTED_KERNELS}
+        done = sorted(fleet.run_trace(trace, engine_opts=opts), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        pools = [r.decode_pool for r in fleet.replicas]
+        got = sum(fn.launches - before[fn.__name__] for fn in COUNTED_KERNELS
+                  if fn.__name__ == "decode_attention")
+        got += sum(p.graph_replays * p.captured_launches.get("decode_attention", 0)
+                   for p in pools)
+        assert got == layers * sum(r.decode_stats.decode_steps for r in fleet.replicas)
+        assert all(p.graph_replays == p.stats.decode_steps - 1 for p in pools)
+        st = fleet.last_engine_stats
+        assert (st.fused_decode_calls > 0) == (mode != "serial")
+        blobs[mode] = [(r.output, r.ledger.first_token_s, r.ledger.finish_s, r.decode_j)
+                       for r in done]
+    assert blobs["batched"] == blobs["tuple"] == blobs["serial"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4, 16])
+def test_fold_of_the_fused_decode(k):
+    """The fold measurement on a reduced bf16 gemma-2b: K member caches of
+    B = 8 rows stepped as K member steps (what the fused dispatch runs) and
+    as one step folded to batch K x B give logits within the bf16
+    tolerance; whether they are bitwise equal is what ``chip_smoke.py``
+    measures at full width."""
+    _need_card()
+    cfg, params = _reduced("gemma-2b", "bfloat16")
+    b, l = 8, 64
+    g = torch.Generator(device="cuda").manual_seed(k)
+    cache = init_cache(cfg, k * b, l, device="cuda")
+    for t in _leaf_list(cache):
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda") * 0.5)
+    lengths = torch.randint(1, l - 1, (k * b,), generator=g, device="cuda", dtype=torch.int32)
+    tokens = torch.randint(1, cfg.vocab_size, (k * b,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    members = [[t[:, i * b:(i + 1) * b].clone() for t in _leaf_list(cache)] for i in range(k)]
+
+    def rebuild(flat):
+        it = iter(flat)
+        return {"stages": [{name: {key: next(it) for key in blk} for name, blk in st.items()}
+                           for st in cache["stages"]]}
+
+    with torch.inference_mode():
+        folded = decode_step(params, cfg, tokens, cache, lengths)[0]
+        member = torch.cat([decode_step(params, cfg, tokens[i * b:(i + 1) * b],
+                                        rebuild(members[i]), lengths[i * b:(i + 1) * b])[0]
+                            for i in range(k)])
+    torch.testing.assert_close(folded, member, rtol=2e-2, atol=2e-2)

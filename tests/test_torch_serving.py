@@ -194,9 +194,13 @@ def test_temperature_sampling_is_seeded(weights):
 
 
 def test_prefix_sharing_is_refused(weights):
-    _, _, cfg, tp = weights
-    with pytest.raises(NotImplementedError):
-        TEngine(cfg, tp, paged=True, prefix_sharing=True, device="cpu")
+    """As in the reference: prefix sharing needs the paged cache."""
+    jcfg, jp, cfg, tp = weights
+    with pytest.raises(ValueError, match="requires paged=True") as ref:
+        JEngine(jcfg, jp, prefix_sharing=True)
+    with pytest.raises(ValueError, match="requires paged=True") as got:
+        TEngine(cfg, tp, prefix_sharing=True, device="cpu")
+    assert str(got.value) == str(ref.value)
 
 
 def test_engine_defaults_to_cuda(weights):
