@@ -83,6 +83,28 @@ def write_csv(name: str, header: Sequence[str], rows: Iterable[Sequence]) -> str
     return path
 
 
+class RecipeViolation(RuntimeError):
+    """A recipe's own checks failed; ``violations`` lists each one. A caller
+    that catches this, and not ``RuntimeError``, lets every other error (a
+    CUDA error among them) through as it is."""
+
+    def __init__(self, violations):
+        super().__init__("; ".join(violations))
+        self.violations = list(violations)
+
+
+def check_vocab(trace, archs, *, full_config: bool = False) -> None:
+    """Refuse a trace with a prompt id at or past any replica's vocabulary
+    (the configs the pools run): on a card such an id is a device-side
+    assert in the embedding gather, not an error the replay could report."""
+    top = max((int(t.prompt.max()) for t in trace if len(t.prompt)), default=-1)
+    for arch in dict.fromkeys(archs):
+        vocab = (get_config(arch) if full_config else reduced_config(arch)).vocab_size
+        if top >= vocab:
+            raise ValueError(f"trace holds prompt id {top}, past {arch}'s vocabulary "
+                             f"of {vocab}")
+
+
 def h200_model() -> EnergyModel:
     return EnergyModel(H200_SXM)
 

@@ -50,6 +50,7 @@ import time
 from typing import Any, Callable, Mapping, Optional
 
 from repro_torch.benchmarks.common import (
+    RecipeViolation,
     h200_model,
     random_params,
     write_bench_json,
@@ -176,14 +177,6 @@ def replay(config: str, trace, params_for: Mapping[str, Any], *, n: int = N_REPL
         "engine_stats": fleet.last_engine_stats.as_dict(),
     }
     return metrics, (stream, hashlib.sha256(blob.encode()).hexdigest()), wall_s, fleet, done
-
-
-class RecipeViolation(RuntimeError):
-    """The recipe's own checks failed; ``violations`` lists each one."""
-
-    def __init__(self, violations):
-        super().__init__("; ".join(violations))
-        self.violations = list(violations)
 
 
 def _check_conservation(m, violations, tag):

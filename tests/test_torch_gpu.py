@@ -12,7 +12,9 @@ a two-replica ``Fleet`` replayed twice; prefix sharing on the card (the
 paged kernel over tables whose rows share pages, a prefix hit and a
 copy-on-write split into a captured decode graph, the guard broken on
 purpose), a fused event replay equal to its serial replay, and the fold of
-the fused decode.
+the fused decode; the fleet recipes' fleets (the autoscaled fleet powering
+replicas down and up under captured graphs, the homogeneous paged fleet),
+graph against eager.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -1049,3 +1051,126 @@ def test_fold_of_the_fused_decode(k):
                                         rebuild(members[i]), lengths[i * b:(i + 1) * b])[0]
                             for i in range(k)])
     torch.testing.assert_close(folded, member, rtol=2e-2, atol=2e-2)
+
+
+# ------------------------------------------- the fleet recipes' fleets on the card
+def _decode_launches(fleet, name, before):
+    """``name``'s launches since ``before`` across the fleet's decode pools:
+    eager launches plus graph replays x the launches each capture recorded."""
+    fn = next(f for f in COUNTED_KERNELS if f.__name__ == name)
+    return fn.launches - before + sum(r.decode_pool.graph_replays
+                                      * r.decode_pool.captured_launches.get(name, 0)
+                                      for r in fleet.replicas)
+
+
+@pytest.mark.gpu
+def test_autoscaled_fleet_keeps_graphs_across_power_cycles(monkeypatch):
+    """``serve_autoscale``'s fleet (four dense reduced qwen3-4b replicas on
+    one weight set, fp32) under its ``schedule`` autoscaler on the smoke
+    trace, decode steps within one modelled step of each other fused from
+    two members up (the recipe's own options fuse only same-instant steps
+    of four, which its trace never lines up): a replica powered down and up
+    again replays the graph it captured before (one capture per pool, every
+    cache leaf at the address it had when the replica powered up), fused
+    groups of changing size form from the powered members, kernel 1
+    launches layers x decode steps, and the streams equal the eager
+    replay's."""
+    _need_card()
+    from repro_torch.benchmarks import serve_autoscale as sa
+    from repro_torch.serving import Replica
+    from repro_torch.serving.pool import Pool
+
+    cfg, params = _reduced(sa.ARCH, "float32")
+    tbt_s, ttft_s, replica_rps, t_dec = sa.autoscale_targets(sa.h200_model())
+    rate = sa.RATE_X * replica_rps
+    period_s = 120 / rate / 2.0
+    scaler = sa.autoscaler_spec("schedule", t_dec=t_dec, replica_rps=replica_rps,
+                                period_s=period_s, tbt_s=tbt_s)
+    spec = sa.fleet_spec("schedule", tbt_s, ttft_s, scaler)
+    trace = sa.make_trace(120, rate, period_s)
+    captures, ups = {}, []
+    capture, power_up = Pool._capture, Replica.power_up
+
+    def counted_capture(self, stream):
+        captures[id(self)] = captures.get(id(self), 0) + 1
+        capture(self, stream)
+
+    def noted_power_up(self, warmup_s=0.0):
+        pool = self.decode_pool
+        ups.append((self, pool._graph, pool.graph_replays,
+                    pool.cache is not None and [t.data_ptr() for t in _leaf_list(pool.cache)]))
+        power_up(self, warmup_s)
+
+    monkeypatch.setattr(Pool, "_capture", counted_capture)
+    monkeypatch.setattr(Replica, "power_up", noted_power_up)
+    layers = sum(st.n_units * len(st.unit) for st in cfg.stages)
+    streams = {}
+    for graphs in (True, False):
+        fleet = Fleet.from_spec(spec, emodel=sa.h200_model(), params_for={sa.ARCH: params},
+                                device="cuda")
+        pools = [r.decode_pool for r in fleet.replicas]
+        for p in pools:
+            p.cuda_graphs = graphs
+        ups.clear()
+        before = decode_attention.launches
+        done = sorted(fleet.run_trace(trace, engine_opts={
+            "fast_path_min": 2, "fusion_quantum_s": t_dec, "time_dispatch": True}),
+                      key=lambda r: (r.ledger.arrival_s, r.uid))
+        torch.cuda.synchronize()
+        assert len(done) == 120
+        assert _decode_launches(fleet, "decode_attention", before) == layers * sum(
+            p.stats.decode_steps for p in pools)
+        st = fleet.last_engine_stats
+        assert st.fused_decode_calls > 0 and len(st.fused_decode_wall) >= 2
+        actions = [e.action for e in fleet.scale_events]
+        assert "power_down" in actions and "power_up" in actions
+        if graphs:
+            assert all(captures.get(id(p), 0) == (p.stats.decode_steps >= 2) for p in pools)
+            assert all(p.graph_replays == max(p.stats.decode_steps - 1, 0) for p in pools)
+            rewoken = [(r, g, ptrs) for r, g, n, ptrs in ups
+                       if g is not None and r.decode_pool.graph_replays > n]
+            assert rewoken
+            for r, g, ptrs in rewoken:
+                assert r.decode_pool._graph is g
+                assert [t.data_ptr() for t in _leaf_list(r.decode_pool.cache)] == ptrs
+        else:
+            assert all(p.graph_replays == 0 and p._graph is None for p in pools)
+        streams[graphs] = [(r.replica, r.output) for r in done]
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+def test_homogeneous_paged_fleet_on_the_card():
+    """``serve_fleet``'s GQA monoculture (three paged reduced qwen3-4b
+    replicas on one weight set, fp32) behind affinity routing on the smoke
+    trace: paged groups are stepped one pool at a time even where fusion is
+    allowed from two members (as in the reference's engine), kernel 2
+    launches layers x decode steps, and the graph replay's streams equal
+    the eager replay's."""
+    _need_card()
+    from repro_torch.benchmarks import serve_fleet as sf
+
+    cfg, params = _reduced(sf.HOMO_ARCHS[0], "float32")
+    tbt_s, ttft_s, rate = sf.fleet_targets(sf.h200_model(), sf.HET_ARCHS)
+    spec = sf.fleet_spec(sf.HOMO_ARCHS, "affinity", "lock", tbt_s, ttft_s)
+    trace = sf.make_trace(120, rate)
+    layers = sum(st.n_units * len(st.unit) for st in cfg.stages)
+    streams = {}
+    for graphs in (True, False):
+        fleet = Fleet.from_spec(spec, emodel=sf.h200_model(),
+                                params_for={sf.HOMO_ARCHS[0]: params}, device="cuda")
+        for r in fleet.replicas:
+            r.decode_pool.cuda_graphs = graphs
+        before = paged_decode_attention.launches
+        done = sorted(fleet.run_trace(trace, engine_opts={"fast_path_min": 2}),
+                      key=lambda r: (r.ledger.arrival_s, r.uid))
+        torch.cuda.synchronize()
+        assert len(done) == 120 and len({r.replica for r in done}) == 3
+        steps = sum(r.decode_stats.decode_steps for r in fleet.replicas)
+        assert _decode_launches(fleet, "paged_decode_attention", before) == layers * steps
+        st = fleet.last_engine_stats
+        assert st.fused_decode_calls == 0 and st.serial_decode_calls == steps
+        assert all(r.decode_pool.graph_replays == (max(r.decode_stats.decode_steps - 1, 0)
+                                                   if graphs else 0) for r in fleet.replicas)
+        streams[graphs] = [(r.replica, r.output) for r in done]
+    assert streams[True] == streams[False]

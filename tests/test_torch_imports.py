@@ -33,7 +33,8 @@ SERVING_MODULES = (
     "repro_torch.serving.engine", "repro_torch.serving.events",
     "repro_torch.benchmarks.common", "repro_torch.benchmarks.serve_cluster",
     "repro_torch.benchmarks.serve_trace", "repro_torch.benchmarks.serve_prefix",
-    "repro_torch.benchmarks.serve_events",
+    "repro_torch.benchmarks.serve_events", "repro_torch.benchmarks.serve_fleet",
+    "repro_torch.benchmarks.serve_autoscale",
 )
 
 
