@@ -68,8 +68,14 @@ Phases; any failure exits non-zero:
    steps, as eager launches + replays x captured launches; scan layers x
    prefill calls; every other kernel never), and each phase prints its
    seconds;
-11. print throughput, memory, sampled power/clocks, the kernels' JSON line and,
-   last, ``{"ok": true, "device": {...}}``.
+11. ``[paper]``: every analytic table and figure driver of the paper
+   (Table 1, Figs 1-4, the hypotheses, the policy table, ``tpu_native`` on
+   the v5e, ``roofline_report``) through its own ``run``, the recipes'
+   verdicts asserted; ``tpu_native``'s ``H100_SXM`` table printed;
+   ``kernels_micro`` on the card (four fp32 kernels against their plain
+   versions, CUDA-event times), its launches counted; the card's clock and
+   power surface printed beside ``H100_SXM``'s fields;
+12. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
 of this checkout and of the checkout in DIR (another commit, unpacked with
@@ -1225,6 +1231,9 @@ def main() -> int:
     prefix_phase(torch, kmod, records)
     events_phase(torch, kmod, records)
 
+    # ---- 11. the paper's analysis drivers and kernels_micro
+    paper_phase(torch, kmod, records)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": [records[name] for name in COUNTED]}))
@@ -1830,6 +1839,101 @@ def events_phase(torch, kmod, records) -> None:
     del params
     torch.cuda.empty_cache()
     print(f"[events] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# the verdicts ``[paper]`` asserts: driver -> substrings of its ``derived``
+PAPER_VERDICTS = {
+    "table1_power_cap": ("actual_clock_always=1830MHz", "any_cap_engaged=False"),
+    "fig1_roofline": ("all_decode_memory_bound=True",),
+    "fig3_pareto": ("lock_dominates_all=True;configs_checked=10",),
+    "hypotheses": ("confirmed=4;qualified=2",),
+    "tpu_native": ("any_cap_engaged=True;savings_min=23.6%;savings_max=29.3%",),
+}
+# the card's own clock and power surface, printed beside H100_SXM's fields
+SMI_SURFACE = "name,power.limit,power.min_limit,power.max_limit,clocks.max.sm"
+
+
+def supported_graphics_clocks() -> list:
+    """The graphics clocks ``nvidia-smi`` lists as supported (MHz, over
+    every memory clock), highest first; an entry it cannot read (``[N/A]``)
+    is kept as it prints it."""
+    out = subprocess.run(["nvidia-smi", "--query-supported-clocks=gr",
+                          "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True).stdout.split()
+    nums = sorted({int(x) for x in out if x.isdigit()}, reverse=True)
+    return nums + sorted({x for x in out if not x.isdigit()})
+
+
+def paper_phase(torch, kmod, records) -> None:
+    """Phase 11, ``[paper]``: every analytic table and figure driver of
+    ``repro_torch.benchmarks`` through its ``run`` (CSVs into a temporary
+    directory), the recipes' verdicts asserted (``PAPER_VERDICTS``);
+    ``tpu_native.run(chip="h100-sxm")``'s rows printed; ``kernels_micro.run``
+    on the card (four fp32 kernels held against their plain versions at
+    5e-5 / 2e-4, timed with CUDA events), each counted wrapper's launches
+    checked against ``kernels_micro.LAUNCHES`` and added to ``records``; the
+    card's clock and power surface beside ``H100_SXM``'s fields."""
+    import os
+    import tempfile
+
+    from repro_torch.benchmarks import (
+        fig1_roofline,
+        fig2_heatmaps,
+        fig3_pareto,
+        fig4_request_energy,
+        hypotheses_bench,
+        kernels_micro,
+        policy_bench,
+        roofline_report,
+        table1_power_cap,
+        tpu_native,
+    )
+    from repro_torch.hw import H100_SXM
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        os.environ["REPRO_BENCH_OUT"] = out
+        for mod in (table1_power_cap, fig1_roofline, fig2_heatmaps, fig3_pareto,
+                    fig4_request_energy, hypotheses_bench, policy_bench, tpu_native,
+                    roofline_report):
+            for name, us, derived in mod.run():
+                print(f"[paper] {name}: {derived} ({us:.0f} us host)")
+                for verdict in PAPER_VERDICTS.get(name, ()):
+                    if verdict not in derived:
+                        raise SystemExit(f"[paper] {name}: {verdict!r} not in {derived!r}")
+        [(name, _, derived)] = tpu_native.run(chip="h100-sxm")
+        print(f"[paper] {name} (H100_SXM model): {derived}")
+        for line in Path(out, "h100_native.csv").read_text().splitlines():
+            print(f"[paper] h100_native.csv {line}")
+
+        zero_counts(torch, kmod)
+        rows = kernels_micro.run(device="cuda")
+        torch.cuda.synchronize()
+        del os.environ["REPRO_BENCH_OUT"]
+    got = {name: getattr(kmod, name).launches for name in COUNTED}
+    want = dict.fromkeys(COUNTED, 0)
+    for _, _, _, counted, _ in kernels_micro.KERNELS.values():
+        want[counted] = kernels_micro.LAUNCHES
+    if got != want:
+        raise SystemExit(f"[paper] kernels_micro: launches {got} != {want}")
+    for name, n in got.items():
+        records[name]["launches"] += n
+    for name, us, derived in rows:
+        fields = dict(kv.split("=", 1) for kv in derived.split(";") if "=" in kv)
+        if fields["ran"] != "cuda" or not float(fields["max_abs_err"]) <= float(fields["tol"]):
+            raise SystemExit(f"[paper] {name}: {derived}")
+        print(f"[paper] kernels_micro {name}: kernel {us:.3f} us, plain {fields['ref_us']} us "
+              f"(CUDA events, {kernels_micro.ITERS} calls after {kernels_micro.WARMUP}); "
+              f"{derived}")
+
+    print(f"[paper] card ({SMI_SURFACE}): {nvidia_smi(SMI_SURFACE)}")
+    clocks = supported_graphics_clocks()
+    print(f"[paper] card supported graphics clocks (MHz), {len(clocks)}: {clocks}")
+    spec = dataclasses.asdict(H100_SXM)
+    print("[paper] H100_SXM (data sheet: peak_flops_bf16, peak_flops_vpu, hbm_bw, "
+          "hbm_capacity, ici_bw, ici_links, tdp; the rest assumed from H200_SXM): "
+          + json.dumps({k: (list(v) if isinstance(v, tuple) else v) for k, v in spec.items()}))
+    print(f"[paper] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_launches(arch, what, paged, n_layers, stats, info) -> None:

@@ -1,22 +1,26 @@
 """Shared benchmark plumbing of the port: the perf-record JSON writer, the
-CSV writer and the energy-model fixture, copied from the parts of the
-reference's ``benchmarks/common.py`` the serving benchmarks use (that module
-imports ``repro.core``, which loads JAX), and the benchmarks' random
-weights."""
+CSV writer, the timer and the model and energy-model fixtures, copied from
+the reference's ``benchmarks/common.py`` (that module imports
+``repro.core``, which loads JAX), the ``H100_SXM`` energy model, and the
+benchmarks' random weights."""
 from __future__ import annotations
 
 import csv
 import json
 import os
-from typing import Any, Dict, Iterable, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.paper_models import PAPER_MODELS
 from repro_torch.core.energy import EnergyModel
 from repro_torch.device import resolve_device
-from repro_torch.hw import H200_SXM
+from repro_torch.hw import H100_SXM, H200_SXM, TPU_V5E
 from repro_torch.models import init_params
+
+Row = Tuple[str, float, str]  # (name, us_per_call, derived)
 
 # version of the committed perf-record layout; bump on breaking field changes
 BENCH_SCHEMA_VERSION = 1
@@ -71,6 +75,12 @@ def write_bench_json(
     return path
 
 
+def timed(fn: Callable, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, (time.perf_counter() - t0) * 1e6
+
+
 def write_csv(name: str, header: Sequence[str], rows: Iterable[Sequence]) -> str:
     out = results_dir()
     os.makedirs(out, exist_ok=True)
@@ -105,8 +115,22 @@ def check_vocab(trace, archs, *, full_config: bool = False) -> None:
                              f"of {vocab}")
 
 
+def paper_models():
+    return {k: v() for k, v in PAPER_MODELS.items()}
+
+
 def h200_model() -> EnergyModel:
     return EnergyModel(H200_SXM)
+
+
+def v5e_model() -> EnergyModel:
+    return EnergyModel(TPU_V5E)
+
+
+def h100_model() -> EnergyModel:
+    """The energy model of the card the port runs on (``hw/h100.py``: data
+    sheet ceilings, the power surface assumed from the H200)."""
+    return EnergyModel(H100_SXM)
 
 
 def random_params(arch: str, *, full_config: bool = False, device="cuda"):

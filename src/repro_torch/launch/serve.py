@@ -4,8 +4,8 @@ Counterpart of ``repro.launch.serve``: the engine serves requests while a
 PowerSampler integrates a *modelled* power trace per phase under a chosen
 DVFS lever, and the result reports J/token per phase and the clock a
 static lock would pick, per the policy table. The energy figures are the
-analytic model's for ``chip`` (default the paper's H200 SXM), not readings
-of the card the model runs on.
+analytic model's for ``chip`` (default the paper's H200 SXM; ``h100-sxm``
+is the port's ``H100_SXM``), not readings of the card the model runs on.
 
 Run: ``python -m repro_torch.launch.serve --arch gemma-2b`` (a CUDA card;
 ``--device cpu`` runs the plain PyTorch path).
@@ -24,7 +24,7 @@ from repro_torch.core.metering import EnergyMeter
 from repro_torch.core.policy import best_clock
 from repro_torch.core.workload import decode_workload, prefill_workload
 from repro_torch.device import resolve_device
-from repro_torch.hw.chips import get_chip
+from repro_torch.hw import get_chip
 from repro_torch.models import init_params
 from repro_torch.serving import ServingEngine
 from repro_torch.training import make_prompts

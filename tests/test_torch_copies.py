@@ -41,6 +41,8 @@ VERBATIM = [
     "serving/paged_cache.py", "serving/controller.py",
     "core/traces.py", "serving/spec.py", "serving/router.py", "serving/autoscaler.py",
     "serving/prefix.py",
+    "core/pareto.py", "core/crossover.py", "core/characterize.py", "core/hypotheses.py",
+    "hw/roofline.py", "core/__init__.py",
     "configs/__init__.py", "configs/registry.py", "configs/shapes.py",
     "configs/paper_models.py", "configs/gemma_2b.py", "configs/gemma2_9b.py",
     "configs/mamba2_780m.py", "configs/minicpm_2b.py", "configs/musicgen_large.py",

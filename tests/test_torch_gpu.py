@@ -14,7 +14,7 @@ copy-on-write split into a captured decode graph, the guard broken on
 purpose), a fused event replay equal to its serial replay, and the fold of
 the fused decode; the fleet recipes' fleets (the autoscaled fleet powering
 replicas down and up under captured graphs, the homogeneous paged fleet),
-graph against eager.
+graph against eager; ``kernels_micro`` over four of the kernels.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -1174,3 +1174,27 @@ def test_homogeneous_paged_fleet_on_the_card():
                                                    if graphs else 0) for r in fleet.replicas)
         streams[graphs] = [(r.replica, r.output) for r in done]
     assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+def test_kernels_micro_on_the_card(tmp_path, monkeypatch):
+    """``kernels_micro.run`` on the card: each of its four fp32 kernels
+    launched (no plain fallback: the counted wrapper's launches rise by
+    ``LAUNCHES``), within its tolerance of the plain version, timed with
+    CUDA events; the CSV written where ``REPRO_BENCH_OUT`` points."""
+    _need_card()
+    from repro_torch.benchmarks import kernels_micro as km
+
+    monkeypatch.setenv("REPRO_BENCH_OUT", str(tmp_path))
+    before = {name: getattr(km.kmod, c).launches
+              for name, (_, _, _, c, _) in km.KERNELS.items()}
+    rows = km.run(device="cuda")
+    torch.cuda.synchronize()
+    assert [r[0] for r in rows] == [v[0] for v in km.KERNELS.values()]
+    for (row, us, derived), (name, (_, _, _, counted, tol)) in zip(rows, km.KERNELS.items()):
+        fields = dict(kv.split("=", 1) for kv in derived.split(";") if "=" in kv)
+        assert fields["ran"] == "cuda" and int(fields["launches"]) == km.LAUNCHES, derived
+        assert float(fields["max_abs_err"]) <= tol and us > 0, derived
+        assert getattr(km.kmod, counted).launches - before[name] == km.LAUNCHES
+    assert (tmp_path / "kernels_micro.csv").read_text().splitlines()[0] == \
+        "kernel,kernel_us,ref_us"
