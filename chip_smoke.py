@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card (an H100).
 
-    python3 chip_smoke.py [--against DIR]
+    python3 chip_smoke.py [--against DIR [--steps ARCH ...]]
 
 Phases; any failure exits non-zero:
 1. device: name, count, ``nvidia-smi`` name and power limit;
@@ -11,25 +11,32 @@ Phases; any failure exits non-zero:
    instructions;
 3. hold each kernel (GQA decode attention, MLA latent decode, dense and
    paged; the SSD and gated-delta-rule prefill scans) against its plain
-   PyTorch version on the card, at the main paths' shapes and others, and
+   PyTorch version on the card, at the main paths' shapes and others (GQA
+   also with the logit softcap and the sliding window, whole splits and
+   pages below the window among them), and
    time kernel, plain version and, where one PyTorch call computes the same
    function, that call (``F.scaled_dot_product_attention``; yardstick only,
    the port never calls it) beside the bound;
 4. for each served model -- full-width gemma-2b (GQA), minitron-4b-mla
    (absorbed MLA), mamba2-4b (Mamba2 SSD), gdn-4b (Gated DeltaNet),
-   qwen3-4b (GQA, G = 4) and minitron-4b (GQA, G = 3), random weights from
-   a seeded generator -- serve through ``ServingEngine`` with a lock-mode
+   qwen3-4b (GQA, G = 4), minitron-4b (GQA, G = 3), gemma2-9b (GQA with
+   softcaps and a sliding window), deepseek-v2-lite-16b (absorbed MLA and
+   routed MoE) and zamba2-1.2b (Mamba2 with a shared attention block),
+   random weights from a seeded generator -- serve through
+   ``ServingEngine`` with a lock-mode
    ``ClockController``, dense then paged, each with the pool's decode step
    replayed from a CUDA graph (after one eager step) and then eager on the
    same prompts: greedy streams equal, step times, profiles and capture
    cost side by side, kernel launches counted (a model's decode kernel
-   once per layer and decode step, as eager launches plus graph replays x
-   the launches captured; its prefill scan once per layer and prefill
-   call; every other kernel never); one decode step's logits graph vs
-   eager on copies of one cache, and kernel path vs plain path (for the
-   recurrent models the prefill logits, the final states and one decode
-   step after them); then fp32 graph and eager engines whose dense and
-   paged greedy streams must all agree;
+   once per attention layer and decode step, as eager launches plus graph
+   replays x the launches captured; its prefill scan once per recurrent
+   layer and prefill call; every other kernel never); one decode step's
+   logits graph vs eager on copies of one cache, and kernel path vs plain
+   path (for the recurrent models the prefill logits, the final states and
+   one decode step after them); then fp32 graph and eager engines whose
+   dense and paged greedy streams must all agree; for gemma2-9b also two
+   requests of ~4200 tokens in a cache of 8192, past its 4096 window,
+   dense and paged, kernel vs plain logits over three decode steps;
 5. ``[cluster]``: the phase-disaggregated ``Cluster`` (a prefill pool handing
    its cache rows to a paged decode pool whose step is a CUDA graph) on
    ``serve_cluster``'s recipe at full width, driven through the recipe's
@@ -81,13 +88,17 @@ With ``--against DIR`` it runs none of these phases: it builds the kernels
 of this checkout and of the checkout in DIR (another commit, unpacked with
 ``git archive``) and times each kernel's main case for both on the same
 inputs, in three rounds of turns, one JSON line per kernel with each
-side's median.
+side's median; with ``--steps ARCH ...`` also each ARCH's phase-4 bf16
+decode step (graph), dense and paged, for both checkouts in turns (DIR,
+this, this, DIR), each turn a process of its own: step ms, replay device
+ms, profiled device ms and kernels a step, each side's mean.
 
 Imports neither ``jax`` nor ``repro``. Exits 2 without a CUDA card or outside
 a checkout of the repository.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -114,8 +125,11 @@ SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, r
 # for gemma-2b, 32 for minitron-4b-mla and minitron-4b, 36 for qwen3-4b
 # (gemma-2b's 0.25 was set at ~2.5x its observed 0.094; qwen3-4b's and
 # minitron-4b's likewise, from their observed 0.094 and 0.117)
+# gemma2-9b's final softcap bounds its logits to +-30; deepseek-v2-lite-16b
+# as minitron-4b-mla; zamba2-1.2b as the recurrent models
 LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5,
-                   "qwen3-4b": 0.25, "minitron-4b": 0.3}
+                   "qwen3-4b": 0.25, "minitron-4b": 0.3, "gemma2-9b": 0.25,
+                   "deepseek-v2-lite-16b": 0.5, "zamba2-1.2b": 0.5}
 # The recurrent models' kernels sit in prefill, where a difference at one
 # position is carried by the state to every later one, at every layer. In
 # bf16 these random-weight stacks amplify any rounding difference: a plain
@@ -147,8 +161,8 @@ SOURCES = {
     "gdn_scan": ("src/repro_torch/kernels/csrc/gdn_scan.cu", "src/repro/kernels/gdn/gdn.py:62"),
 }
 # served model -> its kernels: "decode" (dense kernel, paged kernel), launched
-# once per layer and decode step; "prefill", launched once per layer and
-# prefill call
+# once per block of a decode kind and decode step; "prefill", launched once
+# per block of a scan kind and prefill call (``_n_layers``)
 MODELS = {
     "gemma-2b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
     "minitron-4b-mla": {"decode": ("mla_latent_decode", "mla_paged_latent_decode"),
@@ -157,7 +171,16 @@ MODELS = {
     "gdn-4b": {"decode": None, "prefill": "gdn_scan"},
     "qwen3-4b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
     "minitron-4b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
+    "gemma2-9b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
+    "deepseek-v2-lite-16b": {"decode": ("mla_latent_decode", "mla_paged_latent_decode"),
+                             "prefill": None},
+    "zamba2-1.2b": {"decode": ("decode_attention", "paged_decode_attention"),
+                    "prefill": "ssd_scan"},
 }
+# the long-context check of the windowed model (phase 4): two requests of
+# ~4200 tokens in a cache of max_seq_len, past the 4096 window of its local
+# layers, kernel vs plain logits at `checks` decode steps
+LONG_CONTEXT = {"gemma2-9b": {"max_seq_len": 8192, "prompt_tokens": (4150, 4250), "checks": 3}}
 # phases 5-7 (the disaggregated serving stack): the archs served there that
 # phase 4 does not serve, with their kernels as in MODELS
 STACK_MODELS = {
@@ -255,28 +278,51 @@ def cold_sets(inputs) -> list:
     return [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n_sets - 1)]
 
 
-# GQA decode attention: (name, paged, B, H, KV, Dk, Dv, L, bs, main); the
-# first of each kind is the gemma-2b decode shape at batch 8 and
-# max_seq_len 1024, the one timed
+# GQA decode attention: (name, paged, B, H, KV, Dk, Dv, L, bs, main, softcap,
+# window), softcap and window 0 unless given; the first of each kind is the
+# gemma-2b decode shape at batch 8 and max_seq_len 1024, the one timed
+Gqa = collections.namedtuple("Gqa", "name paged b h kv dk dv l bs main softcap window",
+                             defaults=(0.0, 0))
 KERNEL_CASES = (
-    ("decode_attention", False, 8, 8, 1, 256, 256, 1024, 0, True),
-    ("decode_attention", False, 2, 8, 2, 32, 16, 128, 0, False),     # GQA, Dk != Dv
-    ("decode_attention", False, 3, 6, 6, 16, 16, 96, 0, False),      # MHA
-    ("decode_attention", False, 4, 32, 8, 128, 128, 512, 0, False),  # qwen3-4b heads
-    ("decode_attention", False, 2, 16, 1, 64, 64, 300, 0, False),    # G = 16
-    ("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 16, True),
-    ("paged_decode_attention", True, 2, 8, 2, 32, 16, 48, 16, False),
-    ("paged_decode_attention", True, 3, 6, 6, 16, 16, 32, 8, False),
-    ("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 8, False),   # pages < a warp step
-    ("paged_decode_attention", True, 4, 24, 8, 128, 128, 512, 32, False),  # minitron-4b: G = 3
-    ("decode_attention", False, 12, 36, 36, 64, 64, 128, 0, False),    # minicpm-2b: G = 1
-    ("paged_decode_attention", True, 12, 36, 36, 64, 64, 128, 8, False),   # its [cluster] shape
-    ("decode_attention", False, 8, 8, 1, 256, 256, 64, 0, False),      # the [events] shape
-    ("paged_decode_attention", True, 8, 8, 1, 256, 256, 128, 16, False),   # the [prefix] shape
+    Gqa("decode_attention", False, 8, 8, 1, 256, 256, 1024, 0, True),
+    Gqa("decode_attention", False, 2, 8, 2, 32, 16, 128, 0, False),     # GQA, Dk != Dv
+    Gqa("decode_attention", False, 3, 6, 6, 16, 16, 96, 0, False),      # MHA
+    Gqa("decode_attention", False, 4, 32, 8, 128, 128, 512, 0, False),  # qwen3-4b heads
+    Gqa("decode_attention", False, 2, 16, 1, 64, 64, 300, 0, False),    # G = 16
+    Gqa("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 16, True),
+    Gqa("paged_decode_attention", True, 2, 8, 2, 32, 16, 48, 16, False),
+    Gqa("paged_decode_attention", True, 3, 6, 6, 16, 16, 32, 8, False),
+    Gqa("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 8, False),   # pages < a step
+    Gqa("paged_decode_attention", True, 4, 24, 8, 128, 128, 512, 32, False),  # minitron-4b: G 3
+    Gqa("decode_attention", False, 12, 36, 36, 64, 64, 128, 0, False),    # minicpm-2b: G = 1
+    Gqa("paged_decode_attention", True, 12, 36, 36, 64, 64, 128, 8, False),   # its [cluster] shape
+    Gqa("decode_attention", False, 8, 8, 1, 256, 256, 64, 0, False),      # the [events] shape
+    Gqa("paged_decode_attention", True, 8, 8, 1, 256, 256, 128, 16, False),   # the [prefix] shape
+    # zamba2-1.2b's shared block as phase 4 serves it (G 1, D 64)
+    Gqa("decode_attention", False, 8, 32, 32, 64, 64, 1024, 0, False),
+    Gqa("paged_decode_attention", True, 8, 32, 32, 64, 64, 1024, 16, False),
+    # the logit softcap and the sliding window. gemma2-9b's heads (G 2, D
+    # 256) with softcap 50, as phase 4 serves them; window 256 at L 1024,
+    # where whole splits and whole pages lie below the window (tc plan: 3
+    # splits of 384 keys; fp32: 9 of 114); window 100, which starts inside
+    # a page and inside a 16-key step, at gemma-2b's G 8 (16 splits of 64);
+    # zamba2's heads under a window; both at gemma2-9b's long context (its
+    # 4096 window in a cache of 8192)
+    Gqa("decode_attention", False, 8, 16, 8, 256, 256, 1024, 0, False, 50.0),
+    Gqa("paged_decode_attention", True, 8, 16, 8, 256, 256, 1024, 16, False, 50.0),
+    Gqa("decode_attention", False, 8, 16, 8, 256, 256, 1024, 0, False, 0.0, 256),
+    Gqa("paged_decode_attention", True, 8, 16, 8, 256, 256, 1024, 16, False, 0.0, 256),
+    Gqa("decode_attention", False, 8, 8, 1, 256, 256, 1024, 0, False, 0.0, 100),
+    Gqa("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 16, False, 0.0, 100),
+    Gqa("paged_decode_attention", True, 8, 8, 1, 256, 256, 1024, 8, False, 50.0, 100),
+    Gqa("decode_attention", False, 2, 32, 32, 64, 64, 256, 0, False, 0.0, 64),
+    Gqa("decode_attention", False, 8, 16, 8, 256, 256, 8192, 0, False, 50.0, 4096),
+    Gqa("paged_decode_attention", True, 8, 16, 8, 256, 256, 8192, 16, False, 50.0, 4096),
 )
 # not main cases, but timed (and printed) as well: minicpm-2b's decode at
-# the [cluster] phase's shapes, where one query row fills a 16-row MMA tile
-TIMED_EXTRA = KERNEL_CASES[-4:-2]
+# the [cluster] phase's shapes, where one query row fills a 16-row MMA tile,
+# and gemma2-9b's long context
+TIMED_EXTRA = tuple(c for c in KERNEL_CASES if (c.h, c.l) == (36, 128) or c.l == 8192)
 # kernel 2 over block tables whose rows share pages, at the [prefix] shape
 # (gemma-2b, bs 16, max_seq_len 128): per row its valid_len and its table
 # entries (page ids); rows 0-4 share a three-page trunk, rows 3 and 4 also
@@ -289,15 +335,18 @@ ALIASED_TABLES = (
 # MLA latent decode: (name, paged, B, H, rank, rope, L, bs, main); the first
 # of each kind is the minitron-4b-mla decode shape at batch 8 and
 # max_seq_len 1024, the one timed
+Mla = collections.namedtuple("Mla", "name paged b h rank rope l bs main")
 MLA_CASES = (
-    ("mla_latent_decode", False, 8, 24, 512, 64, 1024, 0, True),
-    ("mla_latent_decode", False, 8, 4, 32, 8, 128, 0, False),        # reduced config
-    ("mla_latent_decode", False, 8, 16, 512, 64, 512, 0, False),     # deepseek-v2-lite heads
-    ("mla_latent_decode", False, 4, 128, 512, 64, 256, 0, False),    # deepseek-v2-236b heads
-    ("mla_paged_latent_decode", True, 8, 24, 512, 64, 1024, 16, True),
-    ("mla_paged_latent_decode", True, 8, 4, 32, 8, 128, 16, False),
-    ("mla_paged_latent_decode", True, 8, 16, 512, 64, 512, 16, False),
-    ("mla_paged_latent_decode", True, 4, 128, 512, 64, 256, 16, False),
+    Mla("mla_latent_decode", False, 8, 24, 512, 64, 1024, 0, True),
+    Mla("mla_latent_decode", False, 8, 4, 32, 8, 128, 0, False),        # reduced config
+    Mla("mla_latent_decode", False, 8, 16, 512, 64, 512, 0, False),     # deepseek-v2-lite heads
+    Mla("mla_latent_decode", False, 4, 128, 512, 64, 256, 0, False),    # deepseek-v2-236b heads
+    Mla("mla_latent_decode", False, 8, 16, 512, 64, 1024, 0, False),    # deepseek-v2-lite served
+    Mla("mla_paged_latent_decode", True, 8, 24, 512, 64, 1024, 16, True),
+    Mla("mla_paged_latent_decode", True, 8, 4, 32, 8, 128, 16, False),
+    Mla("mla_paged_latent_decode", True, 8, 16, 512, 64, 512, 16, False),
+    Mla("mla_paged_latent_decode", True, 4, 128, 512, 64, 256, 16, False),
+    Mla("mla_paged_latent_decode", True, 8, 16, 512, 64, 1024, 16, False),
 )
 
 
@@ -325,8 +374,32 @@ SCAN_NO_LIBRARY = "no single PyTorch call computes a selective scan or a delta r
 
 def case_seed(case) -> int:
     """The seed of a kernel case's inputs, made from the case itself, so
-    that adding a case leaves every other case's inputs as they were."""
-    return zlib.crc32(repr(tuple(case)).encode())
+    that adding a case leaves every other case's inputs as they were; a GQA
+    case's softcap and window enter it only where one of them is set."""
+    key = tuple(case)
+    if isinstance(case, Gqa) and not (case.softcap or case.window):
+        key = key[:-2]
+    return zlib.crc32(repr(key).encode())
+
+
+def case_kwargs(case) -> dict:
+    """A decode case's keyword arguments: the scale, and a GQA case's
+    softcap and window where one of them is set."""
+    if isinstance(case, Mla):
+        return {"scale": MLA_SCALE}
+    kw = {"scale": 1.0 / math.sqrt(case.dk)}
+    if case.softcap or case.window:
+        kw.update(softcap=case.softcap, window=case.window)
+    return kw
+
+
+CASE_LABELS = {"b": "B", "h": "H", "kv": "KV", "dk": "Dk", "dv": "Dv", "l": "L"}
+
+
+def case_label(case) -> str:
+    """A decode case's shape, its block size, softcap and window where set."""
+    return " ".join(f"{CASE_LABELS.get(f, f)}={getattr(case, f)}" for f in case._fields[2:]
+                    if f != "main" and (f not in ("bs", "softcap", "window") or getattr(case, f)))
 
 
 def _valid_lens(torch, g, b, l):
@@ -351,7 +424,7 @@ def _tables(torch, g, valid, bs, nb, n_pages):
 
 def make_inputs(torch, case, dtype, seed):
     """Seeded inputs of one GQA case, in the kernel's argument order."""
-    _, paged, b, h, kv, dk, dv, l, bs, _ = case
+    paged, b, h, kv, dk, dv, l, bs = case[1:9]
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     valid = _valid_lens(torch, g, b, l)
@@ -532,15 +605,17 @@ def _bound(nbytes, ops, dtype):
 
 def bound(torch, case, dtype, inputs, elem):
     """(bound_ms, bound_by) of a GQA case: bytes this call must move (q, the
-    K/V rows below valid_len, valid_len, table entries read, output) over
-    HBM bandwidth, against its multiply-adds over the peak rate for the
-    input type."""
-    _, paged, b, h, kv, dk, dv, l, bs, _ = case
+    K/V rows below valid_len -- the last ``window`` of them under a window
+    --, valid_len, table entries read, output) over HBM bandwidth, against
+    its multiply-adds over the peak rate for the input type."""
+    paged, b, h, kv, dk, dv, l, bs = case[1:9]
+    window = case.window
     valid = inputs[-1].clamp(max=l).to(torch.int64)
-    keys = int(valid.sum())
+    first = (valid - window).clamp(min=0) if window else torch.zeros_like(valid)
+    keys = int((valid - first).sum())
     nbytes = b * h * dk * elem + keys * kv * (dk + dv) * elem + 4 * b + b * h * dv * elem
     if paged:
-        nbytes += 4 * int(((valid + bs - 1) // bs).sum())
+        nbytes += 4 * int(((valid + bs - 1) // bs - first // bs).sum())
     return _bound(nbytes, 2 * keys * (h // kv) * kv * (dk + dv), dtype)
 
 
@@ -594,49 +669,49 @@ def mla_sdpa(torch, F, l, scale):
 
 
 def check_kernels(torch, F, kmod):
-    """Phase 3: every case in fp32 and bf16 against the plain version; time
-    the main-path cases. Returns {kernel name: record of its main case}."""
+    """Phase 3: every case in fp32 and bf16 against the plain version, every
+    output finite; time the main-path cases and ``TIMED_EXTRA``. Returns
+    {kernel name: record of its main case}."""
     records = {}
     cases = ([(c, make_inputs, bound) for c in KERNEL_CASES]
              + [(c, make_mla_inputs, mla_bound) for c in MLA_CASES])
     for case, make, bound_fn in cases:
-        name, paged, main, l = case[0], case[1], case[-1], case[-3]
-        mla = name.startswith("mla")
+        name, paged, main, l = case.name, case.paged, case.main, case.l
         kernel = getattr(kmod, name)
         plain = getattr(kmod, name + "_ref")
-        scale = MLA_SCALE if mla else 1.0 / math.sqrt(case[5])
-        shape = " ".join(f"{k}={v}" for k, v in zip(
-            ("B", "H", "rank", "rope", "L") if mla else ("B", "H", "KV", "Dk", "Dv", "L"),
-            case[2:-2]))
+        kw = case_kwargs(case)
+        label = case_label(case)
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             inputs = make(torch, case, dtype, seed=case_seed(case))
-            out = kernel(*inputs, scale=scale)
-            want = plain(*inputs, scale=scale)
+            out = kernel(*inputs, **kw)
+            want = plain(*inputs, **kw)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
-            ok = torch.allclose(out.float(), want.float(), **TOL[dname])
-            print(f"[kernels] {name} {shape}{f' bs={case[-2]}' if paged else ''} {dname}: "
-                  f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
+            ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), want.float(),
+                                                                    **TOL[dname])
+            print(f"[kernels] {name} {label} {dname}: max_abs_err={err:.3e} tol={TOL[dname]} "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version ({dname})")
+                raise SystemExit(f"{name} {label} disagrees with its plain version ({dname})")
             if case in TIMED_EXTRA and dname == "bfloat16":
                 sets = cold_sets(inputs)
-                ms = cuda_time_ms(torch, lambda *a: kernel(*a, scale=scale), sets)[0]
-                plain_ms = cuda_time_ms(torch, lambda *a: plain(*a, scale=scale), sets)[0]
+                ms = cuda_time_ms(torch, lambda *a: kernel(*a, **kw), sets)[0]
+                plain_ms = cuda_time_ms(torch, lambda *a: plain(*a, **kw), sets)[0]
                 bound_ms, bound_by = bound_fn(torch, case, dname, inputs, out.element_size())
-                print(f"[kernels] {name} {shape} bf16 (not a main case), device ms (CUDA "
+                print(f"[kernels] {name} {label} bf16 (not a main case), device ms (CUDA "
                       f"graph): kernel {ms:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} "
-                      f"({bound_by})")
+                      f"({bound_by}); valid_len={inputs[-1].tolist()}")
                 del sets
             if not (main and dname == "bfloat16"):
                 continue
             elem = out.element_size()
+            scale = kw["scale"]
             sets = cold_sets(inputs)
-            ms, ms_eager = cuda_time_ms(torch, lambda *a: kernel(*a, scale=scale), sets)
-            plain_ms, plain_eager = cuda_time_ms(torch, lambda *a: plain(*a, scale=scale), sets)
+            ms, ms_eager = cuda_time_ms(torch, lambda *a: kernel(*a, **kw), sets)
+            plain_ms, plain_eager = cuda_time_ms(torch, lambda *a: plain(*a, **kw), sets)
             library_ms = lib_eager = None
-            if not paged and mla:
+            if not paged and isinstance(case, Mla):
                 prepare, sdpa = mla_sdpa(torch, F, l, scale)
                 lib_sets = [prepare(*a) for a in sets]
                 library_ms, lib_eager = cuda_time_ms(torch, sdpa, lib_sets)
@@ -708,14 +783,16 @@ def check_scan_kernels(torch, kmod, records) -> None:
                 del sets
 
 
-def expected_launches(arch, paged, n_layers, stats) -> dict:
-    """Each counted kernel's launches in one serving run of ``arch``."""
+def expected_launches(arch, paged, cfg, stats) -> dict:
+    """Each counted kernel's launches in one serving run of ``arch``: its
+    decode kernel once per attention layer and decode step, its prefill scan
+    once per recurrent layer and prefill call."""
     want = dict.fromkeys(COUNTED, 0)
     kernels = KERNELS_OF[arch]
     if kernels["decode"]:
-        want[kernels["decode"][paged]] = n_layers * stats.decode_steps
+        want[kernels["decode"][paged]] = _n_layers(cfg, "decode") * stats.decode_steps
     if kernels["prefill"]:
-        want[kernels["prefill"]] = n_layers * stats.prefill_calls
+        want[kernels["prefill"]] = _n_layers(cfg, "scan") * stats.prefill_calls
     return want
 
 
@@ -1015,7 +1092,7 @@ def prefill_kernel_vs_plain(torch, cfg, params, prompts) -> dict:
                     noisy = prefill(params, cfg, toks, fresh(), prompt_lengths=ln)[0].float()
                 out["noise_floor_logits_err"] = max(out["noise_floor_logits_err"],
                                                     (noisy - runs[1][0]).abs().max().item())
-                out["layers_ok"] &= tee.ok and tee.calls == _n_layers(cfg)
+                out["layers_ok"] &= tee.ok and tee.calls == _n_layers(cfg, "scan")
                 for key in ("y_err", "y_max", "state_err", "state_max"):
                     out["layer_" + key] = max(out["layer_" + key], getattr(tee, key))
             torch.cuda.synchronize()
@@ -1034,61 +1111,80 @@ def prefill_kernel_vs_plain(torch, cfg, params, prompts) -> dict:
     return out
 
 
-def _n_layers(cfg) -> int:
-    return sum(s.n_units * len(s.unit) for s in cfg.stages)
+def _n_layers(cfg, family=None) -> int:
+    """The blocks of ``cfg``: all of them, or those of the model's decode
+    kinds (``"decode"``: a decode-attention launch each decode step) or its
+    scan kinds (``"scan"``: a scan launch each prefill)."""
+    from repro_torch.models.model import DECODE_KINDS, SCAN_KINDS
+
+    kinds = {"decode": DECODE_KINDS, "scan": SCAN_KINDS}.get(family)
+    return sum(kinds is None or k in kinds for k in cfg.block_kinds_flat())
 
 
-def step_logits(torch, cfg, params, prompts, paged) -> dict:
-    """One full-batch decode step on copies of the same cache: the pool's
-    graph replayed, its step function run eagerly, and (for a model with a
-    decode kernel) the plain path. The engine first runs two steps (the
-    eager warm-up, then the capture) so that its graph exists."""
+def step_logits(torch, cfg, params, prompts, paged, *, max_seq_len=1024, checks=1) -> dict:
+    """A full-batch decode step (batch ``len(prompts)``) on copies of the
+    same cache: the pool's graph replayed, its step function run eagerly,
+    and (for a model with a decode kernel) the plain path. The engine first
+    runs two steps (the eager warm-up, then the capture) so that its graph
+    exists; with ``checks`` > 1 the pool then takes one more graph step from
+    the saved cache before each further comparison. Differences are the
+    largest over the checks."""
     from repro_torch.models import decode_step, decode_step_paged
     from repro_torch.serving import ServingEngine
 
-    engine = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, paged=paged,
-                           kv_block_size=16, device="cuda")
+    engine = ServingEngine(cfg, params, max_batch=len(prompts), max_seq_len=max_seq_len,
+                           paged=paged, kv_block_size=16, device="cuda")
     for p in prompts:
         engine.submit(p, max_new_tokens=8)
+    out = {"graph_vs_eager": 0.0, "argmax_graph_eager_equal": True}
     with torch.inference_mode():
         engine.step()
         engine.step()
         pool = engine.pool
         if pool._graph is None:
             raise SystemExit(f"{cfg.name}: no graph after two decode steps")
-        pool._decode_begin()                       # the next step's static inputs
-        saved = [t.clone() for t in _leaves(pool.cache)]
+        for check in range(checks):
+            if check:
+                restore()
+                engine.step()
+            pool._decode_begin()                   # the next step's static inputs
+            saved = [t.clone() for t in _leaves(pool.cache)]
 
-        def restore():
-            for dst, src in zip(_leaves(pool.cache), saved):
-                dst.copy_(src)
+            def restore():
+                for dst, src in zip(_leaves(pool.cache), saved):
+                    dst.copy_(src)
 
-        pool._graph.replay()
-        outs = {"graph": pool._graph_out[0].float().clone()}
-        restore()
-        outs["eager"] = pool._decode_fn()[0].float()
-        if MODELS[cfg.name]["decode"]:
+            pool._graph.replay()
+            outs = {"graph": pool._graph_out[0].float().clone()}
             restore()
-            st = pool._step_in
-            if paged:
-                lg, _, _ = decode_step_paged(params, cfg, st["tokens"], pool.cache, st["lengths"],
-                                             st["active"], st["tables"], plain=True)
-            else:
-                lg, _, _ = decode_step(params, cfg, st["tokens"], pool.cache, st["lengths"],
-                                       plain=True)
-            outs["plain"] = lg.float()
-        torch.cuda.synchronize()
-    for lg in outs.values():
-        if lg.shape != (len(prompts), cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
-            raise SystemExit(f"decode logits: shape {tuple(lg.shape)} or non-finite values")
-    out = {"graph_vs_eager": (outs["graph"] - outs["eager"]).abs().max().item(),
-           "argmax_graph_eager_equal": bool((outs["graph"].argmax(-1)
-                                             == outs["eager"].argmax(-1)).all())}
-    if "plain" in outs:
-        out["kernel_vs_plain"] = (outs["eager"] - outs["plain"]).abs().max().item()
-        out["argmax_agreement"] = (outs["eager"].argmax(-1)
-                                   == outs["plain"].argmax(-1)).float().mean().item()
-        out["max_logit"] = outs["plain"].abs().max().item()
+            outs["eager"] = pool._decode_fn()[0].float()
+            if MODELS[cfg.name]["decode"]:
+                restore()
+                st = pool._step_in
+                if paged:
+                    lg, _, _ = decode_step_paged(params, cfg, st["tokens"], pool.cache,
+                                                 st["lengths"], st["active"], st["tables"],
+                                                 plain=True)
+                else:
+                    lg, _, _ = decode_step(params, cfg, st["tokens"], pool.cache, st["lengths"],
+                                           plain=True)
+                outs["plain"] = lg.float()
+            torch.cuda.synchronize()
+            for lg in outs.values():
+                if lg.shape != (len(prompts), cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+                    raise SystemExit(f"decode logits: shape {tuple(lg.shape)} or non-finite values")
+            out["graph_vs_eager"] = max(out["graph_vs_eager"],
+                                        (outs["graph"] - outs["eager"]).abs().max().item())
+            out["argmax_graph_eager_equal"] &= bool((outs["graph"].argmax(-1)
+                                                     == outs["eager"].argmax(-1)).all())
+            if "plain" in outs:
+                agree = (outs["eager"].argmax(-1) == outs["plain"].argmax(-1)).float().mean()
+                out["kernel_vs_plain"] = max(out.get("kernel_vs_plain", 0.0),
+                                             (outs["eager"] - outs["plain"]).abs().max().item())
+                out["argmax_agreement"] = min(out.get("argmax_agreement", 1.0), agree.item())
+                out["max_logit"] = max(out.get("max_logit", 0.0),
+                                       outs["plain"].abs().max().item())
+        out["lengths"] = pool._step_in["lengths"].tolist()
     return out
 
 
@@ -1096,12 +1192,10 @@ def main_case(torch, name) -> tuple:
     """(dtype name, inputs, keyword arguments) of ``name``'s timed main case,
     as phase 3 times it."""
     for case in KERNEL_CASES + MLA_CASES:
-        if case[0] == name and case[-1]:
-            mla = name.startswith("mla")
-            make = make_mla_inputs if mla else make_inputs
-            scale = MLA_SCALE if mla else 1.0 / math.sqrt(case[5])
+        if case.name == name and case.main:
+            make = make_mla_inputs if isinstance(case, Mla) else make_inputs
             return ("bfloat16", make(torch, case, torch.bfloat16, seed=case_seed(case)),
-                    {"scale": scale})
+                    case_kwargs(case))
     cases, make = {"ssd_scan": (SSD_CASES, make_ssd_inputs),
                    "gdn_scan": (GDN_CASES, make_gdn_inputs)}[name]
     dname = SCAN_TIMED_DTYPE[name]
@@ -1162,6 +1256,69 @@ def time_against(torch, other: Path) -> None:
         del sets
 
 
+STEP_TURNS = ("against", "this", "this", "against")
+
+
+def step_turn(torch, src: Path, arch: str) -> None:
+    """One turn of ``--steps``, in a process of its own: ``arch`` served as
+    phase 4 serves it in bf16 (the same weights, prompts and warm-up; dense
+    then paged; the decode step replayed from a CUDA graph and profiled)
+    with the package in ``src``. One JSON line per layout: the steady
+    batch-8 step ms (host clock), a graph replay's device ms (CUDA events)
+    and the profiled device-busy ms and kernels a step."""
+    sys.path.insert(0, str(src))
+    from repro_torch import kernels as kmod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import make_prompts
+
+    build.build_all()
+    cfg = get_config(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    prompts = make_prompts(cfg, 8, 64, 512, seed=0)
+    warm = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, device="cuda")
+    warm.submit(prompts[0], max_new_tokens=4)
+    warm.run_to_completion()
+    del warm
+    for paged in (False, True):
+        engine, _, info = serve(torch, cfg, params, prompts, paged=paged, max_new=32,
+                                kmod=kmod, profile=True)
+        steps = info["step_ms_batch8"]
+        print(json.dumps({"arch": arch, "paged": paged, "step_ms": sum(steps) / len(steps),
+                          "replay_device_ms": info["replays_timed"]["replay_device_ms"],
+                          "device_busy_ms": info["profile"]["device_busy_ms_per_step"],
+                          "kernels_per_step": info["profile"]["kernels_per_step"]}), flush=True)
+        del engine
+
+
+def time_steps(other: Path, archs) -> None:
+    """``--steps``: each arch's ``step_turn`` for the checkout in DIR and for
+    this one, in turns (DIR, this, this, DIR), each turn a process of its
+    own (the two checkouts' packages share a name). One JSON line per turn
+    and layout, then per layout each side's mean and this over DIR."""
+    rows = []
+    for arch in archs:
+        for side in STEP_TURNS:
+            src = (other.resolve() if side == "against" else ROOT) / "src"
+            run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--step-turn",
+                                  str(src), arch], stdout=subprocess.PIPE, text=True, check=True)
+            for line in run.stdout.splitlines():
+                if line.startswith("{"):
+                    rows.append({"side": side, **json.loads(line)})
+                    print(json.dumps(rows[-1]), flush=True)
+    keys = ("step_ms", "replay_device_ms", "device_busy_ms", "kernels_per_step")
+    for arch in archs:
+        for paged in (False, True):
+            mean = {side: {k: sum(r[k] for r in rows if (r["side"], r["arch"], r["paged"])
+                                  == (side, arch, paged)) / STEP_TURNS.count(side)
+                           for k in keys} for side in ("against", "this")}
+            print(json.dumps({"steps": arch, "paged": paged, "against": str(other), "mean": mean,
+                              "this_over_against": {k: mean["this"][k] / mean["against"][k]
+                                                    for k in keys}}))
+
+
 def main() -> int:
     import argparse
 
@@ -1169,6 +1326,11 @@ def main() -> int:
     ap.add_argument("--against", type=Path, metavar="DIR",
                     help="only time every kernel's main case beside the kernels of the "
                          "checkout in DIR (e.g. a git archive of another commit)")
+    ap.add_argument("--steps", nargs="+", default=(), metavar="ARCH",
+                    help="with --against: also time each ARCH's phase-4 bf16 decode step, "
+                         "dense and paged, for both checkouts, in turns (DIR, this, this, "
+                         "DIR), each a process of its own")
+    ap.add_argument("--step-turn", nargs=2, metavar=("SRC", "ARCH"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -1181,10 +1343,14 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.step_turn:
+        step_turn(torch, Path(args.step_turn[0]), args.step_turn[1])
+        return 0
     if args.against:
         print(f"[device] {torch.cuda.get_device_name(0)}")
         print(nvidia_smi("name,power.limit"))
         time_against(torch, args.against)
+        time_steps(args.against, args.steps)
         return 0
     sys.path.insert(0, str(SRC))
 
@@ -1257,14 +1423,14 @@ def serve_model(torch, kmod, cfg, records) -> None:
     from repro_torch.training import make_prompts
 
     arch = cfg.name
-    n_layers = _n_layers(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"[serve] {arch} {cfg.param_dtype}: {n_params / 1e9:.3f} B params, "
-          f"{n_layers} layers, init {time.perf_counter() - t0:.1f} s")
+          f"{_n_layers(cfg)} layers ({_n_layers(cfg, "decode")} attention, "
+          f"{_n_layers(cfg, "scan")} recurrent), init {time.perf_counter() - t0:.1f} s")
     prompts = make_prompts(cfg, 8, 64, 512, seed=0)
     warm = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, device="cuda")
     warm.submit(prompts[0], max_new_tokens=4)
@@ -1284,7 +1450,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
                 if not (r.done and (len(r.output) == 32 or r.output[-1] == eos)):
                     raise SystemExit(f"{arch} {tag} {mode}: request {r.uid} did not finish: "
                                      f"{r.output}")
-            check_launches(arch, f"{tag} {mode}", paged, n_layers, st, info)
+            check_launches(arch, f"{tag} {mode}", paged, cfg, st, info)
             if graphs:
                 for name, n in info["launches"].items():
                     records[name]["launches"] += n
@@ -1341,11 +1507,16 @@ def serve_model(torch, kmod, cfg, records) -> None:
               + (f" (kernel vs plain atol {atol})" if "kernel_vs_plain" in cmp else ""))
         if "kernel_vs_plain" in cmp and not cmp["kernel_vs_plain"] <= atol:
             raise SystemExit(f"{arch} {tag}: kernel-path logits disagree with the plain path")
+    if arch in LONG_CONTEXT:
+        long_context_check(torch, cfg, params, **LONG_CONTEXT[arch])
 
+    # fp32: the same seed's draws, unrounded (the bf16 weights are their
+    # rounding), made after the bf16 weights are freed: deepseek-v2-lite-16b
+    # holds 62 GB in fp32
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
-    params32 = _map(lambda t: t.float(), params)
     del params
     torch.cuda.empty_cache()
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     streams = {}
     for paged in (False, True):
         tag = "paged" if paged else "dense"
@@ -1353,7 +1524,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
             engine, reqs, info = serve(torch, cfg32, params32, prompts, paged=paged, max_new=8,
                                        kmod=kmod, graphs=graphs)
             streams[tag, graphs] = [r.output for r in reqs]
-            check_launches(arch, f"fp32 {tag}", paged, n_layers, engine.stats, info)
+            check_launches(arch, f"fp32 {tag}", paged, cfg32, engine.stats, info)
             print(f"[serve] {arch} fp32 {tag} {'graph' if graphs else 'eager'}: launches "
                   f"{ {k: n for k, n in info['launches'].items() if n} }, replays "
                   f"{info['graph_replays']}, first stream {streams[tag, graphs][0]}")
@@ -1373,6 +1544,31 @@ def serve_model(torch, kmod, cfg, records) -> None:
     del params32
     torch.cuda.empty_cache()
     print(f"[serve] {arch} phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def long_context_check(torch, cfg, params, *, max_seq_len, prompt_tokens, checks) -> None:
+    """Phase 4 past the sliding window: two requests of ``prompt_tokens``
+    (lo, hi) tokens in a cache of ``max_seq_len``, dense and paged (blocks
+    of 16), graph against eager and kernel against plain logits over
+    ``checks`` decode steps, within the model's LOGIT_ATOL_BF16. At
+    ``max_seq_len`` 1024 the window is never reached."""
+    from repro_torch.training import make_prompts
+
+    t0 = time.perf_counter()
+    prompts = make_prompts(cfg, 2, *prompt_tokens, seed=7)
+    atol = LOGIT_ATOL_BF16[cfg.name]
+    for paged in (False, True):
+        tag = "paged" if paged else "dense"
+        cmp = step_logits(torch, cfg, params, prompts, paged, max_seq_len=max_seq_len,
+                          checks=checks)
+        print(f"[serve] {cfg.name} {tag} bf16 long context (prompts {[len(p) for p in prompts]}, "
+              f"max_seq_len {max_seq_len}, window {cfg.sliding_window}): " + json.dumps(cmp)
+              + f" (kernel vs plain atol {atol})")
+        if not (cmp["kernel_vs_plain"] <= atol and min(cmp["lengths"]) > cfg.sliding_window):
+            raise SystemExit(f"{cfg.name} {tag}: long-context kernel-path logits disagree "
+                             "with the plain path, or the window was not passed")
+    torch.cuda.empty_cache()
+    print(f"[serve] {cfg.name} long context done in {time.perf_counter() - t0:.1f} s")
 
 
 def zero_counts(torch, kmod) -> None:
@@ -1398,7 +1594,7 @@ def check_stack_launches(torch, kmod, replicas, what, records=None, graphs=True)
         for pool in r.pools().values():
             for name, n in pool.captured_launches.items():
                 got[name] += pool.graph_replays * n
-        for name, n in expected_launches(r.arch, r.decode_pool.paged, _n_layers(r.cfg),
+        for name, n in expected_launches(r.arch, r.decode_pool.paged, r.cfg,
                                          r.stats).items():
             want[name] += n
         steps, replays = r.decode_stats.decode_steps, r.decode_pool.graph_replays
@@ -1936,13 +2132,15 @@ def paper_phase(torch, kmod, records) -> None:
     print(f"[paper] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-def check_launches(arch, what, paged, n_layers, stats, info) -> None:
+def check_launches(arch, what, paged, cfg, stats, info) -> None:
     """Each counted kernel launched ``expected_launches`` times in the run,
     counting eager launches plus graph replays x captured launches."""
-    want = expected_launches(arch, paged, n_layers, stats)
+    want = expected_launches(arch, paged, cfg, stats)
     if info["launches"] != want:
         raise SystemExit(f"{arch} {what}: launches {info['launches']} != {want} "
-                         f"({n_layers} layers x {info['decode_steps']} decode steps, "
+                         f"({_n_layers(cfg, "decode")} attention / "
+                         f"{_n_layers(cfg, "scan")} recurrent layers x "
+                         f"{info['decode_steps']} decode steps, "
                          f"x {info['prefill_calls']} prefill calls; counted {info['counted']}, "
                          f"{info['graph_replays']} replays x {info['captured_launches']})")
 

@@ -10,6 +10,17 @@
 // The paged form reads key kpos from page block_tables[b, kpos / bs], row
 // kpos % bs; page 0 is the null page.
 //
+// Two options of the model that the Pallas kernels leave to jnp around them
+// (src/repro/models/attention.py:_decode_attend) are taken inside:
+// - softcap > 0: each score is softcap * tanh(scale * q.k / softcap), after
+//   the scale and before the mask (gemma2's attention softcap);
+// - window > 0: only keys valid_len - window <= kpos < valid_len are
+//   attended (the sliding window of a local layer).
+// A window only raises the first key of a request, lo: each split starts its
+// key loop at max(its first key, lo), so every split, warp and 16-key step
+// still begins at a valid key, and a split that lies wholly below lo writes
+// nothing; the combine merges the splits lo / split_len to the last.
+//
 // What bounds it on this card: bytes. Each request's K and V rows below
 // valid_len are read once, (Dk + Dv) * KV * elem bytes per key; one decode
 // query does 2 * G multiply-adds per element read, far below the ~295 ops
@@ -19,7 +30,7 @@
 // a few CTAs per request, each a chain of dependent loads, products and
 // merges, and a second launch.
 //
-// 1. bf16, dense and paged: tc_split_kernel<DMAX, PAGED> + tc_combine_kernel,
+// 1. bf16, dense and paged: tc_split_kernel<DMAX, PAGED, CAPPED> + tc_combine_kernel,
 //   on the tensor cores.
 // - Both products on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), in the
 //   FlashAttention-2 register layout. The G <= 16 query rows of one KV head
@@ -105,7 +116,26 @@ struct Params {
   int bs, nb;              // paged only
   int split_len, n_split;
   float scale;
+  float softcap;           // 0: none
+  int window;              // 0: none
 };
+
+// The first key a request of n keys attends: n - window under a window.
+__device__ __forceinline__ int first_key(const Params& p, int n) {
+  return p.window > 0 ? max(n - p.window, 0) : 0;
+}
+
+// The first split holding a key of a request of n keys (split_len keys a
+// split): 0 without a window, with no division on that path.
+__device__ __forceinline__ int first_split(const Params& p, int n) {
+  return p.window > 0 ? first_key(p, n) / p.split_len : 0;
+}
+
+// scale * q.k, through the softcap when there is one
+__device__ __forceinline__ float scaled_score(const Params& p, float dot) {
+  const float s = dot * p.scale;
+  return p.softcap > 0.f ? p.softcap * tanhf(s / p.softcap) : s;
+}
 
 // four floats of a 16-byte load
 __device__ __forceinline__ void to_float(const uint4& u, float* f) {
@@ -126,13 +156,14 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
   const int G = p.H / p.KV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = min(p.valid_len[b], p.L);
-  const int s0 = split * p.split_len;
-  const int s1 = min(s0 + p.split_len, n);
+  const int s0 = max(split * p.split_len, first_key(p, n));
+  const int s1 = min(split * p.split_len + p.split_len, n);
   float* out = static_cast<float*>(p.out) + ((long long)b * p.H + kh * G) * p.Dv;
   const long long part = (long long)bk * p.n_split + split;
 
-  if (s0 >= s1) {  // no key of this request falls in this split; the
-                   // combine pass reads only splits below ceil(n / split_len)
+  if (s0 >= s1) {  // no key of this request falls in this split; the combine
+                   // pass reads only splits first_key / split_len to
+                   // ceil(n / split_len) - 1
     if (p.n_split == 1)
       for (int i = tid; i < G * p.Dv; i += THREADS) out[i] = 0.f;
     return;
@@ -241,7 +272,7 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < KEYS; ++j) {
-        sc[j] = (base + j < s1) ? s[j][g] * p.scale : -INFINITY;
+        sc[j] = (base + j < s1) ? scaled_score(p, s[j][g]) : -INFINITY;
         mx = fmaxf(mx, sc[j]);
       }
       const float m_new = fmaxf(m[g], mx);  // finite: key `base` is valid
@@ -360,14 +391,15 @@ __global__ void combine_kernel(Params p) {
   const long long base = (long long)bk * p.n_split;
   // only the splits that hold keys of this request wrote a partial state
   const int n = min(p.valid_len[b], p.L);
+  const int s_first = first_split(p, n);
   const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len);
 
   float mx = -INFINITY;
-  for (int s = threadIdx.x; s < n_used; s += blockDim.x)
+  for (int s = s_first + threadIdx.x; s < n_used; s += blockDim.x)
     mx = fmaxf(mx, p.part_m[(base + s) * G + g]);
   mx = block_reduce<true>(mx, red);
   float sum = 0.f;
-  for (int s = threadIdx.x; s < n_used; s += blockDim.x) {
+  for (int s = s_first + threadIdx.x; s < n_used; s += blockDim.x) {
     const float ws = expf(p.part_m[(base + s) * G + g] - mx);
     w[s] = ws;
     sum = fmaf(p.part_l[(base + s) * G + g], ws, sum);
@@ -379,7 +411,7 @@ __global__ void combine_kernel(Params p) {
   for (int d = threadIdx.x; d < p.Dv; d += blockDim.x) {
     float a = 0.f;
 #pragma unroll 4
-    for (int s = 0; s < n_used; ++s) a = fmaf(w[s], acc[(long long)s * G * p.Dv + d], a);
+    for (int s = s_first; s < n_used; ++s) a = fmaf(w[s], acc[(long long)s * G * p.Dv + d], a);
     out[d] = a / fmaxf(sum, 1e-30f);
   }
 }
@@ -423,8 +455,10 @@ __host__ __device__ constexpr size_t smem_bytes(int dmax) {
 inline size_t table_bytes(int split_len, int bs) { return (size_t)(split_len / bs + 2) * 4; }
 constexpr int MAX_SMEM = 200 * 1024;  // the dynamic shared memory a split CTA may ask for
 
-// grid (n_split, B * KV); DMAX >= max(Dk, Dv), a multiple of 16
-template <int DMAX, bool PAGED>
+// grid (n_split, B * KV); DMAX >= max(Dk, Dv), a multiple of 16; CAPPED: the
+// scores go through the softcap (a template flag, so that the loop without
+// one is the loop that was timed without it)
+template <int DMAX, bool PAGED, bool CAPPED>
 __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
   const int bk = blockIdx.y, split = blockIdx.x;
   const int b = bk / p.KV, kh = bk % p.KV;
@@ -432,11 +466,13 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // tc_combine_kernel may start
   const int n = min(p.valid_len[b], p.L);
-  const int s0 = split * p.split_len, s1 = min(s0 + p.split_len, n);
-  const int n_used = (n + p.split_len - 1) / p.split_len;  // splits with keys of b
+  const int lo = first_key(p, n);
+  const int s0 = max(split * p.split_len, lo), s1 = min(split * p.split_len + p.split_len, n);
+  // splits with keys of b: lo / split_len to ceil(n / split_len) - 1
+  const int n_used = (n + p.split_len - 1) / p.split_len - first_split(p, n);
   bf16* out = static_cast<bf16*>(p.out) + ((long long)b * p.H + kh * G) * dv;
-  if (s0 >= s1) {  // no key of this request here; only n <= 0 leaves split 0 empty
-    if (split == 0)
+  if (s0 >= s1) {  // no key of this request here (below the window, or past n)
+    if (n <= 0 && split == 0)
       for (int i = tid; i < G * dv; i += THREADS) out[i] = __float2bfloat16(0.f);
     return;
   }
@@ -518,6 +554,8 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
 
   const int r0 = lane >> 2, c0 = (lane & 3) * 2;  // accumulator rows r0, r0 + 8
   const float sl2 = p.scale * LOG2E;               // scores in log2 units
+  // CAPPED: softcap * tanh(s * scale / softcap), then log2 units
+  const float cap_l2 = p.softcap * LOG2E, cap_in = CAPPED ? p.scale / p.softcap : 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float acc[DMAX / 8][4];
 #pragma unroll
@@ -539,12 +577,22 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
       mma(s[0], a, kb[0], kb[1]);
       mma(s[1], a, kb[2], kb[3]);
     }
-    const int base = s0 + (warp + i * WARPS) * WK;  // < s1: the step's first key is valid
+    // in [max(lo, split start), s1): the step's first key is valid
+    const int base = s0 + (warp + i * WARPS) * WK;
+    if constexpr (CAPPED) {
 #pragma unroll
-    for (int t = 0; t < 2; ++t)
+      for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[t][e] = base + 8 * t + c0 + (e & 1) < s1 ? s[t][e] * sl2 : -INFINITY;
+        for (int e = 0; e < 4; ++e)
+          s[t][e] = base + 8 * t + c0 + (e & 1) < s1 ? cap_l2 * tanhf(s[t][e] * cap_in)
+                                                     : -INFINITY;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[t][e] = base + 8 * t + c0 + (e & 1) < s1 ? s[t][e] * sl2 : -INFINITY;
+    }
     float mx0 = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
     float mx1 = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
@@ -649,10 +697,12 @@ __global__ void __launch_bounds__(COMBINE_THREADS) tc_combine_kernel(Params p) {
   const int bk = row / G, g = row - bk * G, b = bk / p.KV;
   const int d = 4 * threadIdx.x;
   const int n = min(p.valid_len[b], p.L);
-  const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len);
+  // the splits with keys of b: s_first to s_first + n_used - 1
+  const int s_first = first_split(p, n);
+  const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len) - s_first;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   if (n_used <= 1 || d >= p.Dv) return;  // one split wrote the row itself
-  const long long first = (long long)bk * p.n_split;
+  const long long first = (long long)bk * p.n_split + s_first;
   auto acc_at = [&](int s) {
     return __ldcg(reinterpret_cast<const float4*>(p.part_acc + ((first + s) * G + g) * p.Dv + d));
   };
@@ -697,16 +747,18 @@ __global__ void __launch_bounds__(COMBINE_THREADS) tc_combine_kernel(Params p) {
       make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
 }
 
-template <int DMAX, bool PAGED>
+template <int DMAX, bool PAGED, bool CAPPED>
 int launch_d(const Params& p, cudaStream_t stream) {
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      tc_split_kernel<DMAX, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      tc_split_kernel<DMAX, PAGED, CAPPED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   size_t smem = smem_bytes(DMAX);
   if constexpr (PAGED) smem += table_bytes(p.split_len, p.bs);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  tc_split_kernel<DMAX, PAGED><<<dim3(p.n_split, p.B * p.KV), THREADS, smem, stream>>>(p);
+  tc_split_kernel<DMAX, PAGED, CAPPED>
+      <<<dim3(p.n_split, p.B * p.KV), THREADS, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return (int)err;
   // the combine may launch while the split kernel runs (programmatic dependent
@@ -723,15 +775,20 @@ int launch_d(const Params& p, cudaStream_t stream) {
   return (int)cudaLaunchKernelEx(&cfg, tc_combine_kernel, p);
 }
 
+template <bool PAGED, bool CAPPED>
+int launch_c(const Params& p, cudaStream_t stream) {
+  const int d = p.Dk > p.Dv ? p.Dk : p.Dv;
+  if (d <= 64) return launch_d<64, PAGED, CAPPED>(p, stream);
+  if (d <= 128) return launch_d<128, PAGED, CAPPED>(p, stream);
+  if (d <= 256) return launch_d<256, PAGED, CAPPED>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <bool PAGED>
 int launch(const Params& p, cudaStream_t stream) {
-  const int d = p.Dk > p.Dv ? p.Dk : p.Dv;
   if (p.H % p.KV || p.H / p.KV > 16 || p.Dk % 8 || p.Dv % 8 || p.split_len % (WARPS * WK))
     return (int)cudaErrorInvalidValue;
-  if (d <= 64) return launch_d<64, PAGED>(p, stream);
-  if (d <= 128) return launch_d<128, PAGED>(p, stream);
-  if (d <= 256) return launch_d<256, PAGED>(p, stream);
-  return (int)cudaErrorInvalidValue;
+  return p.softcap > 0.f ? launch_c<PAGED, true>(p, stream) : launch_c<PAGED, false>(p, stream);
 }
 
 }  // namespace tc
@@ -766,7 +823,8 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* valid_len, \
                       const void* block_tables, void* out, void* part_m, void* part_l,   \
                       void* part_acc, int B, int H, int KV, int Dk, int Dv, int L, int bs, \
-                      int nb, int split_len, int n_split, float scale, void* stream) {   \
+                      int nb, int split_len, int n_split, float scale, float softcap,    \
+                      int window, void* stream) {                                        \
     Params p;                                                                           \
     p.q = q;                                                                            \
     p.k = k;                                                                            \
@@ -788,6 +846,8 @@ int launch_f32(const Params& p, cudaStream_t stream) {
     p.split_len = split_len;                                                            \
     p.n_split = n_split;                                                                \
     p.scale = scale;                                                                    \
+    p.softcap = softcap;                                                                \
+    p.window = window;                                                                  \
     return LAUNCH(p, static_cast<cudaStream_t>(stream));                                \
   }
 

@@ -8,10 +8,14 @@ counts its kernel launches in ``<wrapper>.launches`` (the CPU path does not
 count).
 
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
-are attended; the result has q's dtype. The bf16 kernels, dense and paged,
-run both products on the tensor cores and round the softmax probabilities
-once to bf16 for P.V, as the JAX model casts them to the value dtype; the
-fp32 kernels (the first design, on the CUDA cores) keep them fp32.
+are attended, and with ``window > 0`` only those ``kpos >= valid_len -
+window``; with ``softcap > 0`` each score is ``softcap * tanh(scale * q.k /
+softcap)`` (the model's logit softcap and sliding window, which the Pallas
+kernels leave to jnp around them); the result has q's dtype. The bf16
+kernels, dense and paged, run both products on the tensor cores and round
+the softmax probabilities once to bf16 for P.V, as the JAX model casts them
+to the value dtype; the fp32 kernels (the first design, on the CUDA cores)
+keep them fp32.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ TC_MIN_SPLIT_KEYS = 64     # at least one tile a split
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _LAUNCHERS = {}
 
 
@@ -89,7 +93,7 @@ def _launcher(name: str, dtype: torch.dtype):
     return fn
 
 
-def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale):
+def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softcap, window):
     b, h, dk = q.shape
     kv, dv = k.shape[2], v.shape[-1]
     if q.dtype not in _SUFFIX:
@@ -108,6 +112,8 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale):
     if k.shape[:-1] != v.shape[:-1]:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ "
                          "outside the head dim")
+    if softcap < 0 or window < 0:
+        raise ValueError(f"{name}: softcap={softcap} and window={window} must be >= 0")
     if valid_len.shape != (b,):
         raise ValueError(f"{name}: valid_len shape {tuple(valid_len.shape)} != ({b},)")
     operands = [cuda_operand(t, what, name, q.device, dtype, align=16)
@@ -130,38 +136,41 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher(name, q.dtype)(
         *operands, out.data_ptr(), *scratch, b, h, kv, dk, dv, extent, bs, nb,
-        split_len, n_split, float(scale), stream)
+        split_len, n_split, float(scale), float(softcap), int(window), stream)
     check_launch(rc, name)
     return out
 
 
-def decode_attention(q, k, v, valid_len, *, scale: float) -> torch.Tensor:
+def decode_attention(q, k, v, valid_len, *, scale: float, softcap: float = 0.0,
+                     window: int = 0) -> torch.Tensor:
     """q (B,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv), valid_len (B,) int32 ->
-    (B,H,Dv): attention of each query row over its keys ``< valid_len``."""
+    (B,H,Dv): attention of each query row over its keys ``< valid_len``
+    (the last ``window`` of them when ``window > 0``)."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid_len, scale)
+        return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window)
     if k.shape[0] != q.shape[0]:
         raise ValueError("decode_attention: cache batch != q batch")
     out = _launch("decode_attention", q, k, v, valid_len, None,
-                  k.shape[1], 0, 0, scale)
+                  k.shape[1], 0, 0, scale, softcap, window)
     decode_attention.launches += 1
     return out
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, valid_len, *,
-                           scale: float) -> torch.Tensor:
+                           scale: float, softcap: float = 0.0,
+                           window: int = 0) -> torch.Tensor:
     """q (B,H,Dk), pages (P,bs,KV,D), block_tables (B,nb) int32, valid_len
     (B,) -> (B,H,Dv). The kernel reads the table itself and touches only
     entries below ``ceil(valid_len / bs)``; page 0 is the null page."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                          valid_len, scale)
+                                          valid_len, scale, softcap=softcap, window=window)
     nb = block_tables.shape[1]
     bs = k_pages.shape[1]
     if block_tables.shape[0] != q.shape[0]:
         raise ValueError("paged_decode_attention: block_tables batch != q batch")
     out = _launch("paged_decode_attention", q, k_pages, v_pages, valid_len,
-                  block_tables, nb * bs, bs, nb, scale)
+                  block_tables, nb * bs, bs, nb, scale, softcap, window)
     paged_decode_attention.launches += 1
     return out
 

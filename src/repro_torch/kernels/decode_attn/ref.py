@@ -5,6 +5,13 @@ request, KV cache with per-request valid lengths, grouped queries
 (H = KV * G), asymmetric K/V head dims allowed. The CPU path and the
 kernels' comparisons on the card use them; nothing on the main path calls
 them when a card is present.
+
+The logit softcap and the sliding window are the reference model's
+(``repro.models.attention`` ``_grouped_scores`` / ``_decode_attend``): the
+scaled score goes through ``softcap * tanh(s / softcap)`` before the mask,
+and key ``kpos`` is attended iff ``valid_len - window <= kpos < valid_len``
+(the model's ``lengths - kpos < window`` with ``lengths = valid_len - 1``);
+0 is none.
 """
 from __future__ import annotations
 
@@ -19,14 +26,23 @@ def decode_attention_ref(
     v: torch.Tensor,          # (B, L, KV, Dv)
     valid_len: torch.Tensor,  # (B,) int32 — attends to kpos < valid_len
     scale: float,
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:            # (B, H, Dv)
     b, h, dk = q.shape
     l, kv = k.shape[1], k.shape[2]
     g = h // kv
     qg = q.reshape(b, kv, g, dk)
     scores = torch.einsum("bkgd,blkd->bkgl", qg.float(), k.float()) * scale
-    kpos = torch.arange(l, device=q.device)
-    mask = (kpos[None, :] < valid_len[:, None])[:, None, None, :]
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    kpos = torch.arange(l, device=q.device)[None, :]
+    vl = valid_len.long()[:, None]
+    mask = kpos < vl
+    if window > 0:
+        mask &= kpos >= vl - window
+    mask = mask[:, None, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgl,blkd->bkgd", probs, v.float())
@@ -40,6 +56,9 @@ def paged_decode_attention_ref(
     block_tables: torch.Tensor,  # (B, nb)
     valid_len: torch.Tensor,     # (B,)
     scale: float,
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Gather the pages each request's table names into a contiguous view,
     then defer to the dense version — paging must be pure layout."""
@@ -49,4 +68,4 @@ def paged_decode_attention_ref(
     idx = block_tables.long()
     k = k_pages[idx].reshape(b, nb * bs, kv, k_pages.shape[-1])
     v = v_pages[idx].reshape(b, nb * bs, kv, v_pages.shape[-1])
-    return decode_attention_ref(q, k, v, valid_len, scale)
+    return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window)

@@ -1,6 +1,8 @@
-"""Model zoo of the port: config schema, layers, attention (GQA and
-absorbed MLA), the recurrent blocks (Mamba2 SSD, Gated DeltaNet), assembly
-(``attn``, ``mla``, ``ssm`` and ``gdn`` stacks so far)."""
+"""Model zoo of the port: config schema, layers, attention (GQA with
+softcap and sliding window; MLA, absorbed and naive), the routed MoE MLP,
+the recurrent blocks (Mamba2 SSD, Gated DeltaNet), assembly (``attn``,
+``attn_global``, ``shared_attn``, ``mla``, ``mla_moe``, ``ssm`` and ``gdn``
+stacks; ``cross_attn`` and embedding inputs not yet)."""
 from repro_torch.models.config import (
     ModelConfig,
     StageSpec,

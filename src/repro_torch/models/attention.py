@@ -12,8 +12,10 @@ cache IN PLACE and return the same cache dict.
 Decode attention goes through the kernel wrappers of
 ``repro_torch.kernels.decode_attn`` with ``valid_len = lengths + 1``: the
 model attends ``kpos <= lengths``, the kernels ``kpos < valid_len``. The
-kernels have neither a logit softcap nor a sliding window, so decode raises
-for a config that needs either.
+logit softcap (``cfg.attn_softcap``) and, on the local ``attn`` layers only,
+the sliding window (``cfg.sliding_window``) are applied inside the kernels
+(``softcap=``, ``window=``), where the reference applies both in jnp around
+its attention (``_decode_attend``).
 """
 from __future__ import annotations
 
@@ -228,15 +230,10 @@ def _decode_qkv(params, x, index: DecodeIndex):
     return q, k_new, v_new
 
 
-def _check_kernel_features(cfg, is_global: bool) -> None:
-    if cfg.attn_softcap > 0:
-        raise NotImplementedError(
-            "decode attention kernel has no logit softcap (attn_softcap="
-            f"{cfg.attn_softcap}); needed for {cfg.name}")
-    if not is_global and cfg.sliding_window > 0:
-        raise NotImplementedError(
-            "decode attention kernel has no sliding window (sliding_window="
-            f"{cfg.sliding_window}); needed for {cfg.name}")
+def _kernel_options(cfg, is_global: bool) -> Dict:
+    """The decode kernels' ``softcap`` and ``window`` for a layer: the
+    window on local layers only, as the reference masks."""
+    return {"softcap": cfg.attn_softcap, "window": 0 if is_global else cfg.sliding_window}
 
 
 def self_attention_decode(
@@ -253,7 +250,6 @@ def self_attention_decode(
     """Dense decode: write the new token at ``lengths``, then attend with
     the ``decode_attention`` kernel (``plain=True``: its plain version).
     ``index`` is the step's ``decode_index``, built here when not given."""
-    _check_kernel_features(cfg, is_global)
     if index is None:
         index = decode_index(lengths, cfg, rope_dim=cfg.head_dim, max_len=cache["k"].shape[1])
     q, k_new, v_new = _decode_qkv(params, x, index)
@@ -261,7 +257,7 @@ def self_attention_decode(
     _write_token(cache["v"], v_new, index)
     fn = decode_attention_ref if plain else decode_attention
     ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], index.valid_len,
-             scale=_attn_scale(cfg))
+             scale=_attn_scale(cfg), **_kernel_options(cfg, is_global))
     return _out_project(ctx[:, None].to(x.dtype), params["wo"]), cache
 
 
@@ -282,7 +278,6 @@ def self_attention_decode_paged(
     table, then hand the pages and the table to the paged kernel, which
     reads exactly the pages the table names (no gather to a contiguous
     view first)."""
-    _check_kernel_features(cfg, is_global)
     if index is None:
         index = decode_index(lengths, cfg, rope_dim=cfg.head_dim, block_tables=block_tables,
                              active=active, block_size=cache["k"].shape[1])
@@ -291,5 +286,5 @@ def self_attention_decode_paged(
     _write_token(cache["v"], v_new, index)
     fn = paged_decode_attention_ref if plain else paged_decode_attention
     ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], block_tables,
-             index.valid_len, scale=_attn_scale(cfg))
+             index.valid_len, scale=_attn_scale(cfg), **_kernel_options(cfg, is_global))
     return _out_project(ctx[:, None].to(x.dtype), params["wo"]), cache

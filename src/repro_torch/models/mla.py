@@ -1,10 +1,17 @@
-"""Multi-head Latent Attention (DeepSeek-V2), absorbed form.
+"""Multi-head Latent Attention (DeepSeek-V2).
 
-Counterpart of ``repro.models.mla`` for the absorbed path (``absorb=True``,
-the one the reference model runs): ``w_uk`` is absorbed into the query and
-``w_uv`` into the output projection, so attention runs directly on the
-compressed cache, which is never decompressed. (The naive decompressing
-path, ``absorb=False``, is not ported.)
+Counterpart of ``repro.models.mla``, with its two paths:
+
+* ``absorb=True`` (the default, the one the model runs): ``w_uk`` is
+  absorbed into the query and ``w_uv`` into the output projection, so
+  attention runs directly on the compressed cache, which is never
+  decompressed; decode goes through the MLA kernels.
+* ``absorb=False``, the naive / vLLM-like path, the paper's baseline: every
+  step decompresses the whole latent cache to per-head K and V (``w_uk`` /
+  ``w_uv`` over every cached position), then attends with the rope scores
+  added. The reference computes it in jnp with no Pallas kernel, so here it
+  is plain PyTorch; the paged form gathers the table's pages first, as the
+  reference does.
 
 Latent cache: ``{"ckv": (B, L, kv_lora), "kr": (B, L, rope_dim)}`` plus
 external ``lengths``, as the JAX model keeps it; paged, ``(P, bs, ...)``
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.kernels.mla_decode import mla_fused_decode, mla_paged_fused_decode
 from repro_torch.models.attention import (
+    NEG_INF,
     DecodeIndex,
     _out_project,
     _project,
@@ -84,28 +92,51 @@ def _latents(params, x, cos, sin, cfg):
     return ckv, kr
 
 
+def _attend_naive(params, q_nope, q_rope, ckv, kr, mask, cfg, out_dtype):
+    """Decompress the latents to full per-head K and V, then attend:
+    q_nope (B,S,H,nope), q_rope (B,S,H,rope), ckv (B,L,rank), kr (B,L,rope),
+    mask broadcastable to (B,H,S,L). Scores are summed in fp32 (the
+    reference's ``preferred_element_type``; bf16 products are exact in
+    fp32), the probabilities rounded to V's dtype before P.V."""
+    k_nope = torch.einsum("blr,rhk->blhk", ckv, params["w_uk"])   # decompress K
+    v = torch.einsum("blr,rhk->blhk", ckv, params["w_uv"])        # decompress V
+    scores = torch.einsum("bshk,blhk->bhsl", q_nope.float(), k_nope.float())
+    scores = scores + torch.einsum("bshk,blk->bhsl", q_rope.float(), kr.float())
+    scores = scores * _mla_scale(cfg)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhsl,blhk->bshk", probs.to(v.dtype), v)
+    return _out_project(ctx, params["w_o"]).to(out_dtype)
+
+
 def mla_prefill(
     params: Dict,
     x: torch.Tensor,                 # (B, S, d)
     cfg,
     *,
     cache: Optional[Dict] = None,    # written at [0:S] in place when given
+    absorb: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Absorbed prefill: MQA over ``[q_lat; q_rope]`` x ``[ckv; kr]`` with
     V = ``ckv`` (one latent KV head, Dk = rank + rope, Dv = rank) through
     the plain causal ``attention_prefill``, as the reference's
-    ``_attend_absorbed_blocked``."""
+    ``_attend_absorbed_blocked``; ``absorb=False``: the naive path, causal."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     cos, sin = rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
     q_nope, q_rope = _queries(params, x, cos, sin, cfg)
     ckv, kr = _latents(params, x, cos, sin, cfg)
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
-    q_cat = torch.cat([q_lat, q_rope], dim=-1)                  # (B,S,H,rank+rope)
-    k_cat = torch.cat([ckv, kr], dim=-1)[:, :, None, :]         # (B,S,1,rank+rope)
-    ctx_lat = attention_prefill(q_cat, k_cat, ckv[:, :, None, :], scale=_mla_scale(cfg))
-    ctx = torch.einsum("bshr,rhk->bshk", ctx_lat.to(ckv.dtype), params["w_uv"])
-    out = _out_project(ctx, params["w_o"]).to(x.dtype)
+    if absorb:
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)              # (B,S,H,rank+rope)
+        k_cat = torch.cat([ckv, kr], dim=-1)[:, :, None, :]     # (B,S,1,rank+rope)
+        ctx_lat = attention_prefill(q_cat, k_cat, ckv[:, :, None, :], scale=_mla_scale(cfg))
+        ctx = torch.einsum("bshr,rhk->bshk", ctx_lat.to(ckv.dtype), params["w_uv"])
+        out = _out_project(ctx, params["w_o"]).to(x.dtype)
+    else:
+        steps = torch.arange(s, device=x.device)
+        mask = (steps[:, None] >= steps[None, :])[None, None]
+        out = _attend_naive(params, q_nope, q_rope, ckv, kr, mask, cfg, x.dtype)
     if cache is not None:
         cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
         cache["kr"][:, :s] = kr.to(cache["kr"].dtype)
@@ -121,6 +152,15 @@ def _decode_latents(params, x, cache, index: DecodeIndex, cfg):
     return q_nope[:, 0], q_rope[:, 0]
 
 
+def _decode_naive(params, x, q_nope, q_rope, ckv, kr, lengths, cfg):
+    """The naive decode over a contiguous latent buffer (B, L, ...): the
+    new token (position ``lengths``) attends ``kpos <= lengths``."""
+    mask = (torch.arange(ckv.shape[1], device=x.device)[None, :]
+            <= lengths.long()[:, None])[:, None, None, :]
+    return _attend_naive(params, q_nope[:, None], q_rope[:, None], ckv.to(x.dtype),
+                         kr.to(x.dtype), mask, cfg, x.dtype)
+
+
 def mla_decode(
     params: Dict,
     x: torch.Tensor,                 # (B, 1, d)
@@ -130,14 +170,19 @@ def mla_decode(
     *,
     plain: bool = False,
     index: Optional[DecodeIndex] = None,
+    absorb: bool = True,
 ) -> Tuple[torch.Tensor, Dict]:
     """Dense decode: write the new latent at ``lengths``, then attend with
-    the ``mla_latent_decode`` kernel (``plain=True``: its plain version).
+    the ``mla_latent_decode`` kernel (``plain=True``: its plain version;
+    ``absorb=False``: the naive path, which has no kernel).
     ``index`` is the step's ``decode_index``, built here when not given."""
     if index is None:
         index = decode_index(lengths, cfg, rope_dim=cfg.qk_rope_head_dim,
                              max_len=cache["ckv"].shape[1])
     q_nope, q_rope = _decode_latents(params, x, cache, index, cfg)
+    if not absorb:
+        return _decode_naive(params, x, q_nope, q_rope, cache["ckv"], cache["kr"], lengths,
+                             cfg), cache
     out = mla_fused_decode(params["w_uk"], params["w_uv"], params["w_o"], q_nope, q_rope,
                            cache["ckv"], cache["kr"], index.valid_len,
                            scale=_mla_scale(cfg), plain=plain)
@@ -155,15 +200,24 @@ def mla_decode_paged(
     *,
     plain: bool = False,
     index: Optional[DecodeIndex] = None,
+    absorb: bool = True,
 ) -> Tuple[torch.Tensor, Dict]:
     """Decode over the PAGED latent cache: write the new latent through the
     block table (inactive slots to the null page), then hand the pages and
-    the table to the paged kernel, which reads only the table's pages."""
+    the table to the paged kernel, which reads only the table's pages.
+    ``absorb=False``: the naive path over the table's pages gathered into a
+    contiguous view, as the reference's."""
     if index is None:
         index = decode_index(lengths, cfg, rope_dim=cfg.qk_rope_head_dim,
                              block_tables=block_tables, active=active,
                              block_size=cache["ckv"].shape[1])
     q_nope, q_rope = _decode_latents(params, x, cache, index, cfg)
+    if not absorb:
+        b = block_tables.shape[0]
+        idx = block_tables.long()
+        ckv = cache["ckv"][idx].reshape(b, -1, cache["ckv"].shape[-1])
+        kr = cache["kr"][idx].reshape(b, -1, cache["kr"].shape[-1])
+        return _decode_naive(params, x, q_nope, q_rope, ckv, kr, lengths, cfg), cache
     out = mla_paged_fused_decode(params["w_uk"], params["w_uv"], params["w_o"], q_nope,
                                  q_rope, cache["ckv"], cache["kr"], block_tables,
                                  index.valid_len, scale=_mla_scale(cfg), plain=plain)

@@ -1,12 +1,19 @@
 """Decoder assembly: stages of looped units.
 
 Counterpart of ``repro.models.model`` for configs whose blocks are
-``attn`` / ``attn_global`` (GQA), ``mla`` (absorbed MLA), ``ssm`` (Mamba2)
-or ``gdn`` (Gated DeltaNet); other block kinds raise
-``NotImplementedError``. The param and cache trees keep the JAX layout, so
-the tests compare like with like:
+``attn`` / ``attn_global`` (GQA, softcap and sliding window included),
+``shared_attn`` (zamba2: one unstacked ``params["shared_block"]`` run as
+``attn_global`` at every such slot, each slot with its own k/v cache),
+``mla`` (absorbed MLA), ``mla_moe`` (absorbed MLA, then the routed MoE MLP
+of ``models/moe.py``), ``ssm`` (Mamba2, one B/C group) or ``gdn`` (Gated
+DeltaNet). ``cross_attn``, embedding inputs and ``ssm_groups > 1`` raise
+``NotImplementedError``: the serving pool passes no encoder states and no
+embeddings, so the first two belong with training's forward pass. The
+param and cache trees keep the JAX layout, so the tests compare like with
+like:
 
     params = {"embed": {"table"}, "final_norm": {"scale"},
+              ["shared_block": {"norm1", "attn", "norm2", "mlp"},]  # unstacked
               "stages": [{"b0": {...}, ...}, ...]}   # leaves (n_units, ...)
     cache  = {"stages": [{"b0": {"k", "v"} | {"ckv", "kr"}      # per token
                                | {"ssm", "conv"} | {"gdn"}, ...}, ...]}  # state
@@ -41,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import gdn as gdn_mod
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -55,18 +63,32 @@ from repro_torch.models.layers import (
 )
 
 ATTN_KINDS = ("attn", "attn_global")
-PORTED_KINDS = ATTN_KINDS + ("mla", "ssm", "gdn")
+MLA_KINDS = ("mla", "mla_moe")
+# the kinds whose blocks launch a decode-attention kernel every decode step,
+# and those whose blocks launch a prefill scan every prefill
+DECODE_KINDS = ATTN_KINDS + ("shared_attn",) + MLA_KINDS
+SCAN_KINDS = ("ssm", "gdn")
+PORTED_KINDS = DECODE_KINDS + SCAN_KINDS
 # fp32 leaves at every param dtype, as the JAX init makes them
-FP32_PARAMS = ("a_log", "d_skip", "dt_bias")
+FP32_PARAMS = ("a_log", "d_skip", "dt_bias", "router")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
-    bad = sorted(set(k for k in cfg.block_kinds_flat() if k not in PORTED_KINDS))
+    kinds = set(cfg.block_kinds_flat())
+    bad = sorted(kinds - set(PORTED_KINDS))
     if bad:
+        why = ("; cross_attn needs encoder states, which the serving pool never passes"
+               if "cross_attn" in bad else "")
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet ({', '.join(PORTED_KINDS)})")
+            f"{cfg.name}: block kinds {bad} are not ported yet (ported: "
+            f"{', '.join(PORTED_KINDS)}){why}")
     if cfg.input_is_embeddings:
-        raise NotImplementedError(f"{cfg.name}: embedding inputs are not ported yet")
+        raise NotImplementedError(
+            f"{cfg.name}: embedding inputs are not ported yet (the serving pool feeds "
+            "token ids)")
+    if "ssm" in kinds and cfg.ssm_groups > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: ssm_groups={cfg.ssm_groups} is not ported yet (one B/C group)")
 
 
 def _map(fn, tree, name: str = ""):
@@ -81,23 +103,23 @@ def _map(fn, tree, name: str = ""):
 
 # ------------------------------------------------------------------- params
 def _init_block(kind: str, cfg: ModelConfig, generator, dtype, device, n: int) -> Dict:
+    if kind == "shared_attn":         # params live in params["shared_block"]
+        return {}
     d = cfg.d_model
     lead = (n,)
     norm1 = {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)}
     if kind == "ssm":                 # no MLP: the mixer is the whole block
         return {"norm1": norm1, "ssm": ssm_mod.init_ssm(generator, cfg, dtype, device, lead)}
-    if kind == "mla":
+    if kind in MLA_KINDS:
         mixer = {"mla": mla_mod.init_mla(generator, cfg, dtype, device, lead)}
     elif kind == "gdn":
         mixer = {"gdn": gdn_mod.init_gdn(generator, cfg, dtype, device, lead)}
     else:
         mixer = {"attn": attn.init_attention(generator, cfg, dtype, device, lead)}
-    return {
-        "norm1": norm1,
-        **mixer,
-        "norm2": {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)},
-        "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp_type, dtype, device, lead),
-    }
+    norm2 = {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+    ffn = ({"moe": moe_mod.init_moe(generator, cfg, dtype, device, lead)} if kind == "mla_moe"
+           else {"mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp_type, dtype, device, lead)})
+    return {"norm1": norm1, **mixer, "norm2": norm2, **ffn}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -112,6 +134,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
     }
+    if "shared_attn" in cfg.block_kinds_flat():
+        d = cfg.d_model
+        params["shared_block"] = {
+            "norm1": init_rmsnorm(d, dtype, device),
+            "attn": attn.init_attention(generator, cfg, dtype, device),
+            "norm2": init_rmsnorm(d, dtype, device),
+            "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp_type, dtype, device),
+        }
     params["stages"] = [
         {f"b{i}": _init_block(kind, cfg, generator, dtype, device, stage.n_units)
          for i, kind in enumerate(stage.unit)}
@@ -157,10 +187,12 @@ def _cache_leaves(kind: str, cfg: ModelConfig) -> Dict[str, Tuple[tuple, bool, t
     if kind == "gdn":
         return {"gdn": ((cfg.gdn_heads, cfg.gdn_head_dim, cfg.gdn_head_dim), False,
                         torch.float32)}
-    if kind == "mla":
+    if kind in MLA_KINDS:
         return {"ckv": ((cfg.kv_lora_rank,), True, cd), "kr": ((cfg.qk_rope_head_dim,), True, cd)}
-    row = (cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (row, True, cd), "v": (row, True, cd)}
+    if kind in ATTN_KINDS + ("shared_attn",):
+        row = (cfg.n_kv_heads, cfg.head_dim)
+        return {"k": (row, True, cd), "v": (row, True, cd)}
+    raise ValueError(f"no cache layout for block kind {kind!r}")
 
 
 def _stacked_cache(cfg: ModelConfig, batch: int, token_lead: tuple, device) -> Dict:
@@ -211,12 +243,16 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
     ``prefix_len`` (suffix prefill) takes the attention blocks through
     ``self_attention_prefill_suffix``; any other kind raises.
     A decode step's rope tables, write positions and ``valid_len`` are the
-    same for every layer of one kind and are computed once per kind
-    (``attn.decode_index``), from that block's own cache leaves."""
+    same for every layer of one family (GQA or MLA) and are computed once per
+    family (``attn.decode_index``), from that block's own cache leaves; a
+    local layer's window is the kernel's, so local and global layers share
+    one index. ``shared_attn`` slots run ``params["shared_block"]`` (not
+    stacked, so not sliced by unit) as ``attn_global``."""
     indexes: Dict[bool, attn.DecodeIndex] = {}
+    shared = params.get("shared_block")
 
     def step_index(kind: str, bc: Dict) -> attn.DecodeIndex:
-        mla = kind == "mla"             # attn and attn_global share one index
+        mla = kind in MLA_KINDS         # attn and attn_global share one index
         if mla not in indexes:
             rope, leaf = ((cfg.qk_rope_head_dim, bc["ckv"]) if mla
                           else (cfg.head_dim, bc["k"]))   # leaf (B|P, L|bs, ...)
@@ -234,7 +270,10 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
         sc = cache["stages"][si]
         for u in range(stage.n_units):
             for i, kind in enumerate(stage.unit):
-                bp = _map(lambda a, _, _u=u: a[_u], sp[f"b{i}"])
+                if kind == "shared_attn":
+                    bp, kind = shared, "attn_global"
+                else:
+                    bp = _map(lambda a, _, _u=u: a[_u], sp[f"b{i}"])
                 bc = {key: t[u] for key, t in sc[f"b{i}"].items()}
                 if prefix_len is not None and kind not in ATTN_KINDS:
                     raise NotImplementedError(
@@ -253,7 +292,7 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
                         a_out, _ = gdn_mod.gdn_prefill(bp["gdn"], h, cfg, cache=bc, plain=plain)
                     else:
                         a_out, _ = gdn_mod.gdn_decode(bp["gdn"], h, bc, cfg)
-                elif kind == "mla":
+                elif kind in MLA_KINDS:
                     if mode == "prefill":
                         a_out, _ = mla_mod.mla_prefill(bp["mla"], h, cfg, cache=bc)
                     elif block_tables is not None:
@@ -282,7 +321,10 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
                             plain=plain, index=step_index(kind, bc))
                 x = x + a_out
                 h = rmsnorm(bp["norm2"], x, cfg.rms_eps)
-                x = x + mlp(bp["mlp"], h, cfg.mlp_type)
+                if kind == "mla_moe":
+                    x = x + moe_mod.moe_mlp(bp["moe"], h, cfg)
+                else:
+                    x = x + mlp(bp["mlp"], h, cfg.mlp_type)
     return x
 
 

@@ -1,0 +1,111 @@
+"""Mixture-of-Experts MLP (DeepSeek-V2 style: shared + routed top-k).
+
+Counterpart of ``repro.models.moe``, with the reference's capacity
+dispatch: a softmax router in fp32, top-k experts per token, each (token,
+slot) entry ranked within its expert by a one-hot cumsum in (token, slot)
+order, entries ranked at or past the capacity dropped, the routed experts'
+products batched over the expert axis, the gathered outputs weighted by the
+top-k gates, plus the shared experts' swiglu MLP. The Switch-style
+load-balance loss is ``load_balance_loss`` over the router's output: the
+serving model never uses it, as the reference's model drops it.
+
+Every expert multiplies its whole ``(capacity, d)`` buffer, so a step
+streams all experts' weights whatever the router picks, as the reference's
+formulation does. Built to be captured in a CUDA graph: no host sync, no
+data-dependent shape, and no atomics. Each (expert, rank) slot of the
+dispatch buffer is written at most once (dropped entries go to a spare
+overflow row, never multiplied); a dropped entry gathers some row of its
+expert's output and weighs it by 0, and the combine sums each token's k
+weighted outputs in slot order, the order in which the reference's
+scatter-add over tokens accumulates them.
+
+The expert products are plain ``torch.bmm``: the reference computes them
+with jnp einsums, outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import init_mlp, mlp, normal_init
+
+
+def init_moe(generator, cfg, dtype, device, lead=()) -> Dict:
+    """``router`` (d, E) fp32 at every param dtype, as the JAX init makes
+    it; the routed experts' ``w_gate`` / ``w_up`` (E, d, ff) and ``w_down``
+    (E, ff, d); ``shared`` a swiglu MLP of width ``n_shared_experts *
+    moe_d_ff``."""
+    d, e, ff = cfg.d_model, cfg.n_routed_experts, cfg.moe_d_ff
+    s_in, s_out = 1.0 / np.sqrt(d), 1.0 / np.sqrt(ff)
+    p = {
+        "router": normal_init(lead + (d, e), generator, s_in, torch.float32, device),
+        "w_gate": normal_init(lead + (e, d, ff), generator, s_in, dtype, device),
+        "w_up": normal_init(lead + (e, d, ff), generator, s_in, dtype, device),
+        "w_down": normal_init(lead + (e, ff, d), generator, s_out, dtype, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(generator, d, cfg.n_shared_experts * ff, "swiglu", dtype,
+                               device, lead)
+    return p
+
+
+def _capacity(cfg, n_tokens: int) -> int:
+    per = n_tokens * cfg.moe_top_k / cfg.n_routed_experts
+    return max(8, int(np.ceil(per * cfg.moe_capacity_factor)))
+
+
+def route(params: Dict, xf: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
+    """xf (T, d) -> (gates (T, E) fp32 softmax of the router, top-k gates
+    (T, k), their experts (T, k))."""
+    gates = torch.softmax(xf.float() @ params["router"], dim=-1)
+    topw, topi = torch.topk(gates, cfg.moe_top_k, dim=-1)
+    return gates, topw, topi
+
+
+def load_balance_loss(gates: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The Switch-style aux loss ``E * sum_e f_e * p_e`` of ``route``'s
+    gates and chosen experts: f_e the share of (token, slot) entries routed
+    to expert e, p_e its mean gate."""
+    e = gates.shape[-1]
+    density = F.one_hot(topi, e).float().mean(dim=(0, 1))
+    return e * torch.sum(density * gates.mean(dim=0))
+
+
+def moe_mlp(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x (B, S, d) -> out (B, S, d)."""
+    b, s, d = x.shape
+    e, k = cfg.n_routed_experts, cfg.moe_top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    cap = _capacity(cfg, t)
+    _, topw, topi = route(params, xf, cfg)
+
+    # rank of each (token, slot) entry within its expert, in (token, slot)
+    # order: the one-hot cumsum, taken along the inner dimension (E, T*k)
+    flat_e = topi.reshape(-1)                                              # (T*k,)
+    onehot = F.one_hot(flat_e, e).t()                                      # (E, T*k)
+    pos = ((onehot.cumsum(1) - 1) * onehot).sum(0)                         # (T*k,)
+    keep = pos < cap
+    pos_c = torch.where(keep, pos, torch.full_like(pos, cap))              # cap: overflow row
+
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
+    disp = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    disp[flat_e, pos_c] = xf[tok_idx]
+    routed = disp[:, :cap]
+    h = F.silu(torch.bmm(routed, params["w_gate"])) * torch.bmm(routed, params["w_up"])
+    y_exp = torch.bmm(h, params["w_down"])                                 # (E, cap, d)
+
+    gathered = y_exp[flat_e, pos_c.clamp(max=cap - 1)]                     # (T*k, d)
+    weights = torch.where(keep, topw.reshape(-1), torch.zeros_like(topw.reshape(-1)))
+    contrib = (gathered * weights.to(x.dtype)[:, None]).reshape(t, k, d)
+    combined = contrib[:, 0]
+    for j in range(1, k):
+        combined = combined + contrib[:, j]
+
+    out = combined.reshape(b, s, d)
+    if "shared" in params:
+        out = out + mlp(params["shared"], x, "swiglu")
+    return out

@@ -14,7 +14,10 @@ copy-on-write split into a captured decode graph, the guard broken on
 purpose), a fused event replay equal to its serial replay, and the fold of
 the fused decode; the fleet recipes' fleets (the autoscaled fleet powering
 replicas down and up under captured graphs, the homogeneous paged fleet),
-graph against eager; ``kernels_micro`` over four of the kernels.
+graph against eager; ``kernels_micro`` over four of the kernels; decode
+attention with the logit softcap and the sliding window (splits and pages
+wholly below the window); a deepseek-v2-lite-shaped MoE decode step replayed
+from a CUDA graph, bitwise equal to eager.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -28,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import (
     COUNTED_KERNELS,
     decode_attention,
@@ -44,7 +47,7 @@ from repro_torch.kernels import (
     ssd_scan,
     ssd_scan_ref,
 )
-from repro_torch.kernels.decode_attn.decode_attn import TC_TILE, tc_split_plan
+from repro_torch.kernels.decode_attn.decode_attn import TC_TILE, plan, tc_split_plan
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -52,6 +55,8 @@ from repro_torch.kernels.decode_attn.ref import (
 from repro_torch.kernels.mla_decode.mla_decode import plan as mla_plan
 from repro_torch.kernels.ssd.ssd import CHUNK
 from repro_torch.models import decode_step, init_cache, init_params, prefill
+from repro_torch.models.config import StageSpec
+from repro_torch.models.model import DECODE_KINDS, SCAN_KINDS
 from repro_torch.serving import ClockSpec, Cluster, Fleet, FleetSpec, PoolSpec, ReplicaSpec, \
     ServingEngine
 from repro_torch.training import make_prompts
@@ -104,6 +109,32 @@ def test_cuda_kernel_matches_plain(paged, dtype):
     want = plain(*ts, scale=1 / 16)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softcap,window", [(50.0, 0), (0.0, 200), (30.0, 100), (50.0, 1)])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_softcap_window_matches_plain(dtype, paged, softcap, window):
+    """Kernels 1 and 2 with the logit softcap and the sliding window against
+    their plain versions, every output finite. At L 1024 the bf16 plan cuts
+    64-key splits (fp32: 32), so under window 200 the longest requests have
+    splits, pages and 16-key steps that hold no valid key; window 100 starts
+    inside a page and a step; window 1 attends the newest key alone."""
+    _need_card()
+    kernel, plain = ((paged_decode_attention, paged_decode_attention_ref) if paged
+                     else (decode_attention, decode_attention_ref))
+    ts = _inputs(paged, dtype)
+    vl = ts[-1].long()
+    split_len = plan(dtype, vl.shape[0], 1024).split_len
+    if window:
+        assert bool(((vl - window) // split_len >= 1).any())   # a split with no valid key
+    kw = dict(scale=1 / 16, softcap=softcap, window=window)
+    out = kernel(*ts, **kw)
+    want = plain(*ts, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
@@ -612,7 +643,14 @@ GRAPH_MODELS = {
     "minitron-4b-mla": (("mla_latent_decode", "mla_paged_latent_decode"), None),
     "mamba2-4b": (None, "ssd_scan"),
     "gdn-4b": (None, "gdn_scan"),
+    "gemma2-9b": (("decode_attention", "paged_decode_attention"), None),
+    "deepseek-v2-lite-16b": (("mla_latent_decode", "mla_paged_latent_decode"), None),
+    "zamba2-1.2b": (("decode_attention", "paged_decode_attention"), "ssd_scan"),
 }
+
+
+def _layers(cfg, kinds):
+    return sum(k in kinds for k in cfg.block_kinds_flat())
 
 
 def _reduced(arch, dtype):
@@ -653,22 +691,21 @@ def test_graph_engine_matches_eager(arch, dtype, paged):
     """The pool's decode step replayed from its CUDA graph gives the eager
     step's greedy streams, runs one eager step and replays every later one,
     and launches each counted kernel as often as the eager engine: eager
-    launches plus replays x captured launches = layers x decode steps for
-    the model's decode kernel, layers x prefills for its scan, 0 for the
-    others."""
+    launches plus replays x captured launches = attention layers x decode
+    steps for the model's decode kernel, recurrent layers x prefills for
+    its scan, 0 for the others."""
     _need_card()
     cfg, params = _reduced(arch, dtype)
     decode, scan = GRAPH_MODELS[arch]
-    layers = sum(st.n_units * len(st.unit) for st in cfg.stages)
     streams = {}
     for graphs in (True, False):
         engine, streams[graphs], counted, _ = _serve(cfg, params, paged=paged, graphs=graphs)
         pool, st = engine.pool, engine.stats
         want = dict.fromkeys(counted, 0)
         if decode:
-            want[decode[paged]] = layers * st.decode_steps
+            want[decode[paged]] = _layers(cfg, DECODE_KINDS) * st.decode_steps
         if scan:
-            want[scan] = layers * st.prefill_calls
+            want[scan] = _layers(cfg, SCAN_KINDS) * st.prefill_calls
         got = {k: n + pool.graph_replays * pool.captured_launches.get(k, 0)
                for k, n in counted.items()}
         assert got == want
@@ -676,6 +713,65 @@ def test_graph_engine_matches_eager(arch, dtype, paged):
         assert (pool._graph is not None) == graphs
         assert pool.jit_dispatches == 2 * st.prefill_calls + st.decode_steps
     assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_decode_step_replays_bitwise_in_a_cuda_graph(paged):
+    """A deepseek-v2-lite-16b decode step at its full widths (d 2048, MLA
+    rank 512, 64 experts of 1408, top 6, two shared), cut to its dense first
+    block and one ``mla_moe`` block, bf16, batch 8: captured in a CUDA graph
+    and replayed, its logits and every cache leaf bitwise equal to the eager
+    step on the same inputs. The MoE dispatch writes each (expert, rank)
+    slot once and sums each token's k outputs in a fixed order, so no atomic
+    reorders a sum."""
+    _need_card()
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, stages=(StageSpec(unit=("mla",), n_units=1),
+                                            StageSpec(unit=("mla_moe",), n_units=1)))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    b, l, bs = 8, 256, 16
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab_size, (b,), generator=g, device="cuda").to(torch.int32)
+    lengths = torch.randint(1, l - 1, (b,), generator=g, device="cuda").to(torch.int32)
+    if paged:
+        from repro_torch.models import decode_step_paged, init_paged_cache
+
+        nb = l // bs
+        cache = init_paged_cache(cfg, b, 1 + b * nb, bs, device="cuda")
+        tables = (1 + torch.arange(b * nb, device="cuda", dtype=torch.int32)).reshape(b, nb)
+        active = torch.ones(b, dtype=torch.bool, device="cuda")
+        step = lambda c: decode_step_paged(params, cfg, tokens, c, lengths, active, tables)[0]
+    else:
+        cache = init_cache(cfg, b, l, device="cuda")
+        step = lambda c: decode_step(params, cfg, tokens, c, lengths)[0]
+    for leaf in _leaf_list(cache):
+        leaf.normal_(generator=g)
+    saved = [t.clone() for t in _leaf_list(cache)]
+
+    def restore():
+        for dst, src in zip(_leaf_list(cache), saved):
+            dst.copy_(src)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode(), torch.cuda.stream(side):
+        step(cache)                                        # warm-up before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.inference_mode():
+        restore()
+        eager = step(cache).clone()
+        eager_cache = [t.clone() for t in _leaf_list(cache)]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(cache)
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(eager).all())
+    assert torch.equal(out, eager)
+    for got, want in zip(_leaf_list(cache), eager_cache):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

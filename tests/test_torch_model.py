@@ -258,13 +258,16 @@ def test_cache_bridge_roundtrips_bf16():
     assert bool((tc["stages"][0]["b0"]["v"] == 1.5).all())
 
 
-@pytest.mark.parametrize("arch,what", [("gemma2-9b", "softcap"), ("zamba2-1.2b", "not ported"),
-                                       ("deepseek-v2-lite-16b", "not ported"),
+@pytest.mark.parametrize("arch,what", [("gemma2-9b", "ported"), ("zamba2-1.2b", "ported"),
+                                       ("deepseek-v2-lite-16b", "ported"),
                                        ("minitron-4b-mla", "ported"),
-                                       ("mamba2-780m", "ported"), ("gdn-4b", "ported")])
+                                       ("mamba2-780m", "ported"), ("gdn-4b", "ported"),
+                                       ("llama-3.2-vision-11b", "cross_attn"),
+                                       ("musicgen-large", "embedding inputs")])
 def test_unsupported_features_raise(arch, what):
-    """shared_attn and mla_moe blocks raise; mla (absorbed), ssm and gdn are
-    ported."""
+    """cross_attn blocks and embedding inputs raise; the softcap and the
+    sliding window (gemma2-9b), shared_attn (zamba2), mla_moe
+    (deepseek-v2-lite), mla (absorbed), ssm and gdn are ported."""
     cfg = reduced_config(arch)
     if what == "ported":
         tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -272,16 +275,10 @@ def test_unsupported_features_raise(arch, what):
         logits, _, _ = T.decode_step(tp, cfg, torch.zeros(1, dtype=torch.int32), cache,
                                      torch.zeros(1, dtype=torch.int32))
         assert tuple(logits.shape) == (1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
         return
-    if what == "not ported":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.init_params(cfg, torch.Generator(), device="cpu")
-        return
-    tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    cache = T.init_cache(cfg, 1, 16, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
-        T.decode_step(tp, cfg, torch.zeros(1, dtype=torch.int32), cache,
-                      torch.zeros(1, dtype=torch.int32))
+        T.init_params(cfg, torch.Generator(), device="cpu")
 
 
 def test_cuda_default_raises_without_a_card():
