@@ -25,16 +25,16 @@ Phases; any failure exits non-zero:
    random weights from a seeded generator -- serve through
    ``ServingEngine`` with a lock-mode
    ``ClockController``, dense then paged, each with the pool's decode step
-   replayed from a CUDA graph (after one eager step) and then eager on the
-   same prompts: greedy streams equal, step times, profiles and capture
-   cost side by side, kernel launches counted (a model's decode kernel
+   replayed from a CUDA graph (after one eager step), and on the dense
+   layout then eager on the same prompts: greedy streams equal, step times,
+   profiles and capture cost side by side, kernel launches counted (a model's decode kernel
    once per attention layer and decode step, as eager launches plus graph
    replays x the launches captured; its prefill scan once per recurrent
    layer and prefill call; every other kernel never); one decode step's
    logits graph vs eager on copies of one cache, and kernel path vs plain
    path (for the recurrent models the prefill logits, the final states and
-   one decode step after them); then fp32 graph and eager engines whose
-   dense and paged greedy streams must all agree; for gemma2-9b also two
+   one decode step after them); then fp32 graph engines (dense, paged) and
+   an eager one (dense) whose greedy streams must all agree; for gemma2-9b also two
    requests of ~4200 tokens in a cache of 8192, past its 4096 window,
    dense and paged, kernel vs plain logits over three decode steps;
 5. ``[cluster]``: the phase-disaggregated ``Cluster`` (a prefill pool handing
@@ -82,7 +82,19 @@ Phases; any failure exits non-zero:
    ``kernels_micro`` on the card (four fp32 kernels against their plain
    versions, CUDA-event times), its launches counted; the card's clock and
    power surface printed beside ``H100_SXM``'s fields;
-12. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
+12. ``[train]``: the training path through ``run_training`` at full width
+   (gemma-2b, bf16, batch 8 x 512 tokens, 20 AdamW + WSD steps with remat
+   and the chunked loss): falling finite losses, a finite nonzero gradient
+   on every parameter leaf at step 1, step ms, tokens/s, the model-FLOP
+   share of the bf16 peak and peak memory; on one batch and the same
+   weights remat off against on and two microbatches against one; 10 steps
+   with int8 compression; ``forward``'s logits against ``prefill`` and a
+   ``decode_step`` (kernel 1); at reduced width a restart from a checkpoint
+   against a straight run, one step of llama-3.2-vision-11b
+   (cross-attention) and of musicgen-large (embedding inputs), and the
+   refusal of a CUDA ``forward`` with grad on mamba2-780m; no decode or scan
+   kernel launched but kernel 1's 18 in the decode step;
+13. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
 of this checkout and of the checkout in DIR (another commit, unpacked with
@@ -196,6 +208,10 @@ KERNELS_OF = {**MODELS, **STACK_MODELS}
 FLEET_CAVEAT = "energy-aware routing spent"
 # the scans' plain versions run ~10 PyTorch ops per token: time fewer calls
 PLAIN_SCAN_REPS = 3
+# phase 4's runs per layout (paged?): the graph run, and the eager run on the
+# dense layout only (graph == eager is held there, bf16 and fp32; the eager
+# step's code is the same for both layouts)
+EAGER_LAYOUTS = {False: (True, False), True: (True,)}
 
 
 def nvidia_smi(query: str) -> str:
@@ -1400,6 +1416,9 @@ def main() -> int:
     # ---- 11. the paper's analysis drivers and kernels_micro
     paper_phase(torch, kmod, records)
 
+    # ---- 12. training at full width
+    train_phase(torch, kmod, records)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": [records[name] for name in COUNTED]}))
@@ -1409,15 +1428,16 @@ def main() -> int:
 
 def serve_model(torch, kmod, cfg, records) -> None:
     """Phase 4 for one full-width model: bf16 serving dense then paged, each
-    with the decode step replayed from a CUDA graph and then eager on the
-    same prompts (greedy streams equal; the model's decode kernel launched
+    with the decode step replayed from a CUDA graph, and dense then eager
+    on the same prompts (greedy streams equal; the model's decode kernel launched
     once per layer and decode step, eager launches plus replays x captured
     launches, its prefill scan once per layer and prefill call, the others
     never), one full-batch step graph vs eager (and kernel vs plain) on
     copies of one cache, the bf16 prefill kernel vs plain path, then fp32
-    graph and eager engines whose dense and paged greedy streams must all
-    agree. Adds each main-path launch count (the bf16 graph runs, dense and
-    paged) to ``records``."""
+    graph engines (dense, paged) and an eager one (dense) whose greedy
+    streams must all agree. The eager runs use the dense layout only
+    (``EAGER_LAYOUTS``). Adds each main-path launch count (the bf16 graph
+    runs, dense and paged) to ``records``."""
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
     from repro_torch.training import make_prompts
@@ -1437,10 +1457,11 @@ def serve_model(torch, kmod, cfg, records) -> None:
     warm.run_to_completion()              # cuBLAS, allocator and graph warm-up
     del warm
     torch.cuda.reset_peak_memory_stats()
+    t_bf16 = time.perf_counter()
     for paged in (False, True):
         tag = "paged" if paged else "dense"
         side = {}
-        for graphs in (True, False):
+        for graphs in EAGER_LAYOUTS[paged]:
             mode = "graph" if graphs else "eager"
             engine, reqs, info = serve(torch, cfg, params, prompts, paged=paged, max_new=32,
                                        kmod=kmod, graphs=graphs, profile=True)
@@ -1481,11 +1502,14 @@ def serve_model(torch, kmod, cfg, records) -> None:
             print(f"[serve] {arch} {tag} {mode}: " + json.dumps(run))
             side[mode] = (run, [r.output for r in reqs])
             del engine
+        if "eager" not in side:
+            continue
         if side["graph"][1] != side["eager"][1]:
             raise SystemExit(f"{arch} {tag} bf16: graph and eager greedy streams differ")
         print(f"[serve] {arch} {tag} bf16 graph vs eager: " + json.dumps(side_by_side(side))
               + ", greedy streams equal")
-    print(f"[serve] {arch} max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    print(f"[serve] {arch} max_memory_allocated={torch.cuda.max_memory_allocated()} bytes; "
+          f"bf16 serving {time.perf_counter() - t_bf16:.1f} s")
     longest = max(prompts, key=len)
     print(f"[serve] {arch} prefill profile: "
           + json.dumps(profile_prefill(torch, cfg, params, longest)))
@@ -1518,9 +1542,10 @@ def serve_model(torch, kmod, cfg, records) -> None:
     torch.cuda.empty_cache()
     params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     streams = {}
+    t_fp32 = time.perf_counter()
     for paged in (False, True):
         tag = "paged" if paged else "dense"
-        for graphs in (True, False):
+        for graphs in EAGER_LAYOUTS[paged]:
             engine, reqs, info = serve(torch, cfg32, params32, prompts, paged=paged, max_new=8,
                                        kmod=kmod, graphs=graphs)
             streams[tag, graphs] = [r.output for r in reqs]
@@ -1532,7 +1557,8 @@ def serve_model(torch, kmod, cfg, records) -> None:
     if len({json.dumps(v) for v in streams.values()}) != 1:
         raise SystemExit(f"{arch}: fp32 greedy streams differ between dense / paged and "
                          "graph / eager")
-    print(f"[serve] {arch} fp32 greedy streams equal, dense == paged, graph == eager: ok")
+    print(f"[serve] {arch} fp32 greedy streams equal, dense == paged, graph == eager "
+          f"(dense): ok; fp32 serving {time.perf_counter() - t_fp32:.1f} s")
     if MODELS[arch]["prefill"]:
         cmp = prefill_kernel_vs_plain(torch, cfg32, params32, short_long)
         print(f"[serve] {arch} fp32 prefill kernel vs plain: " + json.dumps(cmp)
@@ -2035,6 +2061,286 @@ def events_phase(torch, kmod, records) -> None:
     del params
     torch.cuda.empty_cache()
     print(f"[events] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 12, ``[train]``: full-width gemma-2b through ``run_training``
+TRAIN_ARCH = "gemma-2b"
+TRAIN_SHAPE = {"batch_size": 8, "seq_len": 512}     # loss chunk 512: the train step's default
+TRAIN_STEPS = 20
+TRAIN_SCHEDULE = (3e-4, 2, 12, 6)                   # wsd_schedule(peak, warmup, stable, decay)
+# one batch, the same weights: remat off against on (loss, grad norm) and two
+# microbatches against one (loss), relative
+REMAT_RTOL = {"loss": 1e-3, "grad_norm": 1e-2}
+MICROBATCH_RTOL = 1e-3
+COMPRESSION_STEPS = 10
+# forward's logits against prefill over FORWARD_TOKENS - 1 tokens and the
+# decode step after it (kernel 1), at phase 4's bf16 tolerance for gemma-2b
+FORWARD_TOKENS = 64
+# the reduced fp32 restart: 3 steps, a checkpoint, a fresh state restored, 3
+# more, against 6 straight; losses within this relative tolerance (bitwise
+# equality is reported: the embedding backward accumulates with atomics)
+RESTART_RTOL = 1e-5
+
+
+def _cuda_batch(torch, batch) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def check_no_launches(torch, kmod, what, want=None) -> dict:
+    """Each counted wrapper's launches since the counts were last set to 0:
+    ``want`` ({name: n}, the rest 0; default all 0), else the phase fails."""
+    torch.cuda.synchronize()
+    got = {name: getattr(kmod, name).launches for name in COUNTED}
+    expect = {name: (want or {}).get(name, 0) for name in COUNTED}
+    if got != expect:
+        raise SystemExit(f"[train] {what}: kernel launches {got} != {expect}")
+    return got
+
+
+def train_phase(torch, kmod, records) -> None:
+    """Phase 12, ``[train]``: the training path on the card.
+
+    1. Full-width gemma-2b (bf16 params, fp32 moments) through
+       ``run_training``: TRAIN_STEPS steps of TRAIN_SHAPE with
+       TRAIN_SCHEDULE, remat per unit and the chunked loss; every loss
+       finite and the mean of the last 5 below the first; at step 1 (the
+       same weights and first batch) every parameter leaf's gradient finite
+       and nonzero; step ms, tokens/s, the model-FLOP share of the bf16
+       peak (6 N tokens / step time / 989e12) and peak memory.
+    2. On one batch and the same weights: remat off against on
+       (REMAT_RTOL), two microbatches against one (MICROBATCH_RTOL); after
+       item 3, one train step profiled (device time by kernel), then
+       COMPRESSION_STEPS steps with int8 compression from item 1's weights
+       and batches: losses finite and falling, the error buffer finite.
+    3. ``forward``'s logits at positions S-2 and S-1 (S = FORWARD_TOKENS)
+       against ``prefill``'s last logits over the first S-1 tokens and the
+       ``decode_step`` after it (kernel 1, launched once per layer), within
+       LOGIT_ATOL_BF16.
+    4. At reduced width, fp32: 3 steps, a checkpoint, a fresh state
+       restored from it and 3 more, against 6 straight (RESTART_RTOL).
+    5. One train step each of reduced llama-3.2-vision-11b (cross-attention)
+       and musicgen-large (embedding inputs).
+    6. A CUDA ``forward`` with grad on reduced mamba2-780m raises
+       ``NotImplementedError`` (the scan kernels have no backward).
+    Items 1, 2, 4 and 5 launch no decode or scan kernel; item 3 launches
+    kernel 1 once per layer, added to ``records``."""
+    import tempfile
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import decode_step, forward, init_cache, init_params, logits, prefill
+    from repro_torch.training import (
+        AdamW,
+        DataConfig,
+        PackedLMStream,
+        global_norm,
+        init_train_state,
+        latest_step,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint,
+        wsd_schedule,
+    )
+    from repro_torch.training import tree as T
+    from repro_torch.training.train import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    smi = nvidia_smi("name,power.limit")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in T.leaves(params))
+    batch = _cuda_batch(torch, PackedLMStream(cfg, DataConfig(seed=0, **TRAIN_SHAPE))
+                        .next_batch())
+    tokens = TRAIN_SHAPE["batch_size"] * TRAIN_SHAPE["seq_len"]
+
+    # ---- 1. full width through run_training; the step-1 gradient first
+    zero_counts(torch, kmod)
+    loss0, grads = value_and_grad(params, cfg, batch)
+    leaves = list(zip(T.paths(grads), T.leaves(grads)))
+    bad = [p for p, g in leaves if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
+    print(f"[train] {TRAIN_ARCH} step-1 gradient: {len(leaves) - len(bad)} of {len(leaves)} "
+          f"parameter leaves finite and nonzero ({n_params / 1e9:.3f} B params), loss "
+          f"{loss0.item():.4f}, grad norm {global_norm(grads).item():.4f}")
+    if bad:
+        raise SystemExit(f"[train] step-1 gradient zero or not finite on {bad}")
+    del grads, leaves
+    out = run_training(arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, seed=0,
+                       schedule=wsd_schedule(*TRAIN_SCHEDULE), params=params, device="cuda",
+                       log_every=5, **TRAIN_SHAPE)
+    check_no_launches(torch, kmod, "run_training")
+    losses = out["losses"]
+    step_s = out["step_ms"] / 1e3
+    mfu = 6 * n_params * tokens / step_s / PEAK_OPS["bfloat16"]
+    print(f"[train] {TRAIN_ARCH} run_training ({smi}): " + json.dumps({
+        "steps": out["steps"], "batch": TRAIN_SHAPE, "losses": losses,
+        "step_ms": out["step_ms"], "tokens_per_s": tokens / step_s,
+        "model_flop_share_of_bf16_peak": mfu, "peak_mem_gb": out["peak_mem_gb"],
+        "wall_s": out["wall_s"], "straggler_events": out["straggler_events"]}))
+    last5 = sum(losses[-5:]) / 5
+    if not (all(math.isfinite(x) for x in losses) and last5 < losses[0]
+            and abs(losses[0] - loss0.item()) <= 1e-3 * abs(loss0.item())):
+        raise SystemExit(f"[train] losses not finite and falling (first {losses[0]}, mean of "
+                         f"the last 5 {last5}, the step-1 check's {loss0.item()})")
+    print(f"[train] losses finite, mean of the last 5 {last5:.4f} < first {losses[0]:.4f}: ok")
+
+    # ---- 2. one batch, the same (trained) weights
+    with torch.no_grad():
+        want = {}
+        for remat in (True, False):
+            loss, grads = value_and_grad(params, cfg, batch, remat=remat)
+            want[remat] = {"loss": loss.item(), "grad_norm": global_norm(grads).item()}
+            del grads
+        micro = {}
+        for m in (1, 2):
+            state = init_train_state(cfg, T.map(torch.clone, params), AdamW())
+            step = make_train_step(cfg, AdamW(), wsd_schedule(*TRAIN_SCHEDULE), microbatches=m)
+            micro[m] = step(state, batch)[1]["loss"].item()
+            del state, step
+            torch.cuda.empty_cache()
+    check_no_launches(torch, kmod, "remat / microbatch invariants")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    inv = {"remat_on": want[True], "remat_off": want[False], "loss_microbatches_1": micro[1],
+           "loss_microbatches_2": micro[2],
+           "remat_rel": {k: rel(want[False][k], want[True][k]) for k in REMAT_RTOL},
+           "microbatch_rel": rel(micro[2], micro[1])}
+    print(f"[train] invariants on one batch: " + json.dumps(inv)
+          + f" (remat off vs on within {REMAT_RTOL}, 2 vs 1 microbatches within "
+          f"{MICROBATCH_RTOL}, relative)")
+    if not (all(inv["remat_rel"][k] <= tol for k, tol in REMAT_RTOL.items())
+            and inv["microbatch_rel"] <= MICROBATCH_RTOL):
+        raise SystemExit("[train] remat or microbatch invariant broken")
+
+    # ---- 3. the training forward against the served path (kernel 1)
+    toks = batch["inputs"][:, :FORWARD_TOKENS]
+    b = toks.shape[0]
+    with torch.no_grad():
+        lg = logits(params, cfg, forward(params, cfg, toks)[:, -2:])
+        cache = init_cache(cfg, b, FORWARD_TOKENS, device="cuda")
+        zero_counts(torch, kmod)
+        lp, cache, ln = prefill(params, cfg, toks[:, :-1], cache)
+        ld, cache, ln = decode_step(params, cfg, toks[:, -1], cache, ln)
+    n_attn = _n_layers(cfg, "decode")
+    got = check_no_launches(torch, kmod, "forward vs served path",
+                            {"decode_attention": n_attn})
+    records["decode_attention"]["launches"] += got["decode_attention"]
+    err = {"prefill": (lp - lg[:, 0]).abs().max().item(),
+           "decode_step": (ld - lg[:, 1]).abs().max().item(),
+           "max_logit": lg.abs().max().item(),
+           "argmax_equal": [bool((lp.argmax(-1) == lg[:, 0].argmax(-1)).all()),
+                            bool((ld.argmax(-1) == lg[:, 1].argmax(-1)).all())]}
+    atol = LOGIT_ATOL_BF16[TRAIN_ARCH]
+    print(f"[train] forward vs prefill / decode_step logits (B {b}, S {FORWARD_TOKENS}, bf16; "
+          f"kernel 1 launched {got['decode_attention']} = {n_attn} layers x 1 step): "
+          + json.dumps(err) + f" (atol {atol})")
+    if not max(err["prefill"], err["decode_step"]) <= atol:
+        raise SystemExit("[train] forward disagrees with prefill / decode_step")
+    del cache, lg, lp, ld
+
+    # ---- 1b. where a step's time goes: one profiled step on fresh weights
+    del params, batch
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    stream = PackedLMStream(cfg, DataConfig(seed=1, **TRAIN_SHAPE))
+    step = make_train_step(cfg, AdamW(), wsd_schedule(*TRAIN_SCHEDULE))
+    state = init_train_state(cfg, params, AdamW())
+    zero_counts(torch, kmod)
+    state, _ = step(state, _cuda_batch(torch, stream.next_batch()))      # warm-up
+    pbatch = _cuda_batch(torch, stream.next_batch())
+    rows, wall, attempts, timeline = profiled(torch, lambda: step(state, pbatch), 1)
+    check_no_launches(torch, kmod, "profiled step")
+    print(f"[train] one profiled step ({smi}): " + json.dumps({
+        "wall_ms": wall, "device_busy_ms": sum(r[0] for r in rows), "attempts": attempts,
+        **timeline, "kernels": sum(r[1] for r in rows),
+        "top": [{"kernel": k[:90], "ms": ms, "calls": c} for ms, c, k in rows[:PROFILE_ROWS]]}))
+    del state, step, params, pbatch
+    torch.cuda.empty_cache()
+
+    # ---- 2b. int8 compression with error feedback, from item 1's weights and batches
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    zero_counts(torch, kmod)
+    step = make_train_step(cfg, AdamW(), wsd_schedule(*TRAIN_SCHEDULE), compression=True)
+    state = init_train_state(cfg, params, AdamW(), compression=True)
+    stream = PackedLMStream(cfg, DataConfig(seed=0, **TRAIN_SHAPE))
+    closses = []
+    for _ in range(COMPRESSION_STEPS):
+        state, metrics = step(state, _cuda_batch(torch, stream.next_batch()))
+        closses.append(metrics["loss"].item())
+    err_finite = all(bool(torch.isfinite(e).all()) for e in T.leaves(state.error_buf))
+    check_no_launches(torch, kmod, "compression")
+    print(f"[train] int8 compression, {COMPRESSION_STEPS} steps from item 1's weights and "
+          f"batches: losses {closses} (uncompressed {losses[:COMPRESSION_STEPS]}), error buffer "
+          f"finite {err_finite}")
+    if not (all(math.isfinite(x) for x in closses) and closses[-1] < closses[0] and err_finite):
+        raise SystemExit("[train] compressed training: losses not finite and falling, or the "
+                         "error buffer not finite")
+    del state, step, params
+    torch.cuda.empty_cache()
+
+    # ---- 4. restart from a checkpoint, reduced width, fp32
+    rcfg = reduced_config(TRAIN_ARCH)
+    rstep = make_train_step(rcfg, AdamW(), wsd_schedule(*TRAIN_SCHEDULE))
+    rstream = PackedLMStream(rcfg, DataConfig(seq_len=64, batch_size=8, seed=0))
+    rbatches = [_cuda_batch(torch, rstream.next_batch()) for _ in range(6)]
+
+    def fresh(seed):
+        p = init_params(rcfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+        return init_train_state(rcfg, p, AdamW())
+
+    def run(state, bs):
+        out = []
+        for bt in bs:
+            state, m = rstep(state, bt)
+            out.append(m["loss"].item())
+        return state, out
+
+    zero_counts(torch, kmod)
+    straight, s_losses = run(fresh(0), rbatches)
+    with tempfile.TemporaryDirectory() as d:
+        half, r_losses = run(fresh(0), rbatches[:3])
+        save_checkpoint(d, 3, half)
+        restored = restore_checkpoint(d, latest_step(d), fresh(1))
+        resumed, more = run(restored, rbatches[3:])
+    r_losses += more
+    check_no_launches(torch, kmod, "restart")
+    bitwise = s_losses == r_losses
+    param_diff = max((a - b).abs().max().item()
+                     for a, b in zip(T.leaves(straight.params), T.leaves(resumed.params)))
+    print(f"[train] restart ({TRAIN_ARCH} reduced, fp32): straight {s_losses}, restored at 3 "
+          f"{r_losses}; bitwise equal {bitwise}, params max |diff| {param_diff:.3e} (losses "
+          f"within {RESTART_RTOL} relative)")
+    if not (int(resumed.step) == 6 and all(abs(a - b) <= RESTART_RTOL * abs(a)
+                                           for a, b in zip(s_losses, r_losses))):
+        raise SystemExit("[train] the restored run parts from the straight run")
+
+    # ---- 5. cross-attention and embedding inputs, reduced, one step each
+    for arch in ("llama-3.2-vision-11b", "musicgen-large"):
+        xcfg = reduced_config(arch)
+        p = init_params(xcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        state = init_train_state(xcfg, p, AdamW())
+        xb = _cuda_batch(torch, PackedLMStream(xcfg, DataConfig(seq_len=32, batch_size=4))
+                         .next_batch())
+        state, m = make_train_step(xcfg, AdamW(), wsd_schedule(*TRAIN_SCHEDULE))(state, xb)
+        ok = (math.isfinite(m["loss"].item()) and 0 < m["grad_norm"].item() < float("inf")
+              and all(bool(torch.isfinite(t).all()) for t in T.leaves(state.params)))
+        print(f"[train] {arch} reduced one step ({', '.join(sorted(xb))}): loss "
+              f"{m['loss'].item():.4f}, grad norm {m['grad_norm'].item():.4f}, params finite "
+              f"{ok}")
+        if not ok:
+            raise SystemExit(f"[train] {arch}: the train step gave a non-finite result")
+    check_no_launches(torch, kmod, "cross_attn / embedding steps")
+
+    # ---- 6. the recurrent kinds refuse grad on the card
+    mcfg = reduced_config("mamba2-780m")
+    mp = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    try:
+        with torch.enable_grad():
+            forward(mp, mcfg, torch.ones((1, 8), dtype=torch.int32, device="cuda"))
+    except NotImplementedError as e:
+        print(f"[train] mamba2-780m forward with grad on the card refused: {e}")
+    else:
+        raise SystemExit("[train] a CUDA forward with grad through the scan kernel ran")
+    check_no_launches(torch, kmod, "the refused forward")
+    print(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 # the verdicts ``[paper]`` asserts: driver -> substrings of its ``derived``

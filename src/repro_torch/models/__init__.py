@@ -1,8 +1,9 @@
 """Model zoo of the port: config schema, layers, attention (GQA with
 softcap and sliding window; MLA, absorbed and naive), the routed MoE MLP,
-the recurrent blocks (Mamba2 SSD, Gated DeltaNet), assembly (``attn``,
-``attn_global``, ``shared_attn``, ``mla``, ``mla_moe``, ``ssm`` and ``gdn``
-stacks; ``cross_attn`` and embedding inputs not yet)."""
+the recurrent blocks (Mamba2 SSD, Gated DeltaNet), cross-attention,
+assembly (``attn``, ``attn_global``, ``shared_attn``, ``cross_attn``,
+``mla``, ``mla_moe``, ``ssm`` and ``gdn`` stacks, token or embedding
+inputs) and the training forward."""
 from repro_torch.models.config import (
     ModelConfig,
     StageSpec,
@@ -13,6 +14,7 @@ from repro_torch.models.model import (
     cache_from_numpy,
     decode_step,
     decode_step_paged,
+    forward,
     init_cache,
     init_paged_cache,
     init_params,
@@ -31,6 +33,7 @@ __all__ = [
     "cache_from_numpy",
     "decode_step",
     "decode_step_paged",
+    "forward",
     "init_cache",
     "init_paged_cache",
     "init_params",

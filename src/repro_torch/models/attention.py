@@ -1,10 +1,13 @@
-"""GQA/MQA self-attention: prefill, dense decode and paged decode.
+"""GQA/MQA self-attention (prefill, dense decode and paged decode) and
+cross-attention.
 
-Counterpart of ``repro.models.attention`` (self-attention only; cross-
-attention is not ported yet). Same cache convention: a
+Counterpart of ``repro.models.attention``. Same cache convention: a
 cache is ``{"k": (B, L_max, n_kv, hd), "v": ...}`` plus external per-example
 ``lengths: (B,)`` giving the tokens already cached; decode writes the new
 token at ``lengths`` and attends over ``lengths + 1`` entries.
+
+Cross-attention encodes the encoder states' k/v once (prefill and the
+training forward); decode reuses the cached encoder k/v unchanged.
 
 Unlike the JAX functions, the decode paths write the new token into the
 cache IN PLACE and return the same cache dict.
@@ -288,3 +291,39 @@ def self_attention_decode_paged(
     ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], block_tables,
              index.valid_len, scale=_attn_scale(cfg), **_kernel_options(cfg, is_global))
     return _out_project(ctx[:, None].to(x.dtype), params["wo"]), cache
+
+
+# ----------------------------------------------------------------- cross-attn
+def init_cross_attention(generator, cfg, dtype, device, lead=()) -> Dict:
+    """Cross-attention to encoder states already projected to d_model (the
+    frontend stub): the attention projections plus a zero-initialised gate
+    (llama-3.2's), so at init the block adds nothing."""
+    p = init_attention(generator, cfg, dtype, device, lead)
+    p["gate"] = torch.zeros(lead, dtype=dtype, device=device)
+    return p
+
+
+def cross_attention_encode(params: Dict, encoder_states: torch.Tensor) -> Dict:
+    """The encoder's k/v (B, n_media, KV, hd), computed once; in the
+    promoted dtype of the states and the weights, as jnp's einsum."""
+    dtype = torch.promote_types(encoder_states.dtype, params["wk"].dtype)
+    enc = encoder_states.to(dtype)
+    return {"k": _project(enc, params["wk"].to(dtype)),
+            "v": _project(enc, params["wv"].to(dtype))}
+
+
+def cross_attention_apply(params: Dict, x: torch.Tensor, enc_cache: Dict, cfg) -> torch.Tensor:
+    """Every query attends to every encoder position (no mask), scores fp32
+    with the logit softcap, the probabilities rounded to v's dtype before
+    P.V; the output scaled by ``tanh(gate)``."""
+    q = _project(x, params["wq"])
+    k, v = enc_cache["k"].to(x.dtype), enc_cache["v"].to(x.dtype)
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, s, n_kv, h // n_kv, hd)
+    sc = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * _attn_scale(cfg)
+    p = torch.softmax(softcap_logits(sc, cfg.attn_softcap), dim=-1)
+    ctx = torch.einsum("bkgsl,blkd->bskgd", p.to(v.dtype), v)
+    ctx = ctx.reshape(b, s, h, v.shape[-1]).to(x.dtype)
+    gate = torch.tanh(params["gate"].float()).to(x.dtype)
+    return _out_project(ctx, params["wo"]) * gate

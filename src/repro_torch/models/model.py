@@ -4,13 +4,17 @@ Counterpart of ``repro.models.model`` for configs whose blocks are
 ``attn`` / ``attn_global`` (GQA, softcap and sliding window included),
 ``shared_attn`` (zamba2: one unstacked ``params["shared_block"]`` run as
 ``attn_global`` at every such slot, each slot with its own k/v cache),
+``cross_attn`` (llama-3.2-vision: gated attention to encoder states, whose
+k/v are encoded at prefill and cached slot-indexed, paged layout or not),
 ``mla`` (absorbed MLA), ``mla_moe`` (absorbed MLA, then the routed MoE MLP
 of ``models/moe.py``), ``ssm`` (Mamba2, one B/C group) or ``gdn`` (Gated
-DeltaNet). ``cross_attn``, embedding inputs and ``ssm_groups > 1`` raise
-``NotImplementedError``: the serving pool passes no encoder states and no
-embeddings, so the first two belong with training's forward pass. The
-param and cache trees keep the JAX layout, so the tests compare like with
-like:
+DeltaNet), with token ids or (``cfg.input_is_embeddings``, musicgen)
+embedding rows as inputs. ``ssm_groups > 1`` raises
+``NotImplementedError``. The serving pool passes no encoder states and
+feeds token ids, as the reference's does, so ``cross_attn`` and embedding
+inputs are model-level paths: ``forward`` (training), ``prefill`` and the
+decode steps. The param and cache trees keep the JAX layout, so the tests
+compare like with like:
 
     params = {"embed": {"table"}, "final_norm": {"scale"},
               ["shared_block": {"norm1", "attn", "norm2", "mlp"},]  # unstacked
@@ -19,12 +23,15 @@ like:
                                | {"ssm", "conv"} | {"gdn"}, ...}, ...]}  # state
 
 Per-token leaves are (n_units, B, L, ...) dense or (n_units, P, bs, ...)
-paged; the O(1) state leaves of ``ssm`` and ``gdn`` are (n_units, B, ...)
-in both layouts (slot indexed).
+paged; the O(1) state leaves of ``ssm`` and ``gdn`` and the encoder k/v of
+``cross_attn`` are (n_units, B, ...) in both layouts (slot indexed).
 
 The stage ``lax.scan`` becomes a loop over units, indexing the stacked
 leaves. Prefill and decode write the caches IN PLACE (the JAX functions
 return new ones); they still return the cache so call sites read alike.
+``forward`` is the training pass: the prefill path with no cache, each
+unit under ``torch.utils.checkpoint`` when ``remat`` (as the reference's
+``jax.checkpoint(unit_fn)``), returning the final-normed hidden states.
 
     init_params(cfg, generator, device=)             -> params
     params_from_numpy(tree, cfg, device=)            -> params (weight bridge)
@@ -32,10 +39,15 @@ return new ones); they still return the cache so call sites read alike.
     init_cache(cfg, batch, max_len, device=)
     init_paged_cache(cfg, batch, n_pages, block_size, device=)
     paged_layout(cfg)
-    prefill(params, cfg, tokens, cache, prompt_lengths=, plain=)  -> (logits, cache, lengths)
+    forward(params, cfg, inputs, enc_states=, remat=)     -> hidden (B, S, d)
+    prefill(params, cfg, inputs, cache, prompt_lengths=, enc_states=, plain=)
+                                                          -> (logits, cache, lengths)
     prefill_suffix(params, cfg, tokens, cache, prefix_len=, suffix_lengths=)
     decode_step(params, cfg, token, cache, lengths)       -> (logits, cache, lengths+1)
     decode_step_paged(params, cfg, token, cache, lengths, active, block_tables)
+
+A decode step's ``token`` is (B,) ids, or (B, 1, d) embedding rows when
+``cfg.input_is_embeddings``.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -68,7 +81,7 @@ MLA_KINDS = ("mla", "mla_moe")
 # and those whose blocks launch a prefill scan every prefill
 DECODE_KINDS = ATTN_KINDS + ("shared_attn",) + MLA_KINDS
 SCAN_KINDS = ("ssm", "gdn")
-PORTED_KINDS = DECODE_KINDS + SCAN_KINDS
+PORTED_KINDS = DECODE_KINDS + SCAN_KINDS + ("cross_attn",)
 # fp32 leaves at every param dtype, as the JAX init makes them
 FP32_PARAMS = ("a_log", "d_skip", "dt_bias", "router")
 
@@ -77,15 +90,9 @@ def _check_kinds(cfg: ModelConfig) -> None:
     kinds = set(cfg.block_kinds_flat())
     bad = sorted(kinds - set(PORTED_KINDS))
     if bad:
-        why = ("; cross_attn needs encoder states, which the serving pool never passes"
-               if "cross_attn" in bad else "")
         raise NotImplementedError(
             f"{cfg.name}: block kinds {bad} are not ported yet (ported: "
-            f"{', '.join(PORTED_KINDS)}){why}")
-    if cfg.input_is_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding inputs are not ported yet (the serving pool feeds "
-            "token ids)")
+            f"{', '.join(PORTED_KINDS)})")
     if "ssm" in kinds and cfg.ssm_groups > 1:
         raise NotImplementedError(
             f"{cfg.name}: ssm_groups={cfg.ssm_groups} is not ported yet (one B/C group)")
@@ -114,6 +121,8 @@ def _init_block(kind: str, cfg: ModelConfig, generator, dtype, device, n: int) -
         mixer = {"mla": mla_mod.init_mla(generator, cfg, dtype, device, lead)}
     elif kind == "gdn":
         mixer = {"gdn": gdn_mod.init_gdn(generator, cfg, dtype, device, lead)}
+    elif kind == "cross_attn":
+        mixer = {"xattn": attn.init_cross_attention(generator, cfg, dtype, device, lead)}
     else:
         mixer = {"attn": attn.init_attention(generator, cfg, dtype, device, lead)}
     norm2 = {"scale": torch.zeros(lead + (d,), dtype=dtype, device=device)}
@@ -189,6 +198,9 @@ def _cache_leaves(kind: str, cfg: ModelConfig) -> Dict[str, Tuple[tuple, bool, t
                         torch.float32)}
     if kind in MLA_KINDS:
         return {"ckv": ((cfg.kv_lora_rank,), True, cd), "kr": ((cfg.qk_rope_head_dim,), True, cd)}
+    if kind == "cross_attn":          # the encoded media tokens, fixed at prefill
+        row = (cfg.n_media_tokens, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": (row, False, cd), "v": (row, False, cd)}
     if kind in ATTN_KINDS + ("shared_attn",):
         row = (cfg.n_kv_heads, cfg.head_dim)
         return {"k": (row, True, cd), "v": (row, True, cd)}
@@ -224,7 +236,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int, block_size: int
 
 def paged_layout(cfg: ModelConfig) -> Dict:
     """Boolean tree matching the cache: True leaves are paged (block-table
-    indexed), False leaves slot indexed."""
+    indexed), False leaves slot indexed (recurrent state, encoder k/v)."""
     return {"stages": [
         {f"b{i}": {key: per_token for key, (_, per_token, _) in _cache_leaves(kind, cfg).items()}
          for i, kind in enumerate(stage.unit)}
@@ -233,13 +245,82 @@ def paged_layout(cfg: ModelConfig) -> Dict:
 
 
 # ------------------------------------------------------------------ forward
+def _block(kind: str, bp: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
+           bc: Optional[Dict], lengths: Optional[torch.Tensor],
+           enc_states: Optional[torch.Tensor], block_tables: Optional[torch.Tensor],
+           active: Optional[torch.Tensor], plain: bool,
+           prefix_len: Optional[torch.Tensor], step_index) -> torch.Tensor:
+    """One block over ``x`` in ``mode`` (train | prefill | decode); ``bc`` is
+    its cache (None in train), updated in place."""
+    if prefix_len is not None and kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"suffix prefill (prefix sharing) supports attention-family "
+            f"blocks only, got {kind!r}")
+    h = rmsnorm(bp["norm1"], x, cfg.rms_eps)
+    if kind == "ssm":             # no MLP
+        if mode == "decode":
+            s_out, _ = ssm_mod.ssm_decode(bp["ssm"], h, bc, cfg)
+        else:
+            s_out, _ = ssm_mod.ssm_prefill(bp["ssm"], h, cfg, cache=bc, plain=plain)
+        return x + s_out
+    if kind == "gdn":             # state slot indexed: dense and paged alike
+        if mode == "decode":
+            a_out, _ = gdn_mod.gdn_decode(bp["gdn"], h, bc, cfg)
+        else:
+            a_out, _ = gdn_mod.gdn_prefill(bp["gdn"], h, cfg, cache=bc, plain=plain)
+    elif kind == "cross_attn":    # encode in train and prefill; decode reads the cache
+        if mode == "decode":
+            enc = bc
+        else:
+            enc = attn.cross_attention_encode(bp["xattn"], enc_states)
+            if bc is not None:
+                bc["k"].copy_(enc["k"])
+                bc["v"].copy_(enc["v"])
+        a_out = attn.cross_attention_apply(bp["xattn"], h, enc, cfg)
+    elif kind in MLA_KINDS:
+        if mode != "decode":
+            a_out, _ = mla_mod.mla_prefill(bp["mla"], h, cfg, cache=bc)
+        elif block_tables is not None:
+            a_out, _ = mla_mod.mla_decode_paged(
+                bp["mla"], h, bc, block_tables, lengths, active, cfg,
+                plain=plain, index=step_index(kind, bc))
+        else:
+            a_out, _ = mla_mod.mla_decode(
+                bp["mla"], h, bc, lengths, cfg, plain=plain, index=step_index(kind, bc))
+    else:
+        is_global = kind == "attn_global"
+        if mode == "prefill" and prefix_len is not None:
+            a_out, _ = attn.self_attention_prefill_suffix(
+                bp["attn"], h, bc, prefix_len, cfg, is_global=is_global)
+        elif mode != "decode":
+            a_out, _ = attn.self_attention_prefill(
+                bp["attn"], h, cfg, is_global=is_global, cache=bc)
+        elif block_tables is not None:
+            a_out, _ = attn.self_attention_decode_paged(
+                bp["attn"], h, bc, block_tables, lengths, active, cfg,
+                is_global=is_global, plain=plain, index=step_index(kind, bc))
+        else:
+            a_out, _ = attn.self_attention_decode(
+                bp["attn"], h, bc, lengths, cfg, is_global=is_global,
+                plain=plain, index=step_index(kind, bc))
+    x = x + a_out
+    h = rmsnorm(bp["norm2"], x, cfg.rms_eps)
+    if kind == "mla_moe":         # the aux loss stays out, as in the reference
+        return x + moe_mod.moe_mlp(bp["moe"], h, cfg)
+    return x + mlp(bp["mlp"], h, cfg.mlp_type)
+
+
 def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
-                cache: Dict, lengths: Optional[torch.Tensor],
+                cache: Optional[Dict], lengths: Optional[torch.Tensor],
                 block_tables: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
                 plain: bool = False,
-                prefix_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run every unit of every stage over ``x``; caches update in place.
+                prefix_len: Optional[torch.Tensor] = None,
+                enc_states: Optional[torch.Tensor] = None,
+                remat: bool = False) -> torch.Tensor:
+    """Run every unit of every stage over ``x``; caches update in place
+    (``mode`` train runs with no cache, and with ``remat`` each unit under
+    ``torch.utils.checkpoint``).
     ``prefix_len`` (suffix prefill) takes the attention blocks through
     ``self_attention_prefill_suffix``; any other kind raises.
     A decode step's rope tables, write positions and ``valid_len`` are the
@@ -266,81 +347,80 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
         return indexes[mla]
 
     for si, stage in enumerate(cfg.stages):
-        sp = params["stages"][si]
-        sc = cache["stages"][si]
-        for u in range(stage.n_units):
-            for i, kind in enumerate(stage.unit):
+        # each stacked leaf split into its units once: under autograd the
+        # backward of the split is one stack, where indexing each unit out
+        # would add a zero-filled full-size gradient per unit
+        sp = _map(lambda a, _: a.unbind(0), params["stages"][si])
+        sc = cache["stages"][si] if cache is not None else None
+
+        def unit(x, u, _stage=stage, _sp=sp, _sc=sc):
+            for i, kind in enumerate(_stage.unit):
                 if kind == "shared_attn":
                     bp, kind = shared, "attn_global"
                 else:
-                    bp = _map(lambda a, _, _u=u: a[_u], sp[f"b{i}"])
-                bc = {key: t[u] for key, t in sc[f"b{i}"].items()}
-                if prefix_len is not None and kind not in ATTN_KINDS:
-                    raise NotImplementedError(
-                        f"suffix prefill (prefix sharing) supports attention-family "
-                        f"blocks only, got {kind!r}")
-                h = rmsnorm(bp["norm1"], x, cfg.rms_eps)
-                if kind == "ssm":             # no MLP
-                    if mode == "prefill":
-                        s_out, _ = ssm_mod.ssm_prefill(bp["ssm"], h, cfg, cache=bc, plain=plain)
-                    else:
-                        s_out, _ = ssm_mod.ssm_decode(bp["ssm"], h, bc, cfg)
-                    x = x + s_out
-                    continue
-                if kind == "gdn":             # state slot indexed: dense and paged alike
-                    if mode == "prefill":
-                        a_out, _ = gdn_mod.gdn_prefill(bp["gdn"], h, cfg, cache=bc, plain=plain)
-                    else:
-                        a_out, _ = gdn_mod.gdn_decode(bp["gdn"], h, bc, cfg)
-                elif kind in MLA_KINDS:
-                    if mode == "prefill":
-                        a_out, _ = mla_mod.mla_prefill(bp["mla"], h, cfg, cache=bc)
-                    elif block_tables is not None:
-                        a_out, _ = mla_mod.mla_decode_paged(
-                            bp["mla"], h, bc, block_tables, lengths, active, cfg,
-                            plain=plain, index=step_index(kind, bc))
-                    else:
-                        a_out, _ = mla_mod.mla_decode(
-                            bp["mla"], h, bc, lengths, cfg, plain=plain,
-                            index=step_index(kind, bc))
-                else:
-                    is_global = kind == "attn_global"
-                    if mode == "prefill" and prefix_len is not None:
-                        a_out, _ = attn.self_attention_prefill_suffix(
-                            bp["attn"], h, bc, prefix_len, cfg, is_global=is_global)
-                    elif mode == "prefill":
-                        a_out, _ = attn.self_attention_prefill(
-                            bp["attn"], h, cfg, is_global=is_global, cache=bc)
-                    elif block_tables is not None:
-                        a_out, _ = attn.self_attention_decode_paged(
-                            bp["attn"], h, bc, block_tables, lengths, active, cfg,
-                            is_global=is_global, plain=plain, index=step_index(kind, bc))
-                    else:
-                        a_out, _ = attn.self_attention_decode(
-                            bp["attn"], h, bc, lengths, cfg, is_global=is_global,
-                            plain=plain, index=step_index(kind, bc))
-                x = x + a_out
-                h = rmsnorm(bp["norm2"], x, cfg.rms_eps)
-                if kind == "mla_moe":
-                    x = x + moe_mod.moe_mlp(bp["moe"], h, cfg)
-                else:
-                    x = x + mlp(bp["mlp"], h, cfg.mlp_type)
+                    bp = _map(lambda units, _, _u=u: units[_u], _sp[f"b{i}"])
+                bc = {key: t[u] for key, t in _sc[f"b{i}"].items()} if _sc is not None else None
+                x = _block(kind, bp, x, cfg, mode, bc, lengths, enc_states, block_tables,
+                           active, plain, prefix_len, step_index)
+            return x
+
+        for u in range(stage.n_units):
+            if remat and mode == "train":
+                x = checkpoint(unit, x, u, use_reentrant=False)
+            else:
+                x = unit(x, u)
     return x
 
 
-def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return embed(params["embed"], tokens, cfg.embed_scale, cfg.d_model,
+def _embed_inputs(params, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S) -> embeddings; embedding inputs (B, S, d) pass
+    through in the compute dtype."""
+    if cfg.input_is_embeddings:
+        return inputs.to(dt(cfg.compute_dtype))
+    return embed(params["embed"], inputs, cfg.embed_scale, cfg.d_model,
                  dt(cfg.compute_dtype))
+
+
+def _step_inputs(params, cfg: ModelConfig, token: torch.Tensor) -> torch.Tensor:
+    """A decode step's (B,) ids or (B, 1, d) embedding rows -> (B, 1, d)."""
+    return _embed_inputs(params, cfg, token if cfg.input_is_embeddings else token[:, None])
 
 
 def logits(params: Dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     return unembed(params["embed"], hidden, cfg.final_softcap)
 
 
+def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, *,
+            enc_states: Optional[torch.Tensor] = None, remat: bool = True) -> torch.Tensor:
+    """Training/eval forward -> final hidden states (B, S, d), never the
+    logits (the training loss unembeds in chunks). With ``remat`` each unit
+    runs under ``torch.utils.checkpoint``, so the backward recomputes its
+    activations.
+
+    The scan kernels of ``ssm`` and ``gdn`` blocks (kernels 3 and 6) have no
+    backward, and their plain versions stay off the card: with grad enabled
+    on a CUDA device such a config raises ``NotImplementedError`` rather
+    than return outputs detached from every parameter upstream of a scan.
+    On the CPU (the plain versions) those kinds train."""
+    table = params["embed"]["table"]
+    scans = sorted(set(cfg.block_kinds_flat()) & set(SCAN_KINDS))
+    if scans and torch.is_grad_enabled() and table.device.type == "cuda":
+        raise NotImplementedError(
+            f"{cfg.name}: training {scans} blocks on the card needs a backward for the "
+            "scan kernels 3 and 6 (ssd_scan, gdn_scan), not ported yet (ROADMAP.md queue 1 "
+            "item 9, 'backward for kernels 3 and 6'); run forward under torch.no_grad(), or "
+            "on the CPU")
+    x = _embed_inputs(params, cfg, inputs)
+    x = _run_stages(params, cfg, x, "train", None, None, enc_states=enc_states, remat=remat)
+    return rmsnorm(params["final_norm"], x, cfg.rms_eps)
+
+
 def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *,
-            prompt_lengths: Optional[torch.Tensor] = None, plain: bool = False
+            prompt_lengths: Optional[torch.Tensor] = None,
+            enc_states: Optional[torch.Tensor] = None, plain: bool = False
             ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Process the prompt, fill caches, return last-valid-token logits.
+    ``enc_states`` (B, n_media, d) feed the ``cross_attn`` blocks.
     ``plain=True`` scans (ssm, gdn) with the kernels' plain versions. As in
     the reference, a recurrent block runs every position, padding past
     ``prompt_lengths`` included, so its state holds the padding too."""
@@ -348,7 +428,7 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *
     if prompt_lengths is None:
         prompt_lengths = torch.full((b,), s, dtype=torch.int32, device=inputs.device)
     x = _embed_inputs(params, cfg, inputs)
-    x = _run_stages(params, cfg, x, "prefill", cache, None, plain=plain)
+    x = _run_stages(params, cfg, x, "prefill", cache, None, plain=plain, enc_states=enc_states)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     last = x[torch.arange(b, device=x.device), prompt_lengths.long() - 1]
     return logits(params, cfg, last[:, None])[:, 0], cache, prompt_lengths
@@ -381,7 +461,7 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor, cache: Dict
     """One decode step: append token, return (logits (B,V), cache, lengths+1).
     ``plain=True`` attends with the kernels' plain versions (the recurrent
     steps of ssm and gdn have no kernel)."""
-    x = _embed_inputs(params, cfg, token[:, None])
+    x = _step_inputs(params, cfg, token)
     x = _run_stages(params, cfg, x, "decode", cache, lengths, plain=plain)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return logits(params, cfg, x)[:, 0], cache, lengths + 1
@@ -394,7 +474,7 @@ def decode_step_paged(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     """One decode step over the PAGED cache: per-token caches are written
     and read through the block table. Paging is pure layout, so logits equal
     ``decode_step``'s on the equivalent dense cache."""
-    x = _embed_inputs(params, cfg, token[:, None])
+    x = _step_inputs(params, cfg, token)
     x = _run_stages(params, cfg, x, "decode", cache, lengths,
                     block_tables=block_tables, active=active, plain=plain)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)

@@ -5,7 +5,9 @@ changed (checked on the text), and behaves the same on the same inputs:
 every registry config field for field, the analytic workload / DVFS /
 policy functions on several archs and levers, the block allocator under one
 random operation sequence, the prefix index under another, and
-``make_prompts`` byte for byte.
+``make_prompts`` byte for byte. ``training/data.py`` (``PackedLMStream``,
+``make_prompts``), ``training/fault.py`` and ``training/__init__.py`` are
+whole-file copies.
 """
 import dataclasses
 import re
@@ -49,6 +51,7 @@ VERBATIM = [
     "configs/nemotron_4_15b.py", "configs/llama_3_2_vision_11b.py",
     "configs/deepseek_v2_236b.py", "configs/deepseek_v2_lite_16b.py",
     "configs/zamba2_1_2b.py",
+    "training/data.py", "training/fault.py", "training/__init__.py",
 ]
 _IMPORT = re.compile(r"^\s*(from|import)\s+repro(_torch)?[.\s]")
 ARCHS = ["gemma-2b", "qwen3-4b", "minicpm-2b", "mamba2-780m", "deepseek-v2-lite-16b"]

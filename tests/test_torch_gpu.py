@@ -17,7 +17,10 @@ replicas down and up under captured graphs, the homogeneous paged fleet),
 graph against eager; ``kernels_micro`` over four of the kernels; decode
 attention with the logit softcap and the sliding window (splits and pages
 wholly below the window); a deepseek-v2-lite-shaped MoE decode step replayed
-from a CUDA graph, bitwise equal to eager.
+from a CUDA graph, bitwise equal to eager; training on the card (remat
+off against on, two microbatches against one, compressed steps, a restart
+from a checkpoint against a straight run, and the recurrent kinds refusing
+a forward with grad).
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -1294,3 +1297,116 @@ def test_kernels_micro_on_the_card(tmp_path, monkeypatch):
         assert getattr(km.kmod, counted).launches - before[name] == km.LAUNCHES
     assert (tmp_path / "kernels_micro.csv").read_text().splitlines()[0] == \
         "kernel,kernel_us,ref_us"
+
+
+# ----------------------------------------------------------------- training
+def _train_setup(arch="gemma-2b", dtype="float32", seed=0, batch_size=8, seq_len=64):
+    from repro_torch.training import DataConfig, PackedLMStream
+
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    stream = PackedLMStream(cfg, DataConfig(seq_len=seq_len, batch_size=batch_size, seed=seed))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+               for _ in range(6)]
+    return cfg, params, batches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_invariants_on_card(dtype):
+    """On one batch and the same weights: remat off against on (loss 1e-3,
+    grad norm 1e-2 relative), two microbatches against one (loss 1e-3);
+    then compressed steps whose losses stay finite and fall, with a finite
+    error buffer. No decode or scan kernel is launched."""
+    from repro_torch.training import (AdamW, global_norm, init_train_state, make_train_step,
+                                      wsd_schedule)
+    from repro_torch.training import tree as T
+    from repro_torch.training.train import value_and_grad
+
+    _need_card()
+    cfg, params, batches = _train_setup(dtype=dtype)
+    before = {k: k.launches for k in COUNTED_KERNELS}
+    got = {}
+    for remat in (True, False):
+        loss, grads = value_and_grad(params, cfg, batches[0], remat=remat)
+        got[remat] = (loss.item(), global_norm(grads).item())
+        assert all(bool(torch.isfinite(g).all()) for g in T.leaves(grads))
+    assert got[False][0] == pytest.approx(got[True][0], rel=1e-3)
+    assert got[False][1] == pytest.approx(got[True][1], rel=1e-2)
+    sched = wsd_schedule(1e-3, 1, 4, 1)
+    losses = {}
+    for m in (1, 2):
+        state = init_train_state(cfg, T.map(torch.clone, params), AdamW())
+        losses[m] = make_train_step(cfg, AdamW(), sched, microbatches=m)(state, batches[0])[1]
+    assert losses[2]["loss"].item() == pytest.approx(losses[1]["loss"].item(), rel=1e-3)
+    step = make_train_step(cfg, AdamW(), sched, compression=True)
+    state = init_train_state(cfg, params, AdamW(), compression=True)
+    seen = []
+    for b in batches:
+        state, m = step(state, b)
+        seen.append(m["loss"].item())
+    assert all(np.isfinite(seen)) and seen[-1] < seen[0]
+    assert all(bool(torch.isfinite(e).all()) for e in T.leaves(state.error_buf))
+    torch.cuda.synchronize()
+    assert {k: k.launches for k in COUNTED_KERNELS} == before
+
+
+@pytest.mark.gpu
+def test_restart_from_checkpoint_on_card(tmp_path):
+    """3 steps, a checkpoint, a fresh state restored from it and 3 more,
+    against 6 straight steps, fp32: losses within 1e-5 relative and the
+    params within 1e-5 (the embedding backward accumulates with atomics,
+    so bitwise equality is not asserted)."""
+    from repro_torch.training import (AdamW, init_train_state, latest_step, make_train_step,
+                                      restore_checkpoint, save_checkpoint, wsd_schedule)
+    from repro_torch.training import tree as T
+
+    _need_card()
+    cfg, params, batches = _train_setup()
+    step = make_train_step(cfg, AdamW(), wsd_schedule(3e-4, 2, 12, 6))
+
+    def fresh(seed):
+        return init_train_state(cfg, init_params(cfg, torch.Generator(device="cuda")
+                                                 .manual_seed(seed), device="cuda"), AdamW())
+
+    def run(state, bs):
+        out = []
+        for b in bs:
+            state, m = step(state, b)
+            out.append(m["loss"].item())
+        return state, out
+
+    straight, want = run(fresh(0), batches)
+    half, got = run(fresh(0), batches[:3])
+    save_checkpoint(str(tmp_path), 3, half)
+    restored = restore_checkpoint(str(tmp_path), latest_step(str(tmp_path)), fresh(1))
+    assert all(t.device.type == "cuda" for t in T.leaves(restored))
+    resumed, more = run(restored, batches[3:])
+    np.testing.assert_allclose(got + more, want, rtol=1e-5)
+    for a, b in zip(T.leaves(straight.params), T.leaves(resumed.params)):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "gdn-4b", "zamba2-1.2b"])
+def test_forward_with_grad_refuses_scan_kinds_on_card(arch):
+    """A CUDA ``forward`` with grad through a scan kernel (no backward)
+    raises, naming the ROADMAP item, and launches nothing; under
+    ``torch.no_grad`` it runs the scan kernel once per recurrent layer."""
+    from repro_torch.models import forward
+
+    _need_card()
+    cfg = reduced_config(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    toks = torch.ones((2, 16), dtype=torch.int32, device="cuda")
+    kernel = gdn_scan if arch == "gdn-4b" else ssd_scan
+    before = kernel.launches
+    with pytest.raises(NotImplementedError, match="backward for kernels 3 and 6"):
+        forward(params, cfg, toks)
+    assert kernel.launches == before
+    with torch.no_grad():
+        h = forward(params, cfg, toks)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(h).all())
+    assert kernel.launches - before == sum(stage.n_units * sum(k in SCAN_KINDS for k in stage.unit)
+                                           for stage in cfg.stages)

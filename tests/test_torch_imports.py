@@ -49,6 +49,15 @@ PAPER_MODULES = (
     "repro_torch.benchmarks.run",
 )
 
+# training (the optimizer, loss, compression, train step, checkpoints, fault
+# handling, data) and its driver
+TRAINING_MODULES = (
+    "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.losses",
+    "repro_torch.training.compression", "repro_torch.training.train",
+    "repro_torch.training.checkpoint", "repro_torch.training.fault",
+    "repro_torch.training.data", "repro_torch.training.tree", "repro_torch.launch.train",
+)
+
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -62,7 +71,7 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        f"missing = sorted(set({KERNEL_MODULES + SERVING_MODULES + PAPER_MODULES!r}) "
+        f"missing = sorted(set({KERNEL_MODULES + SERVING_MODULES + PAPER_MODULES + TRAINING_MODULES!r}) "
         "- set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n"

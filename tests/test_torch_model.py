@@ -265,20 +265,23 @@ def test_cache_bridge_roundtrips_bf16():
                                        ("llama-3.2-vision-11b", "cross_attn"),
                                        ("musicgen-large", "embedding inputs")])
 def test_unsupported_features_raise(arch, what):
-    """cross_attn blocks and embedding inputs raise; the softcap and the
+    """Every feature of these configs is ported: the softcap and the
     sliding window (gemma2-9b), shared_attn (zamba2), mla_moe
-    (deepseek-v2-lite), mla (absorbed), ssm and gdn are ported."""
+    (deepseek-v2-lite), mla (absorbed), ssm, gdn, and now cross_attn blocks
+    (decoding over the encoder k/v a prefill cached) and embedding inputs
+    (a decode step takes a (B, 1, d) row). A decode step from an empty
+    cache gives finite logits."""
     cfg = reduced_config(arch)
-    if what == "ported":
-        tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        cache = T.init_cache(cfg, 1, 16, device="cpu")
-        logits, _, _ = T.decode_step(tp, cfg, torch.zeros(1, dtype=torch.int32), cache,
-                                     torch.zeros(1, dtype=torch.int32))
-        assert tuple(logits.shape) == (1, cfg.vocab_size)
-        assert bool(torch.isfinite(logits).all())
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        T.init_params(cfg, torch.Generator(), device="cpu")
+    tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cache = T.init_cache(cfg, 1, 16, device="cpu")
+    token = (torch.ones(1, 1, cfg.d_model) if what == "embedding inputs"
+             else torch.zeros(1, dtype=torch.int32))
+    if what == "cross_attn":
+        _, cache, _ = T.prefill(tp, cfg, torch.ones(1, 1, dtype=torch.int32), cache,
+                                enc_states=torch.ones(1, cfg.n_media_tokens, cfg.d_model))
+    logits, _, _ = T.decode_step(tp, cfg, token, cache, torch.zeros(1, dtype=torch.int32))
+    assert tuple(logits.shape) == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_cuda_default_raises_without_a_card():

@@ -15,7 +15,7 @@ and caches at rtol = atol = 1e-4 (summation order only: both sides do the
 same fp32 arithmetic), greedy tokens equal. Also the plain decode-attention
 versions with softcap and window against the reference's decode math, the
 MoE MLP alone (capacity drops included), the naive MLA path
-(``absorb=False``) and the kinds that still raise.
+(``absorb=False``) and the ``ssm_groups > 1`` refusal.
 """
 import dataclasses
 
@@ -371,7 +371,19 @@ def test_params_and_cache_layout_match_reference(arch):
     ("zamba2-1.2b", {"ssm_groups": 2}, "ssm_groups=2"),
 ])
 def test_unported_kinds_still_raise(arch, change, match):
+    """``ssm_groups > 1`` still raises; ``cross_attn`` and embedding inputs
+    are ported now, with the reference's param and cache shapes."""
     cfg = dataclasses.replace(reduced_config(arch), **change)
+    if match in ("cross_attn", "embedding inputs"):
+        jcfg = jax_reduced_config(arch)
+        shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
+        tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert shapes(tp) == shapes(R.abstract_params(jcfg))
+        assert shapes(T.init_cache(cfg, 1, 8, device="cpu")) == \
+            shapes(R.abstract_cache(jcfg, 1, 8))
+        assert shapes(T.params_from_numpy(_np_tree(R.init_params(jcfg, jax.random.PRNGKey(0))),
+                                          cfg, device="cpu")) == shapes(tp)
+        return
     for fn in (lambda: T.init_params(cfg, torch.Generator(), device="cpu"),
                lambda: T.init_cache(cfg, 1, 8, device="cpu"),
                lambda: T.params_from_numpy({}, cfg, device="cpu")):
