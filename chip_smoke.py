@@ -10,10 +10,13 @@ Phases; any failure exits non-zero:
    ``cuobjdump -sass`` that the tensor-core kernels hold tensor-core
    instructions;
 3. hold each kernel (GQA decode attention, MLA latent decode, dense and
-   paged; the SSD and gated-delta-rule prefill scans) against its plain
-   PyTorch version on the card, at the main paths' shapes and others (GQA
+   paged; the SSD and gated-delta-rule prefill scans; the two scans'
+   backward kernels, with and without the final state's cotangent, two
+   calls bitwise equal) against its plain PyTorch version on the card, at
+   the main paths' shapes and others (GQA
    also with the logit softcap and the sliding window, whole splits and
-   pages below the window among them), and
+   pages below the window among them; the backward kernels at the training
+   shapes of mamba2-780m, zamba2-1.2b and gdn-4b and off the chunk), and
    time kernel, plain version and, where one PyTorch call computes the same
    function, that call (``F.scaled_dot_product_attention``; yardstick only,
    the port never calls it) beside the bound;
@@ -91,9 +94,14 @@ Phases; any failure exits non-zero:
    with int8 compression; ``forward``'s logits against ``prefill`` and a
    ``decode_step`` (kernel 1); at reduced width a restart from a checkpoint
    against a straight run, one step of llama-3.2-vision-11b
-   (cross-attention) and of musicgen-large (embedding inputs), and the
-   refusal of a CUDA ``forward`` with grad on mamba2-780m; no decode or scan
-   kernel launched but kernel 1's 18 in the decode step;
+   (cross-attention) and of musicgen-large (embedding inputs); no decode or
+   scan kernel launched but kernel 1's 18 in the decode step; then the
+   recurrent kinds at full width through kernels 3 and 6 and their
+   backward kernels: mamba2-780m through ``run_training`` (10 steps of
+   8 x 512, every leaf's step-1 gradient finite and nonzero, falling
+   losses), 3 steps of gdn-4b at 4 x 512 and one of zamba2-1.2b, each with
+   its launches counted (a recurrent layer's forward scan twice a step, its
+   backward once), step ms, tokens/s, peak memory and a profiled step;
 13. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
@@ -159,7 +167,8 @@ L2_BYTES = 50 * 2**20
 MLA_SCALE = 1.0 / math.sqrt(128 + 64)      # minitron-4b-mla: 1/sqrt(nope + rope)
 # every kernel whose launches a main path counts
 COUNTED = ("decode_attention", "paged_decode_attention",
-           "mla_latent_decode", "mla_paged_latent_decode", "ssd_scan", "gdn_scan")
+           "mla_latent_decode", "mla_paged_latent_decode", "ssd_scan", "gdn_scan",
+           "ssd_scan_bwd", "gdn_scan_bwd")
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn/decode_attn.py:162"),
@@ -171,6 +180,13 @@ SOURCES = {
                                 "src/repro/kernels/mla_decode/mla_decode.py:110"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd/ssd.py:73"),
     "gdn_scan": ("src/repro_torch/kernels/csrc/gdn_scan.cu", "src/repro/kernels/gdn/gdn.py:62"),
+    # the backward kernels replace no TPU kernel (the Pallas scans have no
+    # backward): "replaces" names the jnp scan whose jax.grad the reference
+    # takes where the port runs them
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "src/repro/models/ssm.py:74"),
+    "gdn_scan_bwd": ("src/repro_torch/kernels/csrc/gdn_scan_bwd.cu",
+                     "src/repro/models/gdn.py:64"),
 }
 # served model -> its kernels: "decode" (dense kernel, paged kernel), launched
 # once per block of a decode kind and decode step; "prefill", launched once
@@ -386,6 +402,25 @@ GDN_CASES = (
 )
 SCAN_TIMED_DTYPE = {"ssd_scan": "bfloat16", "gdn_scan": "float32"}
 SCAN_NO_LIBRARY = "no single PyTorch call computes a selective scan or a delta rule"
+# the scans' backward kernels: (B, S, H, P, N, main) and (B, S, H, K, main);
+# the first of each is the training shape of the model [train] trains, the
+# one timed (mamba2-780m at 8 x 512 in bf16, gdn-4b at 4 x 512 in fp32, as
+# the models call the scans); S off the chunk goes through the prefill
+# wrapper's padding and autograd, against the twin on the unpadded inputs
+SSD_BWD_CASES = (
+    (8, 512, 48, 64, 128, True),     # mamba2-780m
+    (8, 512, 64, 64, 64, False),     # zamba2-1.2b (N 64)
+    (2, 300, 48, 64, 128, False),    # not a chunk multiple: through ssd_prefill
+)
+GDN_BWD_CASES = (
+    (4, 512, 20, 128, True),         # gdn-4b
+    (2, 300, 20, 128, False),        # not a chunk multiple: through gdn_prefill
+)
+SCAN_BWD_TIMED_DTYPE = {"ssd_scan_bwd": "bfloat16", "gdn_scan_bwd": "float32"}
+# each gradient of a backward kernel against its twin, as max |diff| / max
+# |twin| (the scans' tolerances: bf16 gradients are returned in bf16)
+SCAN_BWD_RTOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SCAN_BWD_NO_LIBRARY = "no PyTorch call computes the backward of either scan"
 
 
 def case_seed(case) -> int:
@@ -575,6 +610,37 @@ def scan_bound(name, shape, elem):
     nbytes = 4 * b * s * h * k * elem + 8 * b * s * h + 4 * b * h * k * k
     return _bound(nbytes, b * s * h * (5 * SCAN_BOUND_CHUNK * k + 6 * k * k),
                   "bfloat16" if elem == 2 else "tfloat32")
+
+
+def scan_bwd_bound(name, shape, elem):
+    """(bound_ms, bound_by) of a backward scan call without dfinal. Bytes:
+    every input read once (the forward's inputs and dy) and every gradient
+    written once. Operations: three times the forward's count of
+    ``scan_bound`` (the states are not among the inputs, so the forward is
+    recomputed, and each of its products has two products as its
+    backward), over the same peak."""
+    if name == "ssd_scan_bwd":
+        b, s, h, p, n = shape
+        nbytes = 3 * b * s * h * p * elem + 4 * b * s * n * elem + 8 * b * s * h + 8 * h
+        q = SCAN_BOUND_CHUNK
+        ops = 3 * b * s * (2 * q * n + h * ((q + 1) * p + 4 * n * p))
+        return _bound(nbytes, ops, "bfloat16" if elem == 2 else "float32")
+    b, s, h, k = shape
+    nbytes = 7 * b * s * h * k * elem + 16 * b * s * h
+    return _bound(nbytes, 3 * b * s * h * (5 * SCAN_BOUND_CHUNK * k + 6 * k * k),
+                  "bfloat16" if elem == 2 else "tfloat32")
+
+
+def make_scan_bwd_args(torch, name, shape, dtype, seed):
+    """A backward case's (forward inputs..., dy) and dfinal: the forward's
+    inputs as phase 3 draws them, cotangents from a seeded generator."""
+    fwd = make_ssd_inputs if name == "ssd_scan_bwd" else make_gdn_inputs
+    inputs = fwd(torch, shape, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    state = (shape[0], shape[2], shape[3], shape[4] if name == "ssd_scan_bwd" else shape[3])
+    dy = (torch.randn(inputs[0].shape, generator=g, device="cuda") * 0.1).to(dtype)
+    dfinal = torch.randn(state, generator=g, device="cuda") * 0.1
+    return inputs + (dy,), dfinal
 
 
 # the tensor-core kernels, by library: each must hold HMMA (mma.sync) or
@@ -797,6 +863,78 @@ def check_scan_kernels(torch, kmod, records) -> None:
                       f"library null ({SCAN_NO_LIBRARY}); eager ms per call: kernel "
                       f"{ms_eager:.5f}, plain {plain_eager:.5f}")
                 del sets
+
+
+def check_scan_bwd_kernels(torch, kmod, records) -> None:
+    """Phase 3 for the scans' backward kernels: every case in fp32 and bf16,
+    with dfinal absent and present, against the twin (``*_scan_bwd_ref``)
+    on the same inputs, each gradient within SCAN_BWD_RTOL of its largest
+    entry and in its input's dtype, and two calls bitwise equal; S off the
+    chunk through the prefill wrapper (padding, the autograd Function,
+    autograd's slice) against the twin on the unpadded inputs. Times the
+    main case without dfinal (the training path passes none) beside the
+    twin and the bound. Adds a record per kernel to ``records``."""
+    specs = (("ssd_scan_bwd", SSD_BWD_CASES, kmod.ssd_prefill, kmod.ssd_scan_bwd_ref,
+              kmod.ssd_scan_bwd, ("x", "dt", "a", "b", "c"), ("B", "S", "H", "P", "N")),
+             ("gdn_scan_bwd", GDN_BWD_CASES, kmod.gdn_prefill, kmod.gdn_scan_bwd_ref,
+              kmod.gdn_scan_bwd, ("q", "k", "v", "beta", "alpha"), ("B", "S", "H", "K")))
+    for name, cases, prefill_fn, twin, kernel, names, dims in specs:
+        chunk = kmod.ssd.ssd.CHUNK if name == "ssd_scan_bwd" else kmod.gdn.gdn.CHUNK
+        for case in cases:
+            shape, main = case[:-1], case[-1]
+            label = " ".join(f"{k}={v}" for k, v in zip(dims, shape))
+            for dname in ("float32", "bfloat16"):
+                dtype = getattr(torch, dname)
+                args, dfinal = make_scan_bwd_args(torch, name, shape, dtype,
+                                                  seed=case_seed((name, *case)))
+                for df in (None, dfinal):
+                    if shape[1] % chunk:
+                        def run():
+                            leaves = [t.detach().requires_grad_() for t in args[:-1]]
+                            y, fs = prefill_fn(*leaves)
+                            outs, cots = ((y,), (args[-1],)) if df is None else \
+                                ((y, fs), (args[-1], df))
+                            return torch.autograd.grad(outs, leaves, cots)
+                        route = "ssd_prefill" if name == "ssd_scan_bwd" else "gdn_prefill"
+                    else:
+                        run = lambda: kernel(*args, df)
+                        route = name
+                    got = run()
+                    again = run()
+                    want = twin(*args, df)
+                    torch.cuda.synchronize()
+                    rel = {f"d{n}": ((g.float() - w).abs().max() / w.abs().max()).item()
+                           for n, g, w in zip(names, got, want)}
+                    err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+                    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                    ok = (bitwise and all(r <= SCAN_BWD_RTOL[dname] for r in rel.values())
+                          and [g.dtype for g in got] == [t.dtype for t in args[:-1]])
+                    print(f"[kernels] {name} {label} {dname} via {route}, dfinal "
+                          f"{'present' if df is not None else 'absent'}: max |diff| / max "
+                          f"|twin| {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})}"
+                          f", max_abs_err={err:.3e}, bitwise equal twice {bitwise}, rtol "
+                          f"{SCAN_BWD_RTOL[dname]} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise SystemExit(f"{name} disagrees with its twin ({dname}, {label})")
+                    del got, again, want
+                if not (main and dname == SCAN_BWD_TIMED_DTYPE[name]):
+                    continue
+                sets = cold_sets(args)
+                ms, ms_eager = cuda_time_ms(torch, kernel, sets, reps=10)
+                plain_ms, plain_eager = cuda_time_ms(torch, twin, sets, reps=PLAIN_SCAN_REPS)
+                bound_ms, bound_by = scan_bwd_bound(name, shape, args[0].element_size())
+                source, replaces = SOURCES[name]
+                records[name] = {
+                    "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                }
+                print(f"[kernels] {name} main shape {dname}, device ms (CUDA graph): kernel "
+                      f"{ms:.5f}, twin {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by}), "
+                      f"library null ({SCAN_BWD_NO_LIBRARY}); eager ms per call: kernel "
+                      f"{ms_eager:.5f}, twin {plain_eager:.5f}")
+                del sets
+                torch.cuda.empty_cache()
 
 
 def expected_launches(arch, paged, cfg, stats) -> dict:
@@ -1212,6 +1350,13 @@ def main_case(torch, name) -> tuple:
             make = make_mla_inputs if isinstance(case, Mla) else make_inputs
             return ("bfloat16", make(torch, case, torch.bfloat16, seed=case_seed(case)),
                     case_kwargs(case))
+    if name in SCAN_BWD_TIMED_DTYPE:
+        dname = SCAN_BWD_TIMED_DTYPE[name]
+        case = next(c for c in (SSD_BWD_CASES if name == "ssd_scan_bwd" else GDN_BWD_CASES)
+                    if c[-1])
+        args, _ = make_scan_bwd_args(torch, name, case[:-1], getattr(torch, dname),
+                                     seed=case_seed((name, *case)))
+        return dname, args, {}
     cases, make = {"ssd_scan": (SSD_CASES, make_ssd_inputs),
                    "gdn_scan": (GDN_CASES, make_gdn_inputs)}[name]
     dname = SCAN_TIMED_DTYPE[name]
@@ -1398,6 +1543,7 @@ def main() -> int:
     records = check_kernels(torch, F, kmod)
     check_aliased_pages(torch, kmod)
     check_scan_kernels(torch, kmod, records)
+    check_scan_bwd_kernels(torch, kmod, records)
 
     # ---- 4. full-width models through ServingEngine
     for arch in MODELS:
@@ -2080,6 +2226,20 @@ FORWARD_TOKENS = 64
 # more, against 6 straight; losses within this relative tolerance (bitwise
 # equality is reported: the embedding backward accumulates with atomics)
 RESTART_RTOL = 1e-5
+# item 6, the recurrent kinds at full width: (arch, batch, steps); the first
+# through run_training, the others through make_train_step (gdn-4b at batch
+# 4: its 4.26 B params hold ~51 GB in bf16 weights and grads and fp32
+# moments before activations)
+RECURRENT_TRAIN = (
+    ("mamba2-780m", TRAIN_SHAPE, 10),
+    ("gdn-4b", {"batch_size": 4, "seq_len": 512}, 3),
+    ("zamba2-1.2b", TRAIN_SHAPE, 1),
+)
+RECURRENT_RUN_TRAINING = "mamba2-780m"
+RECURRENT_SCHEDULE = (3e-4, 2, 5, 3)                 # wsd_schedule over 10 steps
+# launches a recurrent layer and step: the forward scan twice (the forward
+# and the remat recompute), its backward once
+RECURRENT_LAUNCHES = (2, 1)
 
 
 def _cuda_batch(torch, batch) -> dict:
@@ -2120,10 +2280,17 @@ def train_phase(torch, kmod, records) -> None:
        restored from it and 3 more, against 6 straight (RESTART_RTOL).
     5. One train step each of reduced llama-3.2-vision-11b (cross-attention)
        and musicgen-large (embedding inputs).
-    6. A CUDA ``forward`` with grad on reduced mamba2-780m raises
-       ``NotImplementedError`` (the scan kernels have no backward).
+    6. The recurrent kinds at full width (``recurrent_train``):
+       mamba2-780m through ``run_training`` (RECURRENT_TRAIN: 10 steps of
+       8 x 512, a finite nonzero gradient on every leaf at step 1, falling
+       finite losses), gdn-4b (3 steps of 4 x 512) and zamba2-1.2b (one
+       step of 8 x 512: N 64, the shared attention block under grad)
+       through ``make_train_step``; step ms, tokens/s, peak memory and a
+       profiled step's device ms by kernel.
     Items 1, 2, 4 and 5 launch no decode or scan kernel; item 3 launches
-    kernel 1 once per layer, added to ``records``."""
+    kernel 1 once per layer, item 6 each recurrent layer's forward scan
+    twice and its backward once a step (the forward, the remat recompute,
+    the backward), all added to ``records``."""
     import tempfile
 
     from repro_torch.configs import get_config, reduced_config
@@ -2329,18 +2496,119 @@ def train_phase(torch, kmod, records) -> None:
             raise SystemExit(f"[train] {arch}: the train step gave a non-finite result")
     check_no_launches(torch, kmod, "cross_attn / embedding steps")
 
-    # ---- 6. the recurrent kinds refuse grad on the card
-    mcfg = reduced_config("mamba2-780m")
-    mp = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    try:
-        with torch.enable_grad():
-            forward(mp, mcfg, torch.ones((1, 8), dtype=torch.int32, device="cuda"))
-    except NotImplementedError as e:
-        print(f"[train] mamba2-780m forward with grad on the card refused: {e}")
-    else:
-        raise SystemExit("[train] a CUDA forward with grad through the scan kernel ran")
-    check_no_launches(torch, kmod, "the refused forward")
+    # ---- 6. the recurrent kinds at full width: kernels 3 and 6, forward and backward
+    for arch, shape, steps in RECURRENT_TRAIN:
+        recurrent_train(torch, kmod, records, arch, shape, steps, smi)
     print(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def recurrent_train(torch, kmod, records, arch, shape, steps, smi) -> None:
+    """[train] item 6 for one recurrent arch at full width, bf16 params:
+    ``steps`` train steps of ``shape`` (RECURRENT_RUN_TRAINING through
+    ``run_training``, after a step-1 gradient whose every leaf must be
+    finite and nonzero, the losses finite and the mean of the last 3 below
+    the first; the others through ``make_train_step``, the losses finite),
+    then one profiled step. Each run launches the arch's forward scan twice
+    per recurrent layer and step (the forward and the remat recompute) and
+    its backward once (RECURRENT_LAUNCHES), every other kernel never; the
+    launches are added to ``records``. Prints step ms, tokens/s, peak
+    memory and the profiled step's device ms by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import init_params
+    from repro_torch.training import (
+        AdamW,
+        DataConfig,
+        PackedLMStream,
+        global_norm,
+        init_train_state,
+        make_train_step,
+        wsd_schedule,
+    )
+    from repro_torch.training import tree as T
+    from repro_torch.training.train import value_and_grad
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    fwd = KERNELS_OF[arch]["prefill"]
+    layers = _n_layers(cfg, "scan")
+    want = lambda n: {fwd: RECURRENT_LAUNCHES[0] * layers * n,
+                      f"{fwd}_bwd": RECURRENT_LAUNCHES[1] * layers * n}
+
+    def count(what, n):
+        for name, k in check_no_launches(torch, kmod, f"{arch} {what}", want(n)).items():
+            records[name]["launches"] += k
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in T.leaves(params))
+    stream = PackedLMStream(cfg, DataConfig(seed=0, **shape))
+    tokens = shape["batch_size"] * shape["seq_len"]
+    sched = wsd_schedule(*RECURRENT_SCHEDULE)
+    row = {"arch": arch, "params_b": n_params / 1e9, "recurrent_layers": layers, "batch": shape}
+    if arch == RECURRENT_RUN_TRAINING:
+        batch = _cuda_batch(torch, PackedLMStream(cfg, DataConfig(seed=0, **shape))
+                            .next_batch())
+        zero_counts(torch, kmod)
+        loss0, grads = value_and_grad(params, cfg, batch)
+        count("step-1 gradient", 1)
+        leaves = list(zip(T.paths(grads), T.leaves(grads)))
+        bad = [p for p, g in leaves
+               if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
+        print(f"[train] {arch} step-1 gradient: {len(leaves) - len(bad)} of {len(leaves)} "
+              f"parameter leaves finite and nonzero, loss {loss0.item():.4f}, grad norm "
+              f"{global_norm(grads).item():.4f}")
+        if bad:
+            raise SystemExit(f"[train] {arch}: step-1 gradient zero or not finite on {bad}")
+        del grads, leaves, batch
+        zero_counts(torch, kmod)
+        out = run_training(arch=arch, reduced=False, steps=steps, seed=0, schedule=sched,
+                           params=params, device="cuda", log_every=5, **shape)
+        count("run_training", steps)
+        losses, step_ms, peak = out["losses"], out["step_ms"], out["peak_mem_gb"]
+        last = sum(losses[-3:]) / 3
+        if not (all(math.isfinite(x) for x in losses) and last < losses[0]):
+            raise SystemExit(f"[train] {arch}: losses not finite and falling ({losses})")
+        stream = PackedLMStream(cfg, DataConfig(seed=0, **shape))    # the profile's batch
+        step = make_train_step(cfg, AdamW(), sched)
+        state = init_train_state(cfg, params, AdamW())
+    else:
+        step = make_train_step(cfg, AdamW(), sched)
+        state = init_train_state(cfg, params, AdamW())
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(torch, kmod)
+        losses, times, norms = [], [], []
+        for _ in range(steps):
+            b = _cuda_batch(torch, stream.next_batch())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+            times.append((time.perf_counter() - t1) * 1e3)
+            norms.append(m["grad_norm"].item())
+        count("train steps", steps)
+        step_ms = sum(times[1:]) / len(times[1:]) if steps > 1 else times[0]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not (all(math.isfinite(x) for x in losses)
+                and all(0 < g < float("inf") for g in norms)):
+            raise SystemExit(f"[train] {arch}: losses {losses} / grad norms {norms} not finite")
+        row["grad_norms"] = norms
+    row.update({"steps": steps, "losses": losses, "step_ms": step_ms,
+                "tokens_per_s": tokens / (step_ms / 1e3), "peak_mem_gb": peak})
+    pbatch = _cuda_batch(torch, stream.next_batch())
+    zero_counts(torch, kmod)
+    rows, wall, attempts, timeline = profiled(torch, lambda: step(state, pbatch), 1)
+    count("profiled step", 1)
+    scans = {k: ms for ms, _, k in rows if "ssd_" in k or "gdn_" in k}
+    row["profiled_step"] = {
+        "wall_ms": wall, "device_busy_ms": sum(r[0] for r in rows), "attempts": attempts,
+        **timeline, "kernels": sum(r[1] for r in rows), "scan_kernels_ms": scans,
+        "top": [{"kernel": k[:90], "ms": ms, "calls": c} for ms, c, k in rows[:PROFILE_ROWS]]}
+    print(f"[train] {arch} full width ({smi}): " + json.dumps(row))
+    print(f"[train] {arch}: {steps} steps, losses finite, {fwd} x {want(1)[fwd]} and "
+          f"{fwd}_bwd x {want(1)[fwd + '_bwd']} a step, {time.perf_counter() - t0:.1f} s: ok")
+    del state, step, params
+    torch.cuda.empty_cache()
 
 
 # the verdicts ``[paper]`` asserts: driver -> substrings of its ``derived``

@@ -7,9 +7,12 @@ PyTorch version.
                 compressed cache, and the fused decode attention around it;
                 the counterpart of ``repro.kernels.mla_decode``.
 * ssd         — the chunked Mamba2 SSD prefill scan, and the padded prefill
-                around it; the counterpart of ``repro.kernels.ssd``.
+                around it; the counterpart of ``repro.kernels.ssd``; and the
+                scan's backward kernel (no TPU counterpart: the JAX package
+                differentiates its jnp scan), behind ``SsdScan``.
 * gdn         — the gated-delta-rule prefill scan, and the padded prefill
-                around it; the counterpart of ``repro.kernels.gdn``.
+                around it; the counterpart of ``repro.kernels.gdn``; and the
+                scan's backward kernel, behind ``GdnScan``.
 
 Sources live in ``csrc/``; ``build.py`` compiles them with ``nvcc`` at first
 use. Every Pallas kernel of ``repro.kernels`` has its counterpart here.
@@ -20,7 +23,14 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
-from repro_torch.kernels.gdn import gdn_chunked_ref, gdn_prefill, gdn_scan, gdn_scan_ref
+from repro_torch.kernels.gdn import (
+    gdn_chunked_ref,
+    gdn_prefill,
+    gdn_scan,
+    gdn_scan_bwd,
+    gdn_scan_bwd_ref,
+    gdn_scan_ref,
+)
 from repro_torch.kernels.mla_decode import (
     mla_fused_decode,
     mla_latent_decode,
@@ -29,11 +39,17 @@ from repro_torch.kernels.mla_decode import (
     mla_paged_latent_decode,
     mla_paged_latent_decode_ref,
 )
-from repro_torch.kernels.ssd import ssd_prefill, ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd import (
+    ssd_prefill,
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
+)
 
 # every wrapper that counts its kernel launches in ``<wrapper>.launches``
 COUNTED_KERNELS = (decode_attention, paged_decode_attention, mla_latent_decode,
-                   mla_paged_latent_decode, ssd_scan, gdn_scan)
+                   mla_paged_latent_decode, ssd_scan, gdn_scan, ssd_scan_bwd, gdn_scan_bwd)
 
 __all__ = [
     "decode_attention", "decode_attention_ref",
@@ -41,7 +57,8 @@ __all__ = [
     "mla_latent_decode", "mla_latent_decode_ref",
     "mla_paged_latent_decode", "mla_paged_latent_decode_ref",
     "mla_fused_decode", "mla_paged_fused_decode",
-    "ssd_scan", "ssd_scan_ref", "ssd_prefill",
-    "gdn_scan", "gdn_scan_ref", "gdn_prefill", "gdn_chunked_ref",
+    "ssd_scan", "ssd_scan_ref", "ssd_prefill", "ssd_scan_bwd", "ssd_scan_bwd_ref",
+    "gdn_scan", "gdn_scan_ref", "gdn_prefill", "gdn_chunked_ref", "gdn_scan_bwd",
+    "gdn_scan_bwd_ref",
     "COUNTED_KERNELS",
 ]

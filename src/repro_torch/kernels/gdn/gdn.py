@@ -8,6 +8,11 @@ CUDA tensor the wrapper launches its kernel or raises; there is no
 fallback. It counts its launches in ``gdn_scan.launches`` (the CPU path does
 not count).
 
+``gdn_scan`` is differentiable: it runs through the autograd Function
+``GdnScan``, whose backward is the backward kernel of ``gdn_bwd.py`` on a
+CUDA tensor and its plain twin ``ref.gdn_scan_bwd_ref`` on a CPU tensor.
+Under ``torch.no_grad`` it is the forward alone.
+
 Contract (as the Pallas kernel): q, k, v (B,S,H,K) in one dtype (fp32, as
 the model calls it, or bf16), beta and alpha (B,S,H) fp32, S a multiple of
 ``CHUNK`` (``ops.gdn_prefill`` pads); returns y (B,S,H,K) in q's dtype and
@@ -79,8 +84,37 @@ def _check(q, k, v, beta, alpha) -> None:
 
 def gdn_scan(q, k, v, beta, alpha):
     """q, k, v (B,S,H,K), beta, alpha (B,S,H) -> (y (B,S,H,K) in q's dtype,
-    final state (B,H,K,K) fp32)."""
+    final state (B,H,K,K) fp32), differentiable in every input."""
     _check(q, k, v, beta, alpha)
+    return GdnScan.apply(q, k, v, beta, alpha)
+
+
+class GdnScan(torch.autograd.Function):
+    """The scan with its gradient. The forward saves only its inputs (under
+    remat nothing larger stays alive); the backward recomputes the states.
+    A cotangent autograd does not pass (the final state unused) costs
+    nothing, and a gradient no input needs is returned as None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, beta, alpha):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, beta, alpha)
+        return _forward(q, k, v, beta, alpha)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        from repro_torch.kernels.gdn.gdn_bwd import gdn_scan_bwd
+
+        if dy is None and dfinal is None:
+            return (None,) * 5
+        q, k, v, beta, alpha = ctx.saved_tensors
+        dy = torch.zeros_like(q) if dy is None else dy.contiguous()
+        grads = gdn_scan_bwd(q, k, v, beta, alpha, dy,
+                             None if dfinal is None else dfinal.contiguous())
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _forward(q, k, v, beta, alpha):
     if q.device.type == "cpu":
         y, fs = gdn_scan_ref(q, k, v, beta, alpha)
         return y.to(q.dtype), fs

@@ -9,13 +9,18 @@ fp32 state of each (batch, head),
 The CPU path and the kernel's comparisons on the card use it; nothing on the
 main path calls it when a card is present.
 
+``gdn_scan_bwd_ref`` is the plain version of the backward kernel
+(``csrc/gdn_scan_bwd.cu``): the reverse scan that gives every input's
+gradient, the twin of ``torch.autograd`` through ``gdn_scan_ref``.
+
 ``gdn_chunked_ref`` computes the same function in the chunked (WY /
 UT-transform) form that the CUDA kernel evaluates; it is unused on the main
 path and exists so that the kernel's algebra can be checked on the CPU.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 # log(alpha) is floored here (as in the kernel) so that an alpha that
 # underflowed to 0 gives a decay of e^-80, not a NaN from -inf - -inf
 LOG_ALPHA_MIN = -80.0
+ALPHA_MIN = math.exp(LOG_ALPHA_MIN)
 
 
 def gdn_scan_ref(
@@ -44,6 +50,63 @@ def gdn_scan_ref(
             + bt * (kt[..., :, None] * v[:, t, :, None, :])
         ys.append(torch.einsum("bhkv,bhk->bhv", state, q[:, t]))
     return torch.stack(ys, dim=1), state
+
+
+
+def gdn_scan_bwd_ref(
+    q: torch.Tensor,       # (B, S, H, K)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    beta: torch.Tensor,    # (B, S, H)
+    alpha: torch.Tensor,
+    dy: torch.Tensor,      # (B, S, H, K): the cotangent of y
+    dfinal: Optional[torch.Tensor] = None,   # (B, H, K, K): of the final state, or 0
+) -> Tuple[torch.Tensor, ...]:
+    """The reverse scan of ``gdn_scan_ref``: -> (dq, dk, dv, dbeta, dalpha),
+    each in fp32 and its input's shape. The state cotangent runs backwards,
+
+        dS_{t-1} = alpha_t (dS_t - beta_t k_t (k_t^T dS_t)) + q_{t-1} dy_{t-1}^T,
+
+    from dfinal + q dy^T at the last token, and with the recomputed states,
+    g = dS_t^T k_t, ks = S_{t-1}^T k_t and w = v_t - alpha_t ks, per token
+    dq_t = S_t dy_t, dv_t = beta_t g, dbeta_t = g . w,
+    dk_t = beta_t dS_t w - alpha_t beta_t S_{t-1} g and
+    dalpha_t = <dS_t, S_{t-1} - beta_t k_t ks^T>.
+
+    As the CUDA kernels floor log(alpha) at LOG_ALPHA_MIN, an alpha below
+    exp(LOG_ALPHA_MIN) runs the recurrence at that floor and gets a zero
+    dalpha, the floor's derivative; above it this is autograd through
+    ``gdn_scan_ref`` exactly."""
+    q, k, v, beta, alpha, dy = (t.float() for t in (q, k, v, beta, alpha, dy))
+    floored = alpha < ALPHA_MIN
+    alpha = torch.where(floored, torch.full_like(alpha, ALPHA_MIN), alpha)
+    bsz, s, h, kd = q.shape
+    state = torch.zeros((bsz, h, kd, kd), dtype=torch.float32, device=q.device)
+    states, kss = [state], []
+    for t in range(s):
+        kt, bt, at = k[:, t], beta[:, t, :, None, None], alpha[:, t, :, None, None]
+        ks = torch.einsum("bhk,bhkv->bhv", kt, state)
+        state = at * (state - bt * (kt[..., :, None] * ks[..., None, :])) \
+            + bt * (kt[..., :, None] * v[:, t, :, None, :])
+        states.append(state)
+        kss.append(ks)
+    ds = torch.zeros_like(state) if dfinal is None else dfinal.float().clone()
+    dq, dk, dv, dbeta, dalpha = (torch.empty_like(t) for t in (q, k, v, beta, alpha))
+    for t in reversed(range(s)):
+        kt, ks = k[:, t], kss[t]
+        bt, at = beta[:, t, :, None], alpha[:, t, :, None]
+        ds = ds + q[:, t, :, :, None] * dy[:, t, :, None, :]
+        dq[:, t] = torch.einsum("bhkv,bhv->bhk", states[t + 1], dy[:, t])
+        g = torch.einsum("bhk,bhkv->bhv", kt, ds)
+        w = v[:, t] - at * ks
+        dv[:, t] = bt * g
+        dbeta[:, t] = (g * w).sum(-1)
+        dk[:, t] = bt * torch.einsum("bhkv,bhv->bhk", ds, w) \
+            - at * bt * torch.einsum("bhkv,bhv->bhk", states[t], g)
+        pre = states[t] - bt[..., None] * (kt[..., :, None] * ks[..., None, :])
+        dalpha[:, t] = (ds * pre).sum((-1, -2))
+        ds = at[..., None] * (ds - bt[..., None] * (kt[..., :, None] * g[..., None, :]))
+    return dq, dk, dv, dbeta, torch.where(floored, torch.zeros_like(dalpha), dalpha)
 
 
 def gdn_chunked_ref(

@@ -7,6 +7,11 @@ fallback. It counts its calls in ``ssd_scan.launches`` (the CPU path does
 not count). bf16 runs the tensor-core kernel (``ssd_tc_kernel``, one
 launch); fp32 the CUDA-core kernels (a c.b pass, then the scan).
 
+``ssd_scan`` is differentiable: it runs through the autograd Function
+``SsdScan``, whose backward is the backward kernel of ``ssd_bwd.py`` on a
+CUDA tensor and its plain twin ``ref.ssd_scan_bwd_ref`` on a CPU tensor.
+Under ``torch.no_grad`` it is the forward alone.
+
 Contract (as the Pallas kernel): x (B,S,H,P) and b, c (B,S,N) in one dtype
 (fp32 or bf16), dt (B,S,H) and a (H,) fp32, S a multiple of ``CHUNK``
 (``ops.ssd_prefill`` pads); returns y (B,S,H,P) in x's dtype and the final
@@ -69,8 +74,37 @@ def _check(x, dt, a, b, c) -> None:
 
 def ssd_scan(x, dt, a, b, c):
     """x (B,S,H,P), dt (B,S,H), a (H,), b, c (B,S,N) -> (y (B,S,H,P) in
-    x's dtype, final state (B,H,P,N) fp32)."""
+    x's dtype, final state (B,H,P,N) fp32), differentiable in every input."""
     _check(x, dt, a, b, c)
+    return SsdScan.apply(x, dt, a, b, c)
+
+
+class SsdScan(torch.autograd.Function):
+    """The scan with its gradient. The forward saves only its inputs (under
+    remat nothing larger stays alive); the backward recomputes the states.
+    A cotangent autograd does not pass (the final state unused) costs
+    nothing, and a gradient no input needs is returned as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c)
+        return _forward(x, dt, a, b, c)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        from repro_torch.kernels.ssd.ssd_bwd import ssd_scan_bwd
+
+        if dy is None and dfinal is None:
+            return (None,) * 5
+        x, dt, a, b, c = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssd_scan_bwd(x, dt, a, b, c, dy,
+                             None if dfinal is None else dfinal.contiguous())
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _forward(x, dt, a, b, c):
     if x.device.type == "cpu":
         y, fs = ssd_scan_ref(x, dt, a, b, c)
         return y.to(x.dtype), fs

@@ -395,21 +395,9 @@ def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     """Training/eval forward -> final hidden states (B, S, d), never the
     logits (the training loss unembeds in chunks). With ``remat`` each unit
     runs under ``torch.utils.checkpoint``, so the backward recomputes its
-    activations.
-
-    The scan kernels of ``ssm`` and ``gdn`` blocks (kernels 3 and 6) have no
-    backward, and their plain versions stay off the card: with grad enabled
-    on a CUDA device such a config raises ``NotImplementedError`` rather
-    than return outputs detached from every parameter upstream of a scan.
-    On the CPU (the plain versions) those kinds train."""
-    table = params["embed"]["table"]
-    scans = sorted(set(cfg.block_kinds_flat()) & set(SCAN_KINDS))
-    if scans and torch.is_grad_enabled() and table.device.type == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name}: training {scans} blocks on the card needs a backward for the "
-            "scan kernels 3 and 6 (ssd_scan, gdn_scan), not ported yet (ROADMAP.md queue 1 "
-            "item 9, 'backward for kernels 3 and 6'); run forward under torch.no_grad(), or "
-            "on the CPU")
+    activations. The scan kernels of ``ssm`` and ``gdn`` blocks (kernels 3
+    and 6) are differentiable: on the card their backward is a kernel too.
+    """
     x = _embed_inputs(params, cfg, inputs)
     x = _run_stages(params, cfg, x, "train", None, None, enc_states=enc_states, remat=remat)
     return rmsnorm(params["final_norm"], x, cfg.rms_eps)

@@ -19,8 +19,9 @@ attention with the logit softcap and the sliding window (splits and pages
 wholly below the window); a deepseek-v2-lite-shaped MoE decode step replayed
 from a CUDA graph, bitwise equal to eager; training on the card (remat
 off against on, two microbatches against one, compressed steps, a restart
-from a checkpoint against a straight run, and the recurrent kinds refusing
-a forward with grad).
+from a checkpoint against a straight run, and the recurrent kinds'
+gradients through the scans' backward kernels against the CPU's); the two
+backward kernels against their plain twins.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. This file imports neither jax nor ``repro``, so it
@@ -1390,23 +1391,80 @@ def test_restart_from_checkpoint_on_card(tmp_path):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["mamba2-780m", "gdn-4b", "zamba2-1.2b"])
 def test_forward_with_grad_refuses_scan_kinds_on_card(arch):
-    """A CUDA ``forward`` with grad through a scan kernel (no backward)
-    raises, naming the ROADMAP item, and launches nothing; under
-    ``torch.no_grad`` it runs the scan kernel once per recurrent layer."""
+    """A CUDA ``forward`` with grad through the scan kernels trains (the
+    name is kept from when the card refused it): ``value_and_grad`` on
+    reduced fp32 weights launches the forward scan twice per recurrent
+    layer (the forward and the remat recompute) and its backward kernel
+    once, and every leaf's gradient is within 2e-4 of its largest entry of
+    the same step on CPU copies of the weights, which run the twins;
+    under ``torch.no_grad`` the forward scan alone, once per recurrent
+    layer."""
+    from repro_torch.kernels import gdn_scan_bwd, ssd_scan_bwd
     from repro_torch.models import forward
+    from repro_torch.training import tree as T
+    from repro_torch.training.train import value_and_grad
 
     _need_card()
-    cfg = reduced_config(arch)
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    toks = torch.ones((2, 16), dtype=torch.int32, device="cuda")
-    kernel = gdn_scan if arch == "gdn-4b" else ssd_scan
-    before = kernel.launches
-    with pytest.raises(NotImplementedError, match="backward for kernels 3 and 6"):
-        forward(params, cfg, toks)
-    assert kernel.launches == before
+    cfg, params, batches = _train_setup(arch, batch_size=2, seq_len=80)
+    kernel, bwd = (gdn_scan, gdn_scan_bwd) if arch == "gdn-4b" else (ssd_scan, ssd_scan_bwd)
+    layers = sum(stage.n_units * sum(k in SCAN_KINDS for k in stage.unit)
+                 for stage in cfg.stages)
+    before = {k: k.launches for k in COUNTED_KERNELS}
+    loss, grads = value_and_grad(params, cfg, batches[0])
+    torch.cuda.synchronize()
+    after = {k: k.launches - before[k] for k in COUNTED_KERNELS}
+    assert after == {k: {kernel: 2 * layers, bwd: layers}.get(k, 0) for k in COUNTED_KERNELS}
+    cpu = T.map(lambda t: t.detach().cpu(), params)
+    closs, cgrads = value_and_grad(cpu, cfg, {k: v.cpu() for k, v in batches[0].items()})
+    assert loss.item() == pytest.approx(closs.item(), rel=2e-4)
+    for path, g, c in zip(T.paths(grads), T.leaves(grads), T.leaves(cgrads)):
+        scale = c.abs().max().item()
+        assert scale > 0, path
+        assert (g.cpu() - c).abs().max().item() <= 2e-4 * scale, path
+    toks = batches[0]["inputs"]
     with torch.no_grad():
         h = forward(params, cfg, toks)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(h).all())
-    assert kernel.launches - before == sum(stage.n_units * sum(k in SCAN_KINDS for k in stage.unit)
-                                           for stage in cfg.stages)
+    assert kernel.launches - before[kernel] == 3 * layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shape", [
+    ("ssd", (2, 128, 4, 32, 16)),       # reduced mamba2-780m
+    ("ssd", (1, 256, 8, 64, 64)),       # zamba2-1.2b's N
+    ("gdn", (2, 64, 2, 16)),            # reduced gdn-4b
+    ("gdn", (1, 96, 4, 128)),           # gdn-4b's head dim
+])
+def test_scan_bwd_kernels_match_twins(kind, shape, dtype):
+    """The backward kernels against their plain twins on the same inputs,
+    with and without the final state's cotangent: each gradient in its
+    input's dtype and within 2e-4 (fp32) / 2e-2 (bf16, the gradients are
+    returned in bf16) of the twin's largest entry; two calls bitwise
+    equal."""
+    from repro_torch.kernels import gdn_scan_bwd, gdn_scan_bwd_ref, ssd_scan_bwd, \
+        ssd_scan_bwd_ref
+
+    _need_card()
+    if kind == "ssd":
+        inputs, kernel, twin = _ssd_inputs(dtype, *shape), ssd_scan_bwd, ssd_scan_bwd_ref
+        state = (shape[0], shape[2], shape[3], shape[4])
+    else:
+        inputs, kernel, twin = _gdn_inputs(dtype, *shape), gdn_scan_bwd, gdn_scan_bwd_ref
+        state = (shape[0], shape[2], shape[3], shape[3])
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dy = torch.randn(inputs[0].shape, generator=g, device="cuda").to(dtype)
+    dfinal = torch.randn(state, generator=g, device="cuda")
+    rtol = 2e-4 if dtype == torch.float32 else 2e-2
+    before = kernel.launches
+    for df in (None, dfinal):
+        got = kernel(*inputs, dy, df)
+        again = kernel(*inputs, dy, df)
+        want = twin(*inputs, dy, df)
+        torch.cuda.synchronize()
+        assert [t.dtype for t in got] == [t.dtype for t in inputs]
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, w in zip(got, want):
+            assert (a.float() - w).abs().max().item() <= rtol * w.abs().max().item()
+    assert kernel.launches - before == 4

@@ -31,6 +31,12 @@ ENTRY_POINTS = [
     ("repro_torch.kernels.ssd.ssd", "ssd_scan", f"ssd_scan_{sfx}") for sfx in ("f32", "bf16")
 ] + [
     ("repro_torch.kernels.gdn.gdn", "gdn_scan", f"gdn_scan_{sfx}") for sfx in ("f32", "bf16")
+] + [
+    ("repro_torch.kernels.ssd.ssd_bwd", "ssd_scan_bwd", f"ssd_scan_bwd_{sfx}")
+    for sfx in ("f32", "bf16")
+] + [
+    ("repro_torch.kernels.gdn.gdn_bwd", "gdn_scan_bwd", f"gdn_scan_bwd_{sfx}")
+    for sfx in ("f32", "bf16")
 ]
 
 

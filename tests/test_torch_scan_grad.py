@@ -1,0 +1,286 @@
+"""The gradients of the port's two scans (kernels 3 and 6) on the CPU.
+
+The scans run through the autograd Functions ``SsdScan`` and ``GdnScan``:
+on a CUDA tensor their backward is a CUDA kernel, on a CPU tensor its plain
+twin (``ssd_scan_bwd_ref`` / ``gdn_scan_bwd_ref``), the reverse scan that
+this file holds. Inputs come from numpy with a seed, fp32 throughout.
+
+* The twins against ``torch.autograd`` through ``ssd_scan_ref`` and
+  ``gdn_scan_ref``, with the final state's cotangent absent and present, at
+  S on and off the kernels' chunks: the same fp32 recurrence differentiated
+  two ways, each gradient within ``TWIN_RTOL`` (1e-5) of its largest entry.
+* ``ssd_prefill`` / ``gdn_prefill`` (padding to the chunk, then the
+  Functions) against ``jax.grad`` of the reference's jnp scans
+  ``repro.models.ssm.ssd_chunked`` and ``repro.models.gdn.gdn_scan`` on the
+  same inputs and cotangents: the SSD pair at the SSD scans' tolerance 2e-4
+  (the reference differentiates the chunked form, the port the sequential
+  one: the same math summed in another order), the GDN pair at 1e-5 (both
+  sequential). Each gradient is held relative to its largest entry.
+* The Functions' ``needs_input_grad`` handling (a gradient no input needs
+  comes back as None, and none is computed without a cotangent), the
+  missing ``dy``, ``torch.no_grad`` (no graph, the forward alone), the
+  dtypes of the returned gradients, the wrappers' contract and the CPU
+  path's launch counts (none).
+The per-leaf ``jax.grad`` parity of whole reduced mamba2-780m, gdn-4b and
+zamba2-1.2b through remat is in ``tests/test_torch_training.py``; the
+kernels themselves run only on a card (``tests/test_torch_gpu.py``,
+``chip_smoke.py``).
+"""
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import gdn as jax_gdn
+from repro.models import ssm as jax_ssm
+from repro_torch.kernels import (
+    gdn_prefill,
+    gdn_scan,
+    gdn_scan_bwd,
+    gdn_scan_bwd_ref,
+    gdn_scan_ref,
+    ssd_prefill,
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.gdn.gdn import CHUNK as GDN_CHUNK
+from repro_torch.kernels.gdn.gdn import GdnScan
+from repro_torch.kernels.gdn.ref import ALPHA_MIN
+from repro_torch.kernels.ssd.ssd import CHUNK as SSD_CHUNK
+from repro_torch.kernels.ssd.ssd import SsdScan
+
+TWIN_RTOL = 1e-5
+SSD_JAX_RTOL = 2e-4
+GDN_JAX_RTOL = 1e-5
+SSD_NAMES = ("x", "dt", "a", "b", "c")
+GDN_NAMES = ("q", "k", "v", "beta", "alpha")
+
+
+def _ssd_inputs(seed, b, s, h, p, n):
+    """x, dt, a, b, c and the cotangents dy, dfinal, as numpy fp32."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)   # softplus
+    a = (-np.exp(np.linspace(-2, 0.5, h))).astype(np.float32)
+    bm = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    cm = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dfinal = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return (x, dt, a, bm, cm), dy, dfinal
+
+
+def _gdn_inputs(seed, b, s, h, k):
+    """q, k, v, beta, alpha (unit-norm q and k, as the model's L2 norm makes
+    them) and the cotangents dy, dfinal, as numpy fp32."""
+    rng = np.random.default_rng(seed)
+    unit = lambda t: t / np.linalg.norm(t, axis=-1, keepdims=True)
+    q = unit(rng.standard_normal((b, s, h, k))).astype(np.float32)
+    kk = unit(rng.standard_normal((b, s, h, k))).astype(np.float32)
+    v = (rng.standard_normal((b, s, h, k)) * 0.5).astype(np.float32)
+    beta = (1 / (1 + np.exp(-rng.standard_normal((b, s, h))))).astype(np.float32)
+    alpha = (1 / (1 + np.exp(-rng.standard_normal((b, s, h)) - 2))).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, k)).astype(np.float32)
+    dfinal = rng.standard_normal((b, h, k, k)).astype(np.float32)
+    return (q, kk, v, beta, alpha), dy, dfinal
+
+
+def _t(arrays, grad=False):
+    return [torch.from_numpy(a).requires_grad_(grad) for a in arrays]
+
+
+def _assert_rel(got, want, rtol, what):
+    """max |got - want| within rtol of max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}"
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max()
+    assert scale > 0, f"{what}: the reference gradient is zero"
+    assert err <= rtol * scale, f"{what}: max |diff| {err:.3e} > {rtol} x {scale:.3e}"
+
+
+def _autograd(fn, inputs, dy, dfinal):
+    """torch.autograd's gradients of <y, dy> + <final, dfinal> through fn."""
+    leaves = _t(inputs, grad=True)
+    y, fs = fn(*leaves)
+    loss = (y * torch.from_numpy(dy)).sum()
+    if dfinal is not None:
+        loss = loss + (fs * torch.from_numpy(dfinal)).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+# ------------------------------------------------------- twins vs autograd
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 64, 3, 8, 16),          # one kernel chunk
+    (1, 37, 2, 16, 8),          # off the chunk
+    (2, 130, 2, 8, 4),          # a few chunks, ragged
+])
+def test_ssd_twin_matches_autograd_of_plain_scan(b, s, h, p, n, with_dfinal):
+    inputs, dy, dfinal = _ssd_inputs(b * 1000 + s, b, s, h, p, n)
+    df = dfinal if with_dfinal else None
+    want = _autograd(ssd_scan_ref, inputs, dy, df)
+    got = ssd_scan_bwd_ref(*_t(inputs), torch.from_numpy(dy),
+                           None if df is None else torch.from_numpy(df))
+    for name, g, w in zip(SSD_NAMES, got, want):
+        assert g.dtype == torch.float32
+        _assert_rel(g.numpy(), w, TWIN_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,k", [
+    (2, 32, 3, 8),              # one kernel chunk
+    (1, 21, 2, 16),             # off the chunk
+    (2, 70, 2, 4),              # a few chunks, ragged
+])
+def test_gdn_twin_matches_autograd_of_plain_scan(b, s, h, k, with_dfinal):
+    inputs, dy, dfinal = _gdn_inputs(b * 1000 + s, b, s, h, k)
+    df = dfinal if with_dfinal else None
+    want = _autograd(gdn_scan_ref, inputs, dy, df)
+    got = gdn_scan_bwd_ref(*_t(inputs), torch.from_numpy(dy),
+                           None if df is None else torch.from_numpy(df))
+    for name, g, w in zip(GDN_NAMES, got, want):
+        assert g.dtype == torch.float32
+        _assert_rel(g.numpy(), w, TWIN_RTOL, f"d{name}")
+
+
+def test_gdn_twin_gives_no_dalpha_below_the_floor():
+    """Where the kernels floor log(alpha) at -80, alpha's gradient is the
+    floor's: 0; the other gradients run the recurrence at the floor."""
+    inputs, dy, dfinal = _gdn_inputs(5, 1, 16, 2, 8)
+    alpha = inputs[4].copy()
+    alpha[0, 3, 1] = 0.0
+    alpha[0, 9, 0] = ALPHA_MIN / 4
+    floored = (inputs[0], inputs[1], inputs[2], inputs[3], alpha)
+    at_floor = alpha.copy()
+    at_floor[alpha < ALPHA_MIN] = ALPHA_MIN
+    got = gdn_scan_bwd_ref(*_t(floored), torch.from_numpy(dy), torch.from_numpy(dfinal))
+    want = _autograd(gdn_scan_ref, (*inputs[:4], at_floor), dy, dfinal)
+    dalpha = got[4].numpy()
+    assert dalpha[0, 3, 1] == 0.0 and dalpha[0, 9, 0] == 0.0
+    want[4][alpha < ALPHA_MIN] = 0.0
+    for name, g, w in zip(GDN_NAMES, got, want):
+        _assert_rel(g.numpy(), w, TWIN_RTOL, f"d{name}")
+
+
+# ------------------------------------------- the Functions vs jax.grad
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, SSD_CHUNK, 4, 8, 16),   # on the port's chunk
+    (1, 100, 3, 16, 8),         # off it: ssd_prefill pads, autograd slices back
+])
+def test_ssd_function_matches_jax_grad_of_ssd_chunked(b, s, h, p, n, with_dfinal):
+    inputs, dy, dfinal = _ssd_inputs(7 + s, b, s, h, p, n)
+    x, dt, a, bm, cm = inputs
+
+    def jloss(x, dt, a, bm, cm):
+        y, fs = jax_ssm.ssd_chunked(x, dt, a, bm[:, :, None], cm[:, :, None], chunk=16)
+        out = (y * dy).sum()
+        return out + (fs * dfinal).sum() if with_dfinal else out
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(t) for t in inputs))
+    got = _autograd(lambda *t: ssd_prefill(*t), inputs, dy, dfinal if with_dfinal else None)
+    for name, g, w in zip(SSD_NAMES, got, want):
+        _assert_rel(g, np.asarray(w), SSD_JAX_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,k", [
+    (2, GDN_CHUNK, 3, 8),       # on the port's chunk
+    (1, 45, 2, 16),             # off it: gdn_prefill pads, autograd slices back
+])
+def test_gdn_function_matches_jax_grad_of_gdn_scan(b, s, h, k, with_dfinal):
+    inputs, dy, dfinal = _gdn_inputs(11 + s, b, s, h, k)
+
+    def jloss(q, kk, v, beta, alpha):
+        y, fs = jax_gdn.gdn_scan(q, kk, v, beta, alpha)
+        out = (y * dy).sum()
+        return out + (fs * dfinal).sum() if with_dfinal else out
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(t) for t in inputs))
+    got = _autograd(lambda *t: gdn_prefill(*t), inputs, dy, dfinal if with_dfinal else None)
+    for name, g, w in zip(GDN_NAMES, got, want):
+        _assert_rel(g, np.asarray(w), GDN_JAX_RTOL, f"d{name}")
+
+
+# ------------------------------------------------ the Functions' plumbing
+def _padded(kind):
+    """Inputs on the kernels' chunk, as the Functions receive them."""
+    if kind == "ssd":
+        inputs, dy, dfinal = _ssd_inputs(3, 2, SSD_CHUNK, 2, 8, 4)
+        return SsdScan, ssd_scan, ssd_scan_bwd, inputs, dy, dfinal
+    inputs, dy, dfinal = _gdn_inputs(3, 2, GDN_CHUNK, 2, 8)
+    return GdnScan, gdn_scan, gdn_scan_bwd, inputs, dy, dfinal
+
+
+@pytest.mark.parametrize("kind", ["ssd", "gdn"])
+@pytest.mark.parametrize("needed", [0, 2, 4])
+def test_function_honours_needs_input_grad(kind, needed):
+    """The backward returns a gradient only where an input needs one, each
+    equal to the twin's."""
+    fn, _, bwd, inputs, dy, dfinal = _padded(kind)
+    need = tuple(i == needed for i in range(5))
+    ctx = SimpleNamespace(needs_input_grad=need, saved_tensors=tuple(_t(inputs)))
+    out = fn.backward(ctx, torch.from_numpy(dy), torch.from_numpy(dfinal))
+    want = bwd(*_t(inputs), torch.from_numpy(dy), torch.from_numpy(dfinal))
+    assert [g is not None for g in out] == list(need)
+    torch.testing.assert_close(out[needed], want[needed], rtol=0, atol=0)
+    # through autograd: the one leaf that requires grad gets the same gradient
+    leaves = [torch.from_numpy(t).requires_grad_(i == needed) for i, t in enumerate(inputs)]
+    y, fs = fn.apply(*leaves)
+    (y * torch.from_numpy(dy)).sum().add((fs * torch.from_numpy(dfinal)).sum()).backward()
+    assert [t.grad is not None for t in leaves] == list(need)
+    torch.testing.assert_close(leaves[needed].grad, want[needed], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["ssd", "gdn"])
+def test_function_without_a_cotangent(kind):
+    """No cotangent at all: every gradient None. Only the final state's
+    (y unused): the twin's gradients with dy = 0."""
+    fn, _, bwd, inputs, dy, dfinal = _padded(kind)
+    ctx = SimpleNamespace(needs_input_grad=(True,) * 5, saved_tensors=tuple(_t(inputs)))
+    assert fn.backward(ctx, None, None) == (None,) * 5
+    got = fn.backward(ctx, None, torch.from_numpy(dfinal))
+    want = bwd(*_t(inputs), torch.zeros_like(torch.from_numpy(dy)), torch.from_numpy(dfinal))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["ssd", "gdn"])
+def test_no_grad_runs_the_forward_alone(kind):
+    _, scan, bwd, inputs, _, _ = _padded(kind)
+    leaves = _t(inputs, grad=True)
+    with torch.no_grad():
+        y, fs = scan(*leaves)
+    assert y.grad_fn is None and fs.grad_fn is None
+    y2, fs2 = scan(*leaves)
+    assert y2.grad_fn is not None
+    torch.testing.assert_close(y, y2.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(fs, fs2.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["ssd", "gdn"])
+def test_bwd_wrapper_dtypes_contract_and_cpu_counts(kind):
+    """Each gradient in its input's dtype (bf16 tensors, fp32 gates); dy
+    and dfinal of the wrong shape or dtype refused; the CPU path launches
+    nothing."""
+    _, _, bwd, inputs, dy, dfinal = _padded(kind)
+    t = _t(inputs)
+    # x, b, c (SSD) or q, k, v (GDN) in bf16; dt, a or beta, alpha stay fp32
+    wide = (0, 3, 4) if kind == "ssd" else (0, 1, 2)
+    t = [a.bfloat16() if i in wide else a for i, a in enumerate(t)]
+    before = bwd.launches
+    grads = bwd(*t, torch.from_numpy(dy).bfloat16(), torch.from_numpy(dfinal))
+    assert bwd.launches == before
+    assert [g.dtype for g in grads] == [a.dtype for a in t]
+    assert [g.shape for g in grads] == [a.shape for a in t]
+    with pytest.raises(ValueError):
+        bwd(*t, torch.from_numpy(dy), None)                       # fp32 dy, bf16 inputs
+    with pytest.raises(ValueError):
+        bwd(*t, torch.from_numpy(dy).bfloat16()[:, :-1], None)
+    with pytest.raises(ValueError):
+        bwd(*t, torch.from_numpy(dy).bfloat16(), torch.from_numpy(dfinal)[:, :1])

@@ -62,7 +62,8 @@ FORWARD_ARCHS = ["gemma-2b", "minicpm-2b", "minitron-4b-mla", "deepseek-v2-lite-
 # evaluation of the port on the same weights (1.2e-6 with the gates at 0),
 # so the two fp32 results are held to each other at 1e-4
 FORWARD_ATOL = {"llama-3.2-vision-11b": 1e-4}
-GRAD_ARCHS = ["gemma-2b", "deepseek-v2-lite-16b", "llama-3.2-vision-11b"]
+GRAD_ARCHS = ["gemma-2b", "deepseek-v2-lite-16b", "llama-3.2-vision-11b", "mamba2-780m", "gdn-4b",
+              "zamba2-1.2b"]
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
