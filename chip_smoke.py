@@ -16,7 +16,8 @@ Phases; any failure exits non-zero:
    the main paths' shapes and others (GQA
    also with the logit softcap and the sliding window, whole splits and
    pages below the window among them; the backward kernels at the training
-   shapes of mamba2-780m, zamba2-1.2b and gdn-4b and off the chunk), and
+   shapes of mamba2-780m, zamba2-1.2b and gdn-4b, off the chunk and, for
+   the SSD one, at a P that 64 does not divide), and
    time kernel, plain version and, where one PyTorch call computes the same
    function, that call (``F.scaled_dot_product_attention``; yardstick only,
    the port never calls it) beside the bound;
@@ -411,6 +412,7 @@ SSD_BWD_CASES = (
     (8, 512, 48, 64, 128, True),     # mamba2-780m
     (8, 512, 64, 64, 64, False),     # zamba2-1.2b (N 64)
     (2, 300, 48, 64, 128, False),    # not a chunk multiple: through ssd_prefill
+    (2, 128, 4, 96, 64, False),      # 64 does not divide P: the bf16 kernel's 32-row CTAs
 )
 GDN_BWD_CASES = (
     (4, 512, 20, 128, True),         # gdn-4b
@@ -648,7 +650,8 @@ def make_scan_bwd_args(torch, name, shape, dtype, seed):
 TENSOR_CORE_KERNELS = {"decode_attn": ("tc_split_kernel",),
                        "mla_decode": ("mla_tc_split_kernel",),
                        "ssd_scan": ("ssd_tc_kernel",),
-                       "gdn_scan": ("gdn_prep_kernel", "gdn_chain_kernel")}
+                       "gdn_scan": ("gdn_prep_kernel", "gdn_chain_kernel"),
+                       "ssd_scan_bwd": ("ssd_bwd_tc_kernel",)}
 
 
 def tensor_core_check(info) -> list:

@@ -11,6 +11,9 @@ nothing on the main path calls it when a card is present.
 ``ssd_scan_bwd_ref`` is the plain version of the backward kernel
 (``csrc/ssd_scan_bwd.cu``): the reverse scan that gives every input's
 gradient, the twin of ``torch.autograd`` through ``ssd_scan_ref``.
+``ssd_scan_bwd_chunked_ref`` writes out the per-chunk closed form that the
+kernel evaluates instead, with the bf16 kernel's rounding points as an
+option; it lies on no path and serves the tests.
 """
 from __future__ import annotations
 
@@ -85,3 +88,102 @@ def ssd_scan_bwd_ref(
         ddt[:, t] = a * r + torch.einsum("bhp,bhp->bh", x[:, t], gb)
         da = da + (dt[:, t] * r).sum(0)
     return dx, ddt, da, db, dc
+
+
+def ssd_scan_bwd_chunked_ref(
+    x: torch.Tensor,     # (B, S, H, P)
+    dt: torch.Tensor,    # (B, S, H)
+    a: torch.Tensor,     # (H,)
+    b: torch.Tensor,     # (B, S, N)
+    c: torch.Tensor,     # (B, S, N)
+    dy: torch.Tensor,    # (B, S, H, P)
+    dfinal: Optional[torch.Tensor] = None,   # (B, H, P, N), or 0
+    *,
+    bf16: bool = False,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """``ssd_scan_bwd_ref``'s gradients by the kernel's per-chunk closed
+    form (the header of ``csrc/ssd_scan_bwd.cu``): -> (dx, ddt, da, db, dc)
+    in fp32. S is padded to the chunk with dt = 0 rows, as ``ssd_prefill``
+    pads. A first pass over the chunks keeps the state entering each; the
+    second walks them backwards with dH, the state's cotangent at the
+    chunk's end. Per chunk, with cum the inclusive cumsum of dt a, e_i =
+    exp(cum_i), u_j = exp(cum_Q - cum_j), w_j = u_j dt_j, L_ij =
+    exp(cum_i - cum_j) (j <= i, else 0), CB = C B^T and dM = dY X^T:
+
+        M = CB.L.dt_j,  Pm = dM.L.dt_j,  K = dM.CB.L
+        dX = M^T dY + diag(w) B dH^T      v_j = x_j . (dH b_j)
+        dC = Pm B + diag(e) dY H0         q_i = dy_i . (H0 c_i)
+        dB = Pm^T C + diag(w) X dH
+        dcum_i = sum_j K_ij dt_j - dt_i sum_i' K_i'i + e_i q_i - w_i v_i
+                 (+ e_Q <dH, H0> + sum_j w_j v_j at i = Q - 1)
+        ddt_j = sum_i K_ij + u_j v_j + a sum_{i >= j} dcum_i
+        da += sum_i dcum_i sum_{k <= i} dt_k
+        dH <- e_Q dH + dY^T diag(e) C
+
+    (b and c sum over heads: one group). With ``bf16`` it rounds where the
+    bf16 kernel does: x, b, c and dy (its inputs), each product's operands
+    that are not inputs (M, Pm, dH, e dY and, in the first pass, w X), the
+    entry states (kept in bf16 between the passes), and dx, db and dc (its
+    outputs); the rest stays fp32."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
+    x, b, c, dy = (rnd(t.float()) for t in (x, b, c, dy))
+    dt, a = dt.float(), a.float()
+    pad = (-s) % chunk
+    if pad:
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b, c = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (b, c))
+    q = chunk
+    nc = x.shape[1] // q
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+
+    def chunk_of(z):
+        sl = slice(z * q, (z + 1) * q)
+        dtz = dt[:, sl]                                                # (B,Q,H)
+        cs = dtz.cumsum(1)
+        cum = cs * a
+        e = torch.exp(cum)
+        u = torch.exp(cum[:, -1:] - cum)
+        expo = cum.transpose(1, 2)[..., :, None] - cum.transpose(1, 2)[..., None, :]
+        lmat = torch.where(tril, torch.exp(torch.where(tril, expo, 0.0)), 0.0)   # (B,H,Q,Q)
+        return sl, dtz, cs, e, u, u * dtz, lmat
+
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    entry = []
+    for z in range(nc):
+        sl, dtz, _, e, _, w, _ = chunk_of(z)
+        entry.append(rnd(state))
+        state = state * e[:, -1, :, None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", rnd(w[..., None] * x[:, sl]), b[:, sl])
+    dh = (torch.zeros_like(state) if dfinal is None else dfinal.float().clone())
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da = torch.zeros_like(a)
+    for z in reversed(range(nc)):
+        sl, dtz, cs, e, u, w, lmat = chunk_of(z)
+        xz, bz, cz, dyz, h0 = x[:, sl], b[:, sl], c[:, sl], dy[:, sl], entry[z]
+        dtj = dtz.transpose(1, 2)[:, :, None, :]                      # (B,H,1,Q)
+        cb = torch.einsum("bin,bjn->bij", cz, bz)[:, None]
+        dm = torch.einsum("bihp,bjhp->bhij", dyz, xz)
+        m, pm, k = rnd(cb * lmat * dtj), rnd(dm * lmat * dtj), dm * cb * lmat
+        dhr = rnd(dh)
+        bdh = torch.einsum("bjn,bhpn->bjhp", bz, dhr)
+        dx[:, sl] = torch.einsum("bhij,bihp->bjhp", m, dyz) + w[..., None] * bdh
+        v = (xz * bdh).sum(-1)                                        # (B,Q,H)
+        dyh0 = torch.einsum("bihp,bhpn->bihn", dyz, h0)
+        qv = (cz[:, :, None] * dyh0).sum(-1)
+        dc[:, sl] = (torch.einsum("bhij,bjn->bihn", pm, bz) + e[..., None] * dyh0).sum(2)
+        db[:, sl] = (torch.einsum("bhij,bin->bjhn", pm, cz)
+                     + w[..., None] * torch.einsum("bjhp,bhpn->bjhn", xz, dhr)).sum(2)
+        row_k = torch.einsum("bhij,bhj->bih", k, dtz.transpose(1, 2))
+        col_k = k.sum(2).transpose(1, 2)
+        e_q = e[:, -1]                                                # (B,H)
+        dcum = row_k - dtz * col_k + e * qv - w * v
+        dcum[:, -1] += e_q * (dh * h0).sum((-1, -2)) + (w * v).sum(1)
+        ddt[:, sl] = col_k + u * v + a * dcum.flip(1).cumsum(1).flip(1)
+        da = da + (dcum * cs).sum((0, 1))
+        dh = dh * e_q[..., None, None] + torch.einsum(
+            "bihp,bin->bhpn", rnd(e[..., None] * dyz), cz)
+    return (rnd(dx[:, :s]), ddt[:, :s], da, rnd(db[:, :s]), rnd(dc[:, :s]))

@@ -8,11 +8,14 @@ tensor the wrapper launches its kernel or raises; there is no fallback. It
 counts its launches in ``ssd_scan_bwd.launches`` (the CPU path does not
 count).
 
+bf16 runs the tensor-core kernel (``ssd_bwd_tc_kernel``), fp32 the
+CUDA-core one (``ssd_bwd_kernel``); one launch each.
+
 Contract: the forward's inputs (``ssd.ssd_scan``'s contract), dy (B,S,H,P)
 in x's dtype and dfinal (B,H,P,N) fp32 or None (a zero cotangent) ->
-(dx, ddt, da, db, dc), each in its input's dtype. The kernel computes in
-fp32 and writes fp32 partials over blocks of ``ROWS_PER_CTA`` state rows
-(ddt, da, db, dc), which are summed here in a fixed order: two calls give
+(dx, ddt, da, db, dc), each in its input's dtype. The kernels sum in fp32
+and write fp32 partials over blocks of state rows (``_rows_per_cta``:
+ddt, da, db, dc), which are summed here in a fixed order: two calls give
 the same bits.
 """
 from __future__ import annotations
@@ -43,6 +46,12 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
+def _rows_per_cta(dtype: torch.dtype, p: int) -> int:
+    """State rows a CTA of the kernel for ``dtype`` takes (PS in the source):
+    the bf16 kernel 64 where 64 divides P, else ``ROWS_PER_CTA``."""
+    return 64 if dtype == torch.bfloat16 and p % 64 == 0 else ROWS_PER_CTA
+
+
 def ssd_scan_bwd(x, dt, a, b, c, dy, dfinal=None):
     """The forward's inputs, dy (B,S,H,P) and dfinal (B,H,P,N) or None ->
     (dx, ddt, da, db, dc), each in its input's dtype."""
@@ -62,14 +71,19 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dfinal=None):
         raise ValueError(f"ssd_scan_bwd: P={p} must be a multiple of {ROWS_PER_CTA} and "
                          f"N={n} one of {STATE_DIMS}")
     dev = x.device
-    # the kernel reads one element at a time
-    operands = [cuda_operand(t, what, "ssd_scan_bwd", dev, align=t.element_size())
+    bf16 = x.dtype == torch.bfloat16
+    # the bf16 kernel stages 16-byte rows of x, b, c and dy and reads dfinal
+    # in pairs; the fp32 kernel reads one element at a time
+    operands = [cuda_operand(t, what, "ssd_scan_bwd", dev,
+                             align=16 if bf16 and what in ("x", "b", "c", "dy")
+                             else t.element_size())
                 for t, what in ((x, "x"), (dt, "dt"), (a, "a"), (b, "b"), (c, "c"), (dy, "dy"))]
-    operands.append(None if dfinal is None
-                    else cuda_operand(dfinal, "dfinal", "ssd_scan_bwd", dev))
-    npb = p // ROWS_PER_CTA
+    operands.append(None if dfinal is None else cuda_operand(
+        dfinal, "dfinal", "ssd_scan_bwd", dev, align=8 if bf16 else 4))
+    npb = p // _rows_per_cta(x.dtype, p)
     f32 = dict(dtype=torch.float32, device=dev)
-    hs = torch.empty((bsz, h, s // CHUNK, p, n), **f32)      # the state entering each chunk
+    # the state entering each chunk, in x's dtype
+    hs = torch.empty((bsz, h, s // CHUNK, p, n), dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)
     ddt = torch.empty((bsz, s, h, npb), **f32)
     da = torch.empty((bsz, h, npb), **f32)

@@ -16,6 +16,15 @@ this file holds. Inputs come from numpy with a seed, fp32 throughout.
   (the reference differentiates the chunked form, the port the sequential
   one: the same math summed in another order), the GDN pair at 1e-5 (both
   sequential). Each gradient is held relative to its largest entry.
+* ``ssd_scan_bwd_chunked_ref``, the per-chunk closed form that the
+  backward kernel evaluates, on the SSD shapes above with the cotangent
+  absent and present: in fp32 against the twin and against ``jax.grad`` of
+  ``ssd_chunked`` (at the port's chunk), both at ``SSD_JAX_RTOL`` (the
+  closed form's fp32 sums cancel: its da is ~1e-5 of max |da| from the
+  float64 answer where the twin's is ~1e-6); with the
+  bf16 kernel's rounding points against the twin at ``SSD_BF16_RTOL``
+  (2e-2, the bf16 tolerance of ``chip_smoke.py``'s phase 3), on inputs
+  that are bf16 already, as the kernel receives them.
 * The Functions' ``needs_input_grad`` handling (a gradient no input needs
   comes back as None, and none is computed without a cotangent), the
   missing ``dy``, ``torch.no_grad`` (no graph, the forward alone), the
@@ -51,11 +60,13 @@ from repro_torch.kernels import (
 from repro_torch.kernels.gdn.gdn import CHUNK as GDN_CHUNK
 from repro_torch.kernels.gdn.gdn import GdnScan
 from repro_torch.kernels.gdn.ref import ALPHA_MIN
+from repro_torch.kernels.ssd.ref import ssd_scan_bwd_chunked_ref
 from repro_torch.kernels.ssd.ssd import CHUNK as SSD_CHUNK
 from repro_torch.kernels.ssd.ssd import SsdScan
 
 TWIN_RTOL = 1e-5
 SSD_JAX_RTOL = 2e-4
+SSD_BF16_RTOL = 2e-2
 GDN_JAX_RTOL = 1e-5
 SSD_NAMES = ("x", "dt", "a", "b", "c")
 GDN_NAMES = ("q", "k", "v", "beta", "alpha")
@@ -114,12 +125,19 @@ def _autograd(fn, inputs, dy, dfinal):
 
 
 # ------------------------------------------------------- twins vs autograd
-@pytest.mark.parametrize("with_dfinal", [False, True])
-@pytest.mark.parametrize("b,s,h,p,n", [
+SSD_TWIN_SHAPES = [
     (2, 64, 3, 8, 16),          # one kernel chunk
     (1, 37, 2, 16, 8),          # off the chunk
     (2, 130, 2, 8, 4),          # a few chunks, ragged
-])
+]
+SSD_JAX_SHAPES = [
+    (2, SSD_CHUNK, 4, 8, 16),   # on the port's chunk
+    (1, 100, 3, 16, 8),         # off it: ssd_prefill pads, autograd slices back
+]
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", SSD_TWIN_SHAPES)
 def test_ssd_twin_matches_autograd_of_plain_scan(b, s, h, p, n, with_dfinal):
     inputs, dy, dfinal = _ssd_inputs(b * 1000 + s, b, s, h, p, n)
     df = dfinal if with_dfinal else None
@@ -169,10 +187,7 @@ def test_gdn_twin_gives_no_dalpha_below_the_floor():
 
 # ------------------------------------------- the Functions vs jax.grad
 @pytest.mark.parametrize("with_dfinal", [False, True])
-@pytest.mark.parametrize("b,s,h,p,n", [
-    (2, SSD_CHUNK, 4, 8, 16),   # on the port's chunk
-    (1, 100, 3, 16, 8),         # off it: ssd_prefill pads, autograd slices back
-])
+@pytest.mark.parametrize("b,s,h,p,n", SSD_JAX_SHAPES)
 def test_ssd_function_matches_jax_grad_of_ssd_chunked(b, s, h, p, n, with_dfinal):
     inputs, dy, dfinal = _ssd_inputs(7 + s, b, s, h, p, n)
     x, dt, a, bm, cm = inputs
@@ -205,6 +220,61 @@ def test_gdn_function_matches_jax_grad_of_gdn_scan(b, s, h, k, with_dfinal):
     got = _autograd(lambda *t: gdn_prefill(*t), inputs, dy, dfinal if with_dfinal else None)
     for name, g, w in zip(GDN_NAMES, got, want):
         _assert_rel(g, np.asarray(w), GDN_JAX_RTOL, f"d{name}")
+
+
+# ------------------------------- the kernel's closed form, in plain torch
+def _chunked_case(b, s, h, p, n, with_dfinal):
+    inputs, dy, dfinal = _ssd_inputs(b * 1000 + s + 17, b, s, h, p, n)
+    return inputs, dy, dfinal if with_dfinal else None
+
+
+def _twin(inputs, dy, df):
+    return ssd_scan_bwd_ref(*_t(inputs), torch.from_numpy(dy),
+                            None if df is None else torch.from_numpy(df))
+
+
+def _chunked(inputs, dy, df, bf16=False):
+    return ssd_scan_bwd_chunked_ref(*_t(inputs), torch.from_numpy(dy),
+                                    None if df is None else torch.from_numpy(df), bf16=bf16)
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", SSD_TWIN_SHAPES + SSD_JAX_SHAPES)
+def test_ssd_chunked_form_matches_the_twin(b, s, h, p, n, with_dfinal):
+    inputs, dy, df = _chunked_case(b, s, h, p, n, with_dfinal)
+    for name, g, w in zip(SSD_NAMES, _chunked(inputs, dy, df), _twin(inputs, dy, df)):
+        assert g.dtype == torch.float32
+        _assert_rel(g.numpy(), w.numpy(), SSD_JAX_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", SSD_TWIN_SHAPES + SSD_JAX_SHAPES)
+def test_ssd_chunked_form_matches_jax_grad_of_ssd_chunked(b, s, h, p, n, with_dfinal):
+    inputs, dy, df = _chunked_case(b, s, h, p, n, with_dfinal)
+
+    def jloss(x, dt, a, bm, cm):
+        y, fs = jax_ssm.ssd_chunked(x, dt, a, bm[:, :, None], cm[:, :, None], chunk=SSD_CHUNK)
+        out = (y * dy).sum()
+        return out if df is None else out + (fs * df).sum()
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(t) for t in inputs))
+    for name, g, w in zip(SSD_NAMES, _chunked(inputs, dy, df), want):
+        _assert_rel(g.numpy(), np.asarray(w), SSD_JAX_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", SSD_TWIN_SHAPES + SSD_JAX_SHAPES)
+def test_ssd_chunked_form_with_bf16_rounding_holds_the_bf16_tolerance(b, s, h, p, n,
+                                                                      with_dfinal):
+    inputs, dy, df = _chunked_case(b, s, h, p, n, with_dfinal)
+    to_bf16 = lambda t: torch.from_numpy(t).bfloat16().float().numpy()
+    x, dt, a, bm, cm = inputs
+    inputs, dy = (to_bf16(x), dt, a, to_bf16(bm), to_bf16(cm)), to_bf16(dy)
+    got = _chunked(inputs, dy, df, bf16=True)
+    exact = _chunked(inputs, dy, df)
+    for name, g, w in zip(SSD_NAMES, got, _twin(inputs, dy, df)):
+        _assert_rel(g.numpy(), w.numpy(), SSD_BF16_RTOL, f"d{name}")
+    assert not all(torch.equal(g, e) for g, e in zip(got, exact)), "bf16 rounded nothing"
 
 
 # ------------------------------------------------ the Functions' plumbing
