@@ -417,6 +417,7 @@ SSD_BWD_CASES = (
 GDN_BWD_CASES = (
     (4, 512, 20, 128, True),         # gdn-4b
     (2, 300, 20, 128, False),        # not a chunk multiple: through gdn_prefill
+    (2, 96, 4, 64, False),           # K 64: another instantiation of the kernels
 )
 SCAN_BWD_TIMED_DTYPE = {"ssd_scan_bwd": "bfloat16", "gdn_scan_bwd": "float32"}
 # each gradient of a backward kernel against its twin, as max |diff| / max
@@ -651,7 +652,9 @@ TENSOR_CORE_KERNELS = {"decode_attn": ("tc_split_kernel",),
                        "mla_decode": ("mla_tc_split_kernel",),
                        "ssd_scan": ("ssd_tc_kernel",),
                        "gdn_scan": ("gdn_prep_kernel", "gdn_chain_kernel"),
-                       "ssd_scan_bwd": ("ssd_bwd_tc_kernel",)}
+                       "ssd_scan_bwd": ("ssd_bwd_tc_kernel",),
+                       "gdn_scan_bwd": ("gdn_bwd_prep_kernel", "gdn_bwd_chain_kernel",
+                                        "gdn_bwd_post_kernel")}
 
 
 def tensor_core_check(info) -> list:
@@ -936,6 +939,11 @@ def check_scan_bwd_kernels(torch, kmod, records) -> None:
                       f"{ms:.5f}, twin {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by}), "
                       f"library null ({SCAN_BWD_NO_LIBRARY}); eager ms per call: kernel "
                       f"{ms_eager:.5f}, twin {plain_eager:.5f}")
+                # where a call's device time goes, by the kernels it launches
+                rows, _, _, _ = profiled(
+                    torch, lambda: [kernel(*sets[i % len(sets)], None) for i in range(3)], 3)
+                print(f"[kernels] {name} main shape {dname}, profiled device ms a call by kernel: "
+                      + json.dumps({k[:60]: round(ms_, 5) for ms_, _, k in rows}))
                 del sets
                 torch.cuda.empty_cache()
 

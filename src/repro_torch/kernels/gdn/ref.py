@@ -14,8 +14,10 @@ main path calls it when a card is present.
 gradient, the twin of ``torch.autograd`` through ``gdn_scan_ref``.
 
 ``gdn_chunked_ref`` computes the same function in the chunked (WY /
-UT-transform) form that the CUDA kernel evaluates; it is unused on the main
-path and exists so that the kernel's algebra can be checked on the CPU.
+UT-transform) form that the CUDA kernel evaluates, and
+``gdn_scan_bwd_chunked_ref`` its gradient in the chunked form that the
+backward kernels evaluate; neither lies on the main path: they exist so that
+the kernels' algebra and rounding can be checked on the CPU.
 """
 from __future__ import annotations
 
@@ -166,3 +168,154 @@ def gdn_chunked_ref(
         state = g[:, :, z, -1, None, None] * state + kd_last[:, :, z].transpose(-1, -2) @ u
     y = torch.stack(ys, dim=2).reshape(bsz, h, nz * chunk, kd).permute(0, 2, 1, 3)
     return y[:, :s].contiguous(), state
+
+
+def _f16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels' mma.sync takes it: both fp32 operands split into
+    fp16 hi + lo, and hi.hi + hi.lo + lo.hi summed in fp32."""
+    ah, bh = a.half().float(), b.half().float()
+    al, bl = (a - ah).half().float(), (b - bh).half().float()
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def cotangent_scale(dy: torch.Tensor, dfinal: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, H): the power of two that brings max(|dy|, |dfinal|) of each
+    (batch, head) into [0.5, 1), 1 where that is 0 or not finite. The
+    backward kernels scale the cotangents by it (every gradient is linear in
+    them) so that their fp16 hi + lo splits stay in fp16's normal range, and
+    scale the gradients back."""
+    m = dy.float().abs().amax(dim=(1, 3))
+    if dfinal is not None:
+        m = torch.maximum(m, dfinal.float().abs().amax(dim=(-1, -2)))
+    _, ex = torch.frexp(m)
+    one = torch.ones_like(m)
+    return torch.where((m > 0) & torch.isfinite(m), torch.ldexp(one, -ex.clamp(-125, 125)), one)
+
+
+def gdn_scan_bwd_chunked_ref(
+    q: torch.Tensor,       # (B, S, H, K)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    beta: torch.Tensor,    # (B, S, H)
+    alpha: torch.Tensor,
+    dy: torch.Tensor,      # (B, S, H, K)
+    dfinal: Optional[torch.Tensor] = None,   # (B, H, K, K), or 0
+    *,
+    rounding: Optional[str] = None,
+    chunk: int = 32,
+) -> Tuple[torch.Tensor, ...]:
+    """``gdn_scan_bwd_ref``'s gradients in the chunked form that the backward
+    kernels evaluate (the header of ``csrc/gdn_scan_bwd.cu``): -> (dq, dk,
+    dv, dbeta, dalpha) in fp32. In ``gdn_chunked_ref``'s notation, with A =
+    I + L, dS the cotangent of a chunk's exit state (dfinal at the last
+    chunk) and S0 its entry state, per chunk:
+
+        dU = M^T dY + K~ dS;   dS0 = g_C dS + (diag(g) Q)^T dY - W^T dU
+        dM = dY U^T, dK~ = U dS^T, d(gQ) = dY S0^T, dW = -dU S0^T,
+        dg_C += <dS, S0>;   A^T Zu = dU, A^T Zw = dW (back substitution)
+        dV = diag(beta) Zu, dbeta += rowsum(Zu.V) + g rowsum(Zw.K),
+        dK += diag(beta g) Zw, dg += beta rowsum(Zw.K)
+        dA = -(Zu U~^T + Zw W^T) (strictly lower): dbeta_t += sum_i dA_ti
+        Gamma_ti k_t.k_i, with D = dA . beta Gamma: dK += D K + D^T K,
+        dGamma += dA . beta K K^T
+        E = dM . Gamma: dQ = E K + diag(g) d(gQ), dK += E^T Q,
+        dGamma += dM . Q K^T, dg += rowsum(d(gQ).Q)
+        dK += diag(Gamma_C.) dK~, dGamma_C,i += rowsum(dK~.K)_i
+        P = dGamma . Gamma: dgamma = rowsum(P) - colsum(P) + dg g,
+        dlog alpha = the reverse cumsum of dgamma in the chunk,
+        dalpha = dlog alpha / alpha, 0 below the floor.
+
+    The cotangents are scaled by ``cotangent_scale`` and the gradients back,
+    as the kernels do. ``rounding="f16x3"`` takes every product as the
+    kernels do (``_f16x3``); ``"bf16"`` is the kernels' path for bf16
+    inputs: q, k, v and dy rounded to bf16, the same products, and dq, dk
+    and dv rounded to bf16 as the kernels write them. The solves and every
+    sum outside the products stay fp32 in both. S is padded to the chunk
+    with beta = 0, alpha = 1 rows, as ``ops.gdn_prefill`` pads."""
+    if rounding not in (None, "f16x3", "bf16"):
+        raise ValueError(f"gdn_scan_bwd_chunked_ref: rounding {rounding!r} is not None, "
+                         f"'f16x3' or 'bf16'")
+    q, k, v, dy = (t.float() for t in (q, k, v, dy))
+    if rounding == "bf16":
+        q, k, v, dy = (t.bfloat16().float() for t in (q, k, v, dy))
+    beta, alpha = beta.float(), alpha.float()
+    mm = _f16x3 if rounding else torch.matmul
+    tr = lambda t: t.transpose(-1, -2)
+    bsz, s, h, kd = q.shape
+    scale = cotangent_scale(dy, dfinal)                                  # (B, H)
+    pad = (-s) % chunk
+    if pad:
+        q, k, v, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v, dy))
+        beta = F.pad(beta, (0, 0, 0, pad))
+        alpha = F.pad(alpha, (0, 0, 0, pad), value=1.0)
+    nz = q.shape[1] // chunk
+    # (B, H, Z, C, K) and (B, H, Z, C)
+    q, k, v, dy = (t.reshape(bsz, nz, chunk, h, kd).permute(0, 3, 1, 2, 4) for t in (q, k, v, dy))
+    beta, alpha = (t.reshape(bsz, nz, chunk, h).permute(0, 3, 1, 2) for t in (beta, alpha))
+    dy = dy * scale[:, :, None, None, None]
+    floored = alpha < ALPHA_MIN
+    gam = torch.cumsum(torch.log(alpha).clamp(min=LOG_ALPHA_MIN), dim=-1)
+    g = torch.exp(gam)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
+    strict = causal.tril(-1)
+    diff = gam[..., :, None] - gam[..., None, :]
+    gamma = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    kk, qk = mm(k, tr(k)), mm(q, tr(k))
+    a = torch.eye(chunk, device=q.device) + torch.where(strict, beta[..., :, None] * gamma * kk, 0.0)
+    u_t = torch.linalg.solve_triangular(a, beta[..., None] * v, upper=False, unitriangular=True)
+    w = torch.linalg.solve_triangular(a, (beta * g)[..., None] * k, upper=False,
+                                      unitriangular=True)
+    m = qk * gamma
+    qg = g[..., None] * q
+    g_c = g[..., -1, None, None]                                         # (B, H, Z, 1, 1)
+    k_t = gamma[..., -1, :, None] * k                                    # diag(Gamma_C.) K
+    # the forward chain: each chunk's entry state S0 and U
+    state = torch.zeros((bsz, h, kd, kd), dtype=torch.float32, device=q.device)
+    s0, u = [], []
+    for z in range(nz):
+        s0.append(state)
+        u.append(u_t[:, :, z] - mm(w[:, :, z], state))
+        state = g_c[:, :, z] * state + mm(tr(k_t[:, :, z]), u[-1])
+    s0, u = torch.stack(s0, 2), torch.stack(u, 2)
+    # the reverse chain: each chunk's exit cotangent dS and dU
+    ds = (torch.zeros_like(state) if dfinal is None
+          else dfinal.float() * scale[:, :, None, None])
+    dsx, du = [None] * nz, [None] * nz
+    for z in reversed(range(nz)):
+        dyz = dy[:, :, z]
+        dsx[z] = ds
+        du[z] = mm(tr(m[:, :, z]), dyz) + mm(k_t[:, :, z], ds)
+        ds = g_c[:, :, z] * ds + mm(tr(qg[:, :, z]), dyz) - mm(tr(w[:, :, z]), du[z])
+    dsx, du = torch.stack(dsx, 2), torch.stack(du, 2)
+    # every chunk at once
+    dm = mm(dy, tr(u))
+    dkt = mm(u, tr(dsx))
+    dqg = mm(dy, tr(s0))
+    dw = -mm(du, tr(s0))
+    zu = torch.linalg.solve_triangular(tr(a), du, upper=True, unitriangular=True)
+    zw = torch.linalg.solve_triangular(tr(a), dw, upper=True, unitriangular=True)
+    r_zk = (zw * k).sum(-1)
+    da = torch.where(strict, -(mm(zu, tr(u_t)) + mm(zw, tr(w))), 0.0)
+    dd = da * beta[..., :, None] * gamma
+    e = dm * gamma
+    dq = mm(e, k) + g[..., None] * dqg
+    dk = (beta * g)[..., None] * zw + mm(dd, k) + mm(tr(dd), k) + mm(tr(e), q) \
+        + gamma[..., -1, :, None] * dkt
+    dv = beta[..., None] * zu
+    dbeta = (zu * v).sum(-1) + g * r_zk + (da * gamma * kk).sum(-1)
+    p = (torch.where(causal, dm * qk, 0.0) + da * beta[..., :, None] * kk) * gamma
+    p[..., -1, :] += (dkt * k).sum(-1) * gamma[..., -1, :]
+    dg = beta * r_zk + (dqg * q).sum(-1)
+    dg[..., -1] += (dsx * s0).sum((-1, -2))
+    dgam = p.sum(-1) - p.sum(-2) + dg * g
+    dlog = dgam.flip(-1).cumsum(-1).flip(-1)
+    dalpha = torch.where(floored, 0.0, dlog / alpha)
+    inv = 1.0 / scale
+    back = lambda t: (t * inv[:, :, None, None, None]).permute(0, 2, 3, 1, 4).reshape(
+        bsz, nz * chunk, h, kd)[:, :s]
+    gate = lambda t: (t * inv[:, :, None, None]).permute(0, 2, 3, 1).reshape(
+        bsz, nz * chunk, h)[:, :s]
+    dq, dk, dv = (back(t) for t in (dq, dk, dv))
+    if rounding == "bf16":
+        dq, dk, dv = (t.bfloat16().float() for t in (dq, dk, dv))
+    return dq, dk, dv, gate(dbeta), gate(dalpha)

@@ -25,6 +25,15 @@ this file holds. Inputs come from numpy with a seed, fp32 throughout.
   bf16 kernel's rounding points against the twin at ``SSD_BF16_RTOL``
   (2e-2, the bf16 tolerance of ``chip_smoke.py``'s phase 3), on inputs
   that are bf16 already, as the kernel receives them.
+* ``gdn_scan_bwd_chunked_ref``, the chunked (WY) form that the GDN backward
+  kernels evaluate, on and off several chunks with the cotangent absent and
+  present: in fp32 against the twin and against ``jax.grad`` of
+  ``gdn_scan`` at ``GDN_JAX_RTOL``; with the kernels' products
+  (``rounding="f16x3"``, fp16 hi + lo operands) against the twin at
+  ``GDN_F16X3_RTOL`` (2e-4, the fp32 tolerance of ``chip_smoke.py``'s phase
+  3), also with cotangents of 1e-5 (the scale ``cotangent_scale`` keeps the
+  splits in fp16's normal range); with the bf16 path's rounding points on
+  bf16 inputs at ``GDN_BF16_RTOL`` (2e-2); dalpha zero below the floor.
 * The Functions' ``needs_input_grad`` handling (a gradient no input needs
   comes back as None, and none is computed without a cotangent), the
   missing ``dy``, ``torch.no_grad`` (no graph, the forward alone), the
@@ -59,7 +68,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.gdn.gdn import CHUNK as GDN_CHUNK
 from repro_torch.kernels.gdn.gdn import GdnScan
-from repro_torch.kernels.gdn.ref import ALPHA_MIN
+from repro_torch.kernels.gdn.ref import ALPHA_MIN, cotangent_scale, gdn_scan_bwd_chunked_ref
 from repro_torch.kernels.ssd.ref import ssd_scan_bwd_chunked_ref
 from repro_torch.kernels.ssd.ssd import CHUNK as SSD_CHUNK
 from repro_torch.kernels.ssd.ssd import SsdScan
@@ -68,6 +77,8 @@ TWIN_RTOL = 1e-5
 SSD_JAX_RTOL = 2e-4
 SSD_BF16_RTOL = 2e-2
 GDN_JAX_RTOL = 1e-5
+GDN_F16X3_RTOL = 2e-4
+GDN_BF16_RTOL = 2e-2
 SSD_NAMES = ("x", "dt", "a", "b", "c")
 GDN_NAMES = ("q", "k", "v", "beta", "alpha")
 
@@ -275,6 +286,121 @@ def test_ssd_chunked_form_with_bf16_rounding_holds_the_bf16_tolerance(b, s, h, p
     for name, g, w in zip(SSD_NAMES, got, _twin(inputs, dy, df)):
         _assert_rel(g.numpy(), w.numpy(), SSD_BF16_RTOL, f"d{name}")
     assert not all(torch.equal(g, e) for g, e in zip(got, exact)), "bf16 rounded nothing"
+
+
+# ------------------------- the GDN kernels' chunked form, in plain torch
+GDN_CHUNKED_SHAPES = [
+    (2, GDN_CHUNK, 3, 8),       # one kernel chunk
+    (1, 45, 2, 16),             # off the chunk: padded with beta = 0, alpha = 1 rows
+    (2, 96, 2, 16),             # three chunks
+    (1, 128, 2, 32),            # four chunks, K 32
+]
+
+
+def _gdn_chunked_case(b, s, h, k, with_dfinal, dscale=1.0):
+    inputs, dy, dfinal = _gdn_inputs(b * 1000 + s + 29, b, s, h, k)
+    return inputs, dy * dscale, (dfinal * dscale if with_dfinal else None)
+
+
+def _gdn_twin(inputs, dy, df):
+    return gdn_scan_bwd_ref(*_t(inputs), torch.from_numpy(dy),
+                            None if df is None else torch.from_numpy(df))
+
+
+def _gdn_chunked(inputs, dy, df, rounding=None):
+    return gdn_scan_bwd_chunked_ref(*_t(inputs), torch.from_numpy(dy),
+                                    None if df is None else torch.from_numpy(df),
+                                    rounding=rounding)
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,k", GDN_CHUNKED_SHAPES)
+def test_gdn_chunked_form_matches_the_twin(b, s, h, k, with_dfinal):
+    inputs, dy, df = _gdn_chunked_case(b, s, h, k, with_dfinal)
+    got = _gdn_chunked(inputs, dy, df)
+    for name, g, w, t in zip(GDN_NAMES, got, _gdn_twin(inputs, dy, df), inputs):
+        assert g.dtype == torch.float32 and g.shape == t.shape
+        _assert_rel(g.numpy(), w.numpy(), GDN_JAX_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,k", GDN_CHUNKED_SHAPES)
+def test_gdn_chunked_form_matches_jax_grad_of_gdn_scan(b, s, h, k, with_dfinal):
+    inputs, dy, df = _gdn_chunked_case(b, s, h, k, with_dfinal)
+
+    def jloss(q, kk, v, beta, alpha):
+        y, fs = jax_gdn.gdn_scan(q, kk, v, beta, alpha)
+        out = (y * dy).sum()
+        return out if df is None else out + (fs * df).sum()
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(t) for t in inputs))
+    for name, g, w in zip(GDN_NAMES, _gdn_chunked(inputs, dy, df), want):
+        _assert_rel(g.numpy(), np.asarray(w), GDN_JAX_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("dscale", [1.0, 1e-5])
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,k", GDN_CHUNKED_SHAPES)
+def test_gdn_chunked_form_with_f16x3_products_holds_the_fp32_tolerance(b, s, h, k, with_dfinal,
+                                                                       dscale):
+    """Every product on fp16 hi + lo operands, as the kernels take them, at
+    unit cotangents and at training's small ones."""
+    inputs, dy, df = _gdn_chunked_case(b, s, h, k, with_dfinal, dscale)
+    got = _gdn_chunked(inputs, dy, df, rounding="f16x3")
+    exact = _gdn_chunked(inputs, dy, df)
+    for name, g, w in zip(GDN_NAMES, got, _gdn_twin(inputs, dy, df)):
+        _assert_rel(g.numpy(), w.numpy(), GDN_F16X3_RTOL, f"d{name}")
+    assert not all(torch.equal(g, e) for g, e in zip(got, exact)), "f16x3 rounded nothing"
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True])
+@pytest.mark.parametrize("b,s,h,k", GDN_CHUNKED_SHAPES)
+def test_gdn_chunked_form_with_bf16_rounding_holds_the_bf16_tolerance(b, s, h, k, with_dfinal):
+    """The kernels' path for bf16 inputs: q, k, v and dy bf16 already, the
+    same products, dq, dk and dv written in bf16."""
+    inputs, dy, df = _gdn_chunked_case(b, s, h, k, with_dfinal)
+    to_bf16 = lambda t: torch.from_numpy(t).bfloat16().float().numpy()
+    q, kk, v, beta, alpha = inputs
+    inputs, dy = (to_bf16(q), to_bf16(kk), to_bf16(v), beta, alpha), to_bf16(dy)
+    got = _gdn_chunked(inputs, dy, df, rounding="bf16")
+    exact = _gdn_chunked(inputs, dy, df)
+    for name, g, w in zip(GDN_NAMES, got, _gdn_twin(inputs, dy, df)):
+        _assert_rel(g.numpy(), w.numpy(), GDN_BF16_RTOL, f"d{name}")
+    assert not all(torch.equal(g, e) for g, e in zip(got, exact)), "bf16 rounded nothing"
+
+
+@pytest.mark.parametrize("rounding", [None, "f16x3"])
+def test_gdn_chunked_form_gives_no_dalpha_below_the_floor(rounding):
+    inputs, dy, dfinal = _gdn_inputs(6, 1, 64, 2, 8)
+    alpha = inputs[4].copy()
+    alpha[0, 3, 1] = 0.0
+    alpha[0, 40, 0] = ALPHA_MIN / 4
+    floored = (*inputs[:4], alpha)
+    got = _gdn_chunked(floored, dy, dfinal, rounding)
+    dalpha = got[4].numpy()
+    assert dalpha[0, 3, 1] == 0.0 and dalpha[0, 40, 0] == 0.0
+    tol = GDN_JAX_RTOL if rounding is None else GDN_F16X3_RTOL
+    for name, g, w in zip(GDN_NAMES, got, _gdn_twin(floored, dy, dfinal)):
+        assert np.isfinite(g.numpy()).all()
+        _assert_rel(g.numpy(), w.numpy(), tol, f"d{name}")
+
+
+def test_gdn_cotangent_scale_is_a_power_of_two_into_half_one():
+    dy = torch.zeros(2, 4, 3, 8)
+    dy[0, 1, 0, 2] = 3.0e-6
+    dy[0, 2, 1, 5] = -0.75
+    dy[1, 0, 2, 0] = 1024.0
+    scale = cotangent_scale(dy, None)
+    assert scale.shape == (2, 3)
+    m = dy.abs().amax(dim=(1, 3))
+    for (b, h), sc in np.ndenumerate(scale.numpy()):
+        if m[b, h] == 0:
+            assert sc == 1.0
+        else:
+            assert 0.5 <= m[b, h] * sc < 1.0 and np.log2(sc) == np.round(np.log2(sc))
+    dfinal = torch.zeros(2, 3, 8, 8)
+    dfinal[1, 1, 2, 3] = 2.0
+    assert cotangent_scale(dy, dfinal)[1, 1] == 0.25
 
 
 # ------------------------------------------------ the Functions' plumbing
