@@ -25,7 +25,8 @@ Phases; any failure exits non-zero:
    (absorbed MLA), mamba2-4b (Mamba2 SSD), gdn-4b (Gated DeltaNet),
    qwen3-4b (GQA, G = 4), minitron-4b (GQA, G = 3), gemma2-9b (GQA with
    softcaps and a sliding window), deepseek-v2-lite-16b (absorbed MLA and
-   routed MoE) and zamba2-1.2b (Mamba2 with a shared attention block),
+   routed MoE), zamba2-1.2b (Mamba2 with a shared attention block) and
+   nemotron-4-15b (GQA, G = 6, squared-ReLU MLP, 15.6 B params),
    random weights from a seeded generator -- serve through
    ``ServingEngine`` with a lock-mode
    ``ClockController``, dense then paged, each with the pool's decode step
@@ -82,7 +83,17 @@ Phases; any failure exits non-zero:
 11. ``[paper]``: every analytic table and figure driver of the paper
    (Table 1, Figs 1-4, the hypotheses, the policy table, ``tpu_native`` on
    the v5e, ``roofline_report``) through its own ``run``, the recipes'
-   verdicts asserted; ``tpu_native``'s ``H100_SXM`` table printed;
+   verdicts asserted; ``roofline_report`` over the one-card dry run of
+   every (arch x shape) cell on meta tensors (``repro_torch.launch.dryrun``,
+   run on the CPU in a process of its own started with the run: 40
+   records, 32 ok and 8 skipped; the report's one-card table of 32 cells,
+   priced with ``H100_SXM``); the dry run held against the card: gemma-2b's
+   decode cell at phase 4's shape (B 8, a cache of 1024) counts the
+   argument bytes the card holds and as many kernel-1 calls as one
+   ``decode_step`` launches there (18), and phase 12's train shape (8 x
+   512) the argument bytes of the card's train state and batch, with the
+   counted FLOPs and temp estimate printed beside the card's figures;
+   ``tpu_native``'s ``H100_SXM`` table printed;
    ``kernels_micro`` on the card (four fp32 kernels against their plain
    versions, CUDA-event times), its launches counted; the card's clock and
    power surface printed beside ``H100_SXM``'s fields;
@@ -96,14 +107,23 @@ Phases; any failure exits non-zero:
    ``decode_step`` (kernel 1); at reduced width a restart from a checkpoint
    against a straight run, one step of llama-3.2-vision-11b
    (cross-attention) and of musicgen-large (embedding inputs); no decode or
-   scan kernel launched but kernel 1's 18 in the decode step; then the
+   scan kernel launched but kernel 1's 18 in the decode step; at full width,
+   bf16, a prefill and three decode steps of llama-3.2-vision-11b and of
+   musicgen-large, kernel 1 against the plain path on the logits, launched
+   once per self-attention layer and step; then the
    recurrent kinds at full width through kernels 3 and 6 and their
    backward kernels: mamba2-780m through ``run_training`` (10 steps of
    8 x 512, every leaf's step-1 gradient finite and nonzero, falling
    losses), 3 steps of gdn-4b at 4 x 512 and one of zamba2-1.2b, each with
    its launches counted (a recurrent layer's forward scan twice a step, its
    backward once), step ms, tokens/s, peak memory and a profiled step;
-13. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
+13. ``[examples]``: the port's examples and scripts on the card at their
+   own sizes (``repro_torch.examples.{characterize_paper, quickstart,
+   serve_decode_pool, train_wsd}``, ``repro_torch.scripts.{calibrate,
+   smoke_models}``): the cap never engaged on decode and the lock saving
+   more than 20 %, finite losses, every block kind's prefill + decode
+   through the kernels against the training forward;
+14. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
 of this checkout and of the checkout in DIR (another commit, unpacked with
@@ -133,8 +153,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # the SSD and GDN scans: tests/test_kernels.py's tolerances for them
 SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -147,10 +165,14 @@ SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, r
 # (gemma-2b's 0.25 was set at ~2.5x its observed 0.094; qwen3-4b's and
 # minitron-4b's likewise, from their observed 0.094 and 0.117)
 # gemma2-9b's final softcap bounds its logits to +-30; deepseek-v2-lite-16b
-# as minitron-4b-mla; zamba2-1.2b as the recurrent models
+# as minitron-4b-mla; zamba2-1.2b as the recurrent models; nemotron-4-15b
+# (32 layers, G 6, squared-ReLU MLP) as its pruned descendant minitron-4b;
+# the full-width llama-3.2-vision-11b and musicgen-large steps of phase 12
+# (GQA, kernel 1) at the GQA models' 0.25
 LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5,
                    "qwen3-4b": 0.25, "minitron-4b": 0.3, "gemma2-9b": 0.25,
-                   "deepseek-v2-lite-16b": 0.5, "zamba2-1.2b": 0.5}
+                   "deepseek-v2-lite-16b": 0.5, "zamba2-1.2b": 0.5, "nemotron-4-15b": 0.3,
+                   "llama-3.2-vision-11b": 0.25, "musicgen-large": 0.25}
 # The recurrent models' kernels sit in prefill, where a difference at one
 # position is carried by the state to every later one, at every layer. In
 # bf16 these random-weight stacks amplify any rounding difference: a plain
@@ -205,6 +227,8 @@ MODELS = {
                              "prefill": None},
     "zamba2-1.2b": {"decode": ("decode_attention", "paged_decode_attention"),
                     "prefill": "ssd_scan"},
+    "nemotron-4-15b": {"decode": ("decode_attention", "paged_decode_attention"),
+                       "prefill": None},
 }
 # the long-context check of the windowed model (phase 4): two requests of
 # ~4200 tokens in a cache of max_seq_len, past the 4096 window of its local
@@ -585,53 +609,22 @@ def make_gdn_inputs(torch, shape, dtype, seed):
     return (q, kk, v, beta, alpha)
 
 
-SCAN_BOUND_CHUNK = 64   # the chunked forms are counted at this chunk, whatever the kernels'
-
-
 def scan_bound(name, shape, elem):
-    """(bound_ms, bound_by) of a scan call. Bytes: every input read once and
-    y and the fp32 final state written once. Operations: the chunked forms at
-    a fixed chunk Q = SCAN_BOUND_CHUNK (so that a kernel's own chunk cannot
-    move its bound). SSD, over the peak of the inputs' type (bf16 inputs run
-    the three products on bf16 tensor cores with fp32 accumulation), per
-    token 2 Q N for c.b (shared by the heads) and per token and head (Q + 1)
-    P for the causal intra-chunk term, 2 N P for the inter-chunk term and
-    2 N P for the state pass. GDN (K = V), over the tensor-core peak (TF32
-    for fp32 inputs, bf16 for bf16), per token and head 5 Q K + 6 K^2: the
-    strictly lower half of K K^T and the lower half of Q K^T (Q K each), the
-    two triangular solves for U~ = T V and W = T diag(g) K (2 Q K), the
-    causal (Q K^T . Gamma) U (Q K), and the three products with the state,
-    W S0, diag(g) Q S0 and the update (2 K^2 each)."""
-    if name == "ssd_scan":
-        b, s, h, p, n = shape
-        q = SCAN_BOUND_CHUNK
-        nbytes = 2 * b * s * h * p * elem + 4 * b * s * h + 4 * h + 2 * b * s * n * elem \
-            + 4 * b * h * p * n
-        ops = b * s * (2 * q * n + h * ((q + 1) * p + 4 * n * p))
-        return _bound(nbytes, ops, "bfloat16" if elem == 2 else "float32")
-    b, s, h, k = shape
-    nbytes = 4 * b * s * h * k * elem + 8 * b * s * h + 4 * b * h * k * k
-    return _bound(nbytes, b * s * h * (5 * SCAN_BOUND_CHUNK * k + 6 * k * k),
-                  "bfloat16" if elem == 2 else "tfloat32")
+    """(bound_ms, bound_by) of a scan call, by ``kernels.cost``: every input
+    read once, y and the fp32 final state written once, against the chunked
+    forms' operations at ``cost.SCAN_CHUNK``."""
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(getattr(cost, name)(*shape, elem))
 
 
 def scan_bwd_bound(name, shape, elem):
-    """(bound_ms, bound_by) of a backward scan call without dfinal. Bytes:
-    every input read once (the forward's inputs and dy) and every gradient
-    written once. Operations: three times the forward's count of
-    ``scan_bound`` (the states are not among the inputs, so the forward is
-    recomputed, and each of its products has two products as its
-    backward), over the same peak."""
-    if name == "ssd_scan_bwd":
-        b, s, h, p, n = shape
-        nbytes = 3 * b * s * h * p * elem + 4 * b * s * n * elem + 8 * b * s * h + 8 * h
-        q = SCAN_BOUND_CHUNK
-        ops = 3 * b * s * (2 * q * n + h * ((q + 1) * p + 4 * n * p))
-        return _bound(nbytes, ops, "bfloat16" if elem == 2 else "float32")
-    b, s, h, k = shape
-    nbytes = 7 * b * s * h * k * elem + 16 * b * s * h
-    return _bound(nbytes, 3 * b * s * h * (5 * SCAN_BOUND_CHUNK * k + 6 * k * k),
-                  "bfloat16" if elem == 2 else "tfloat32")
+    """(bound_ms, bound_by) of a backward scan call without dfinal, by
+    ``kernels.cost``: inputs and gradients once, against three times the
+    forward's operations."""
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(getattr(cost, name)(*shape, elem))
 
 
 def make_scan_bwd_args(torch, name, shape, dtype, seed):
@@ -685,41 +678,36 @@ def tensor_core_check(info) -> list:
     return lines
 
 
-def _bound(nbytes, ops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(torch, case, inputs, elem):
+    """(bound_ms, bound_by) of a GQA case by ``kernels.cost``: its keys are
+    those below each row's valid_len (the last ``window`` of them under a
+    window), its table entries those a paged call reads."""
+    from repro_torch.kernels import cost
 
-
-def bound(torch, case, dtype, inputs, elem):
-    """(bound_ms, bound_by) of a GQA case: bytes this call must move (q, the
-    K/V rows below valid_len -- the last ``window`` of them under a window
-    --, valid_len, table entries read, output) over HBM bandwidth, against
-    its multiply-adds over the peak rate for the input type."""
     paged, b, h, kv, dk, dv, l, bs = case[1:9]
     window = case.window
     valid = inputs[-1].clamp(max=l).to(torch.int64)
     first = (valid - window).clamp(min=0) if window else torch.zeros_like(valid)
     keys = int((valid - first).sum())
-    nbytes = b * h * dk * elem + keys * kv * (dk + dv) * elem + 4 * b + b * h * dv * elem
     if paged:
-        nbytes += 4 * int(((valid + bs - 1) // bs - first // bs).sum())
-    return _bound(nbytes, 2 * keys * (h // kv) * kv * (dk + dv), dtype)
+        pages = int(((valid + bs - 1) // bs - first // bs).sum())
+        return cost.bound_ms(cost.paged_decode_attention(b, h, kv, dk, dv, elem, keys, pages))
+    return cost.bound_ms(cost.decode_attention(b, h, kv, dk, dv, elem, keys))
 
 
-def mla_bound(torch, case, dtype, inputs, elem):
-    """(bound_ms, bound_by) of an MLA case: q_lat and q_rope, the ckv and kr
-    rows below valid_len, valid_len, table entries read and the output, over
-    HBM bandwidth; against 2 * H * (rank + rope + rank) flops per key (scores
-    over [ckv; kr], context over ckv) over the peak rate for the input type."""
+def mla_bound(torch, case, inputs, elem):
+    """(bound_ms, bound_by) of an MLA case by ``kernels.cost``: its keys are
+    those below each row's valid_len, its table entries those a paged call
+    reads."""
+    from repro_torch.kernels import cost
+
     _, paged, b, h, rank, rope, l, bs, _ = case
     valid = inputs[-1].clamp(max=l).to(torch.int64)
     keys = int(valid.sum())
-    nbytes = (b * h * (rank + rope) * elem + keys * (rank + rope) * elem + 4 * b
-              + b * h * rank * elem)
     if paged:
-        nbytes += 4 * int(((valid + bs - 1) // bs).sum())
-    return _bound(nbytes, 2 * keys * h * (rank + rope + rank), dtype)
+        pages = int(((valid + bs - 1) // bs).sum())
+        return cost.bound_ms(cost.mla_paged_latent_decode(b, h, rank, rope, elem, keys, pages))
+    return cost.bound_ms(cost.mla_latent_decode(b, h, rank, rope, elem, keys))
 
 
 def gqa_sdpa(torch, F, l, scale):
@@ -786,7 +774,7 @@ def check_kernels(torch, F, kmod):
                 sets = cold_sets(inputs)
                 ms = cuda_time_ms(torch, lambda *a: kernel(*a, **kw), sets)[0]
                 plain_ms = cuda_time_ms(torch, lambda *a: plain(*a, **kw), sets)[0]
-                bound_ms, bound_by = bound_fn(torch, case, dname, inputs, out.element_size())
+                bound_ms, bound_by = bound_fn(torch, case, inputs, out.element_size())
                 print(f"[kernels] {name} {label} bf16 (not a main case), device ms (CUDA "
                       f"graph): kernel {ms:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} "
                       f"({bound_by}); valid_len={inputs[-1].tolist()}")
@@ -806,7 +794,7 @@ def check_kernels(torch, F, kmod):
                 del lib_sets
             elif not paged:
                 library_ms, lib_eager = cuda_time_ms(torch, gqa_sdpa(torch, F, l, scale), sets)
-            bound_ms, bound_by = bound_fn(torch, case, dname, inputs, elem)
+            bound_ms, bound_by = bound_fn(torch, case, inputs, elem)
             source, replaces = SOURCES[name]
             records[name] = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1525,7 +1513,16 @@ def main() -> int:
         time_steps(args.against, args.steps)
         return 0
     sys.path.insert(0, str(SRC))
+    dry = DryRunProcess()
+    try:
+        return smoke(torch, F, dry)
+    finally:
+        dry.stop()
 
+
+def smoke(torch, F, dry) -> int:
+    """Phases 1-14 (the module docstring); ``dry`` is the dry run's process,
+    which ``[paper]`` waits for."""
     from repro_torch import kernels as kmod
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -1570,11 +1567,14 @@ def main() -> int:
     prefix_phase(torch, kmod, records)
     events_phase(torch, kmod, records)
 
-    # ---- 11. the paper's analysis drivers and kernels_micro
-    paper_phase(torch, kmod, records)
+    # ---- 11. the paper's analysis drivers, the dry run, kernels_micro
+    paper_phase(torch, kmod, records, dry)
 
     # ---- 12. training at full width
     train_phase(torch, kmod, records)
+
+    # ---- 13. the examples and scripts on the card
+    examples_phase(torch, kmod)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi("name,power.limit"))
@@ -1693,7 +1693,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
 
     # fp32: the same seed's draws, unrounded (the bf16 weights are their
     # rounding), made after the bf16 weights are freed: deepseek-v2-lite-16b
-    # holds 62 GB in fp32
+    # and nemotron-4-15b hold 62 GB each in fp32
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     del params
     torch.cuda.empty_cache()
@@ -2237,6 +2237,10 @@ FORWARD_TOKENS = 64
 # more, against 6 straight; losses within this relative tolerance (bitwise
 # equality is reported: the embedding backward accumulates with atomics)
 RESTART_RTOL = 1e-5
+# [train] item 5b: full-width bf16 prefill + decode steps of the archs the
+# pool does not serve, kernel 1 against the plain path
+FULL_WIDTH_SERVED_ELSEWHERE = ("llama-3.2-vision-11b", "musicgen-large")
+FULL_WIDTH_SHAPE = {"batch": 2, "prompt": 128, "max_seq_len": 256, "steps": 3}
 # item 6, the recurrent kinds at full width: (arch, batch, steps); the first
 # through run_training, the others through make_train_step (gdn-4b at batch
 # 4: its 4.26 B params hold ~51 GB in bf16 weights and grads and fp32
@@ -2290,7 +2294,9 @@ def train_phase(torch, kmod, records) -> None:
     4. At reduced width, fp32: 3 steps, a checkpoint, a fresh state
        restored from it and 3 more, against 6 straight (RESTART_RTOL).
     5. One train step each of reduced llama-3.2-vision-11b (cross-attention)
-       and musicgen-large (embedding inputs).
+       and musicgen-large (embedding inputs); then each at full width, bf16:
+       a prefill and FULL_WIDTH_SHAPE's decode steps, kernel 1 against the
+       plain path (``full_width_steps``).
     6. The recurrent kinds at full width (``recurrent_train``):
        mamba2-780m through ``run_training`` (RECURRENT_TRAIN: 10 steps of
        8 x 512, a finite nonzero gradient on every leaf at step 1, falling
@@ -2298,13 +2304,20 @@ def train_phase(torch, kmod, records) -> None:
        step of 8 x 512: N 64, the shared attention block under grad)
        through ``make_train_step``; step ms, tokens/s, peak memory and a
        profiled step's device ms by kernel.
-    Items 1, 2, 4 and 5 launch no decode or scan kernel; item 3 launches
-    kernel 1 once per layer, item 6 each recurrent layer's forward scan
+    After item 2, the dry run's count of this train step (8 x 512) is held
+    against the card: its argument bytes equal the card's state and batch;
+    its FLOPs and temp estimate are printed beside the estimate and the
+    peak of item 1.
+    Items 1, 2, 4 and 5's reduced steps launch no decode or scan kernel;
+    item 3 and item 5's full-width steps launch kernel 1 once per layer
+    (and step), item 6 each recurrent layer's forward scan
     twice and its backward once a step (the forward, the remat recompute,
     the backward), all added to ``records``."""
     import tempfile
 
-    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs import ShapeSpec, get_config, reduced_config
+    from repro_torch.kernels import cost
+    from repro_torch.launch.dryrun import build_cell, storage_bytes
     from repro_torch.launch.train import run_training
     from repro_torch.models import decode_step, forward, init_cache, init_params, logits, prefill
     from repro_torch.training import (
@@ -2348,7 +2361,7 @@ def train_phase(torch, kmod, records) -> None:
     check_no_launches(torch, kmod, "run_training")
     losses = out["losses"]
     step_s = out["step_ms"] / 1e3
-    mfu = 6 * n_params * tokens / step_s / PEAK_OPS["bfloat16"]
+    mfu = 6 * n_params * tokens / step_s / cost.PEAK_OPS["bfloat16"]
     print(f"[train] {TRAIN_ARCH} run_training ({smi}): " + json.dumps({
         "steps": out["steps"], "batch": TRAIN_SHAPE, "losses": losses,
         "step_ms": out["step_ms"], "tokens_per_s": tokens / step_s,
@@ -2371,11 +2384,25 @@ def train_phase(torch, kmod, records) -> None:
         micro = {}
         for m in (1, 2):
             state = init_train_state(cfg, T.map(torch.clone, params), AdamW())
+            if m == 1:
+                card_arg_bytes = storage_bytes((state, batch))
             step = make_train_step(cfg, AdamW(), wsd_schedule(*TRAIN_SCHEDULE), microbatches=m)
             micro[m] = step(state, batch)[1]["loss"].item()
             del state, step
             torch.cuda.empty_cache()
     check_no_launches(torch, kmod, "remat / microbatch invariants")
+    # the dry run's count of this train step against the state the card holds
+    counter, meta = build_cell(TRAIN_ARCH, ShapeSpec("phase12_train", TRAIN_SHAPE["seq_len"],
+                                                     TRAIN_SHAPE["batch_size"], "train"))
+    print(f"[dryrun] {TRAIN_ARCH} train {TRAIN_SHAPE} vs the card: argument bytes dry run "
+          f"{meta['argument_bytes']} / card (params, fp32 moments, count, step, batch) "
+          f"{card_arg_bytes}; counted FLOPs {counter.flops:.4e} beside the estimate "
+          f"{TRAIN_FLOPS_ESTIMATE:.1e} (PERF.md section 2), counted bytes {counter.bytes:.4e}; "
+          f"arguments + temp estimate {(meta['argument_bytes'] + counter.peak_bytes) / 1e9:.2f} "
+          f"GB beside run_training's peak {out['peak_mem_gb']:.2f} GB (printed, not asserted)")
+    if meta["argument_bytes"] != card_arg_bytes:
+        raise SystemExit("[dryrun] the dry run's train argument bytes differ from the card's")
+    del counter, meta
     rel = lambda a, b: abs(a - b) / abs(b)
     inv = {"remat_on": want[True], "remat_off": want[False], "loss_microbatches_1": micro[1],
            "loss_microbatches_2": micro[2],
@@ -2506,11 +2533,76 @@ def train_phase(torch, kmod, records) -> None:
         if not ok:
             raise SystemExit(f"[train] {arch}: the train step gave a non-finite result")
     check_no_launches(torch, kmod, "cross_attn / embedding steps")
+    for arch in FULL_WIDTH_SERVED_ELSEWHERE:
+        full_width_steps(torch, kmod, records, arch)
 
     # ---- 6. the recurrent kinds at full width: kernels 3 and 6, forward and backward
     for arch, shape, steps in RECURRENT_TRAIN:
         recurrent_train(torch, kmod, records, arch, shape, steps, smi)
     print(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def full_width_steps(torch, kmod, records, arch) -> None:
+    """[train] item 5b: full-width bf16 ``prefill`` and FULL_WIDTH_STEPS
+    ``decode_step``s of a model the pool does not serve (cross-attention to
+    encoder states, or embedding inputs), batch and lengths as
+    FULL_WIDTH_SHAPE: each decode step through kernel 1 against the plain
+    path on a copy of the same cache, logits finite, of shape (B, vocab) and
+    within the model's LOGIT_ATOL_BF16; kernel 1 launched once per
+    self-attention layer and step (``cross_attn`` layers read their cached
+    encoder k/v, no kernel), every other kernel never; the launches added
+    to ``records``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    b, s, max_len, steps = (FULL_WIDTH_SHAPE[k] for k in ("batch", "prompt", "max_seq_len",
+                                                          "steps"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cd = getattr(torch, cfg.compute_dtype)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(cd)
+    if cfg.input_is_embeddings:
+        inputs, rows = rand(b, s, cfg.d_model), [rand(b, 1, cfg.d_model) for _ in range(steps)]
+    else:
+        inputs = torch.randint(1, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    enc = rand(b, cfg.n_media_tokens, cfg.d_model) if cfg.n_media_tokens else None
+    zero_counts(torch, kmod)
+    errs, finite = [], True
+    with torch.no_grad():
+        cache = init_cache(cfg, b, max_len, device="cuda")
+        lg, cache, ln = prefill(params, cfg, inputs, cache, enc_states=enc)
+        finite &= bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (b, cfg.vocab_size)
+        plain_cache = _map(torch.clone, cache)
+        ln_plain = ln
+        for i in range(steps):
+            x = rows[i] if cfg.input_is_embeddings else lg.argmax(-1).to(torch.int32)
+            lg, cache, ln = decode_step(params, cfg, x, cache, ln)
+            lp, plain_cache, ln_plain = decode_step(params, cfg, x, plain_cache, ln_plain,
+                                                    plain=True)
+            finite &= bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (b, cfg.vocab_size)
+            errs.append((lg.float() - lp.float()).abs().max().item())
+    n_attn = _n_layers(cfg, "decode")
+    got = check_no_launches(torch, kmod, f"{arch} full-width steps",
+                            {"decode_attention": n_attn * steps})
+    records["decode_attention"]["launches"] += got["decode_attention"]
+    atol = LOGIT_ATOL_BF16[arch]
+    print(f"[train] {arch} full width bf16 ({n_params / 1e9:.3f} B params; "
+          f"{'embedding inputs' if cfg.input_is_embeddings else 'token ids'}"
+          f"{f', {cfg.n_media_tokens} encoder states' if enc is not None else ''}): prefill B "
+          f"{b} x {s} then {steps} decode steps, kernel vs plain max |dlogit| a step "
+          f"{[float(f'{e:.4f}') for e in errs]} (atol {atol}), logits finite {finite}; kernel 1 "
+          f"launched {got['decode_attention']} = {n_attn} self-attention layers x {steps}; "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (finite and max(errs) <= atol):
+        raise SystemExit(f"[train] {arch}: full-width kernel-path logits disagree with the plain "
+                         "path, or are not finite")
+    del params, cache, plain_cache, lg, lp
+    torch.cuda.empty_cache()
 
 
 def recurrent_train(torch, kmod, records, arch, shape, steps, smi) -> None:
@@ -2623,7 +2715,112 @@ def recurrent_train(torch, kmod, records, arch, shape, steps, smi) -> None:
 
 
 # the verdicts ``[paper]`` asserts: driver -> substrings of its ``derived``
+# the dry run's sweep: every ASSIGNED_ARCHS x ALL_SHAPES cell, 32 applicable
+DRYRUN_RECORDS, DRYRUN_OK = 40, 32
+DRYRUN_TIMEOUT_S = 400
+# the cells held against the card: phase 4's gemma-2b decode step (B 8, a
+# cache of 1024) and phase 12's train step (8 x 512)
+DRYRUN_DECODE = ("gemma-2b", 8, 1024)
+TRAIN_FLOPS_ESTIMATE = 8.2e13            # PERF.md section 2's gemma-2b step estimate
+
+
+class DryRunProcess:
+    """The one-card dry run of every cell (``python -m
+    repro_torch.launch.dryrun``) on the CPU, in a process of its own started
+    with the run, so that its tracing overlaps the card's phases;
+    ``finish`` waits for it and checks its records, ``stop`` ends it if it
+    still runs and removes its files."""
+
+    def __init__(self):
+        import os
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="dryrun_")
+        self.cells = str(Path(self.dir, "cells"))
+        self.log_path = Path(self.dir, "log.txt")
+        self.t0 = time.perf_counter()
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", self.cells],
+            stdout=self.log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+
+    def finish(self) -> str:
+        """Wait for the sweep, print its lines, check 40 records (32 ok, 8
+        skipped) -> the directory of its cells."""
+        t_wait = time.perf_counter()
+        rc = self.proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        self.log.close()
+        waited = time.perf_counter() - t_wait
+        for line in self.log_path.read_text().splitlines():
+            print(f"[dryrun] {line}")
+        recs = [json.loads(p.read_text()) for p in sorted(Path(self.cells).glob("*.json"))]
+        n_ok = sum(1 for r in recs if r.get("ok"))
+        n_skip = sum(1 for r in recs if not r["applicable"])
+        traced = sum(r.get("t_trace_s", 0.0) for r in recs)
+        print(f"[dryrun] {len(recs)} records: {n_ok} ok, {n_skip} skipped; exit code {rc}; "
+              f"{traced:.1f} s of tracing in its own process, beside the card phases; "
+              f"[paper] waited {waited:.1f} s for it, {t_wait - self.t0:.1f} s after it started")
+        if rc != 0 or (len(recs), n_ok, n_skip) != (DRYRUN_RECORDS, DRYRUN_OK,
+                                                     DRYRUN_RECORDS - DRYRUN_OK):
+            raise SystemExit("[dryrun] the sweep failed or wrote the wrong records")
+        return self.cells
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_card_check(torch, kmod, records) -> None:
+    """The dry run held against the card on DRYRUN_DECODE's decode cell:
+    its argument bytes equal the bytes of the params, cache, token and
+    lengths the card holds for the same step, and its counted kernel-1
+    calls equal the launches the card counts for one ``decode_step``
+    (added to ``records``); the counted temp estimate printed beside the
+    step's ``max_memory_allocated`` above its arguments (not asserted)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import build_cell, storage_bytes
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    arch, b, l = DRYRUN_DECODE
+    cfg = get_config(arch)
+    counter, meta = build_cell(arch, ShapeSpec("phase4_decode", l, b, "decode"))
+    calls = {k: v["calls"] for k, v in counter.kernels.items()}
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cache = init_cache(cfg, b, l, device="cuda")
+    token = torch.randint(1, cfg.vocab_size, (b,), dtype=torch.int32, device="cuda")
+    lengths = torch.full((b,), l // 2, dtype=torch.int32, device="cuda")
+    args = {"params": params, "token": token, "cache": cache, "lengths": lengths}
+    card_bytes = storage_bytes(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts(torch, kmod)
+    with torch.no_grad():
+        lg, _, _ = decode_step(params, cfg, token, cache, lengths)
+    got = check_no_launches(torch, kmod, "dry run vs card decode step",
+                            {"decode_attention": calls.get("decode_attention", -1)})
+    records["decode_attention"]["launches"] += got["decode_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[dryrun] {arch} decode B {b} L {l} vs the card: argument bytes dry run "
+          f"{meta['argument_bytes']} / card {card_bytes}; kernel calls counted {calls} / card "
+          f"launches of one decode_step {got['decode_attention']}; temp estimate "
+          f"{counter.peak_bytes} bytes beside the card's max_memory_allocated above the "
+          f"arguments {peak} bytes (printed, not asserted); counted FLOPs {counter.flops:.4e}, "
+          f"bytes {counter.bytes:.4e}")
+    if meta["argument_bytes"] != card_bytes or not bool(torch.isfinite(lg).all()):
+        raise SystemExit("[dryrun] the dry run's argument bytes differ from the card's")
+    del params, cache, lg
+    torch.cuda.empty_cache()
+
+
 PAPER_VERDICTS = {
+    "roofline_report": ("single_pod_cells=0;multi_pod_cells=0;one_card_cells=32;",),
     "table1_power_cap": ("actual_clock_always=1830MHz", "any_cap_engaged=False"),
     "fig1_roofline": ("all_decode_memory_bound=True",),
     "fig3_pareto": ("lock_dominates_all=True;configs_checked=10",),
@@ -2645,10 +2842,14 @@ def supported_graphics_clocks() -> list:
     return nums + sorted({x for x in out if not x.isdigit()})
 
 
-def paper_phase(torch, kmod, records) -> None:
+def paper_phase(torch, kmod, records, dry) -> None:
     """Phase 11, ``[paper]``: every analytic table and figure driver of
     ``repro_torch.benchmarks`` through its ``run`` (CSVs into a temporary
-    directory), the recipes' verdicts asserted (``PAPER_VERDICTS``);
+    directory), the recipes' verdicts asserted (``PAPER_VERDICTS``), with
+    ``roofline_report`` reading the one-card dry run's cells (``dry``, a
+    ``DryRunProcess``, started with the run): 40
+    records, 32 ok and 8 skipped, and the report's one-card table of 32
+    cells; the dry run held against the card (``dryrun_card_check``);
     ``tpu_native.run(chip="h100-sxm")``'s rows printed; ``kernels_micro.run``
     on the card (four fp32 kernels held against their plain versions at
     5e-5 / 2e-4, timed with CUDA events), each counted wrapper's launches
@@ -2672,6 +2873,8 @@ def paper_phase(torch, kmod, records) -> None:
     from repro_torch.hw import H100_SXM
 
     t_phase = time.perf_counter()
+    cells_dir = dry.finish()
+    os.environ["REPRO_DRYRUN_OUT"] = cells_dir
     with tempfile.TemporaryDirectory() as out:
         os.environ["REPRO_BENCH_OUT"] = out
         for mod in (table1_power_cap, fig1_roofline, fig2_heatmaps, fig3_pareto,
@@ -2682,6 +2885,11 @@ def paper_phase(torch, kmod, records) -> None:
                 for verdict in PAPER_VERDICTS.get(name, ()):
                     if verdict not in derived:
                         raise SystemExit(f"[paper] {name}: {verdict!r} not in {derived!r}")
+        for line in Path(out, "roofline.md").read_text().splitlines():
+            if "| h100x1 |" in line:
+                print(f"[paper] roofline.md {line}")
+        del os.environ["REPRO_DRYRUN_OUT"]
+        dryrun_card_check(torch, kmod, records)
         [(name, _, derived)] = tpu_native.run(chip="h100-sxm")
         print(f"[paper] {name} (H100_SXM model): {derived}")
         for line in Path(out, "h100_native.csv").read_text().splitlines():
@@ -2715,6 +2923,58 @@ def paper_phase(torch, kmod, records) -> None:
           "hbm_capacity, ici_bw, ici_links, tdp; the rest assumed from H200_SXM): "
           + json.dumps({k: (list(v) if isinstance(v, tuple) else v) for k, v in spec.items()}))
     print(f"[paper] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def examples_phase(torch, kmod) -> None:
+    """Phase 13, ``[examples]``: the port's examples and scripts on the card
+    at their own sizes, through their ``main``: ``characterize_paper`` and
+    ``calibrate`` (analytic), ``quickstart`` (reduced gemma-2b: 20 train
+    steps, 6 served requests; losses finite), ``serve_decode_pool`` (reduced
+    minicpm-2b, three controller modes: the cap never engaged on decode,
+    the lock saving more than 20 %), ``train_wsd`` (60 steps of the ~25 M
+    model, checkpoints in a temporary directory) and ``smoke_models``
+    (every block kind's tiny config, fp32, prefill + decode through the
+    kernels against the training forward at 2e-4). Their launches are
+    printed, not added to the kernels' line: this is not the main path."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.examples import characterize_paper, quickstart, serve_decode_pool, train_wsd
+    from repro_torch.scripts import calibrate, smoke_models
+
+    t_phase = time.perf_counter()
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        zero_counts(torch, kmod)
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        launches = {k: getattr(kmod, k).launches for k in COUNTED if getattr(kmod, k).launches}
+        lines = buf.getvalue().splitlines()
+        for line in lines[-6:]:
+            print(f"[examples] {name} | {line}")
+        print(f"[examples] {name}: {len(lines)} lines, {time.perf_counter() - t0:.1f} s, "
+              f"launches {launches}")
+        return out
+
+    run("characterize_paper", characterize_paper.main)
+    run("calibrate", calibrate.main)
+    q = run("quickstart", lambda: quickstart.main(["--device", "cuda"]))
+    if not (math.isfinite(q["report"]["last_loss"]) and q["completed"] == 6):
+        raise SystemExit(f"[examples] quickstart: {q['report']}, {q['completed']} completed")
+    res = run("serve_decode_pool", lambda: serve_decode_pool.main(["--device", "cuda"]))
+    if res["cap"]["decode_engaged"] or not res["lock"]["savings_pct"] > 20.0:
+        raise SystemExit(f"[examples] serve_decode_pool: the cap engaged on decode or the lock "
+                         f"saved {res['lock']['savings_pct']:.1f} %")
+    with tempfile.TemporaryDirectory() as d:
+        w = run("train_wsd", lambda: train_wsd.main(["--device", "cuda", "--ckpt-dir", d]))
+    if len(w["losses"]) != 60 or not all(math.isfinite(x) for x in w["losses"]):
+        raise SystemExit(f"[examples] train_wsd: losses {w['losses']}")
+    run("smoke_models", lambda: smoke_models.main(["--device", "cuda"]))
+    print(f"[examples] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_launches(arch, what, paged, cfg, stats, info) -> None:

@@ -12,9 +12,11 @@ markdown table (results/benchmarks/roofline.md) that EXPERIMENTS.md embeds.
 Counterpart of the reference's ``benchmarks/roofline_report.py``: the same
 ``analyse_cell``, ``load_cells``, ``to_markdown`` and ``run``, with the
 artefact and output directories read at call time (``$REPRO_DRYRUN_OUT``,
-``$REPRO_BENCH_OUT``). The artefacts come from the reference's
-``launch/dryrun.py``, which the port does not have yet; without them
-``run`` reports that none were found.
+``$REPRO_BENCH_OUT``). The reference's pod cells (meshes ``pod16x16``,
+``pod2x16x16``) are priced with ``TPU_V5E`` as there; the port's one-card
+cells (``launch.dryrun``, mesh ``h100x1``) with ``H100_SXM`` (989 TFLOP/s
+bf16, 3.35 TB/s), in a table of their own. Without artefacts ``run``
+reports that none were found.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import json
 import os
 
 from repro_torch.hw import TPU_V5E
+from repro_torch.hw.h100 import H100_SXM
+from repro_torch.launch.mesh import H100X1
 
 from repro_torch.benchmarks.common import Row, results_dir, timed, write_csv
 
@@ -42,7 +46,7 @@ def artefacts_dir() -> str:
 def analyse_cell(rec: dict) -> dict | None:
     if not rec.get("applicable", True) or not rec.get("ok"):
         return None
-    spec = TPU_V5E
+    spec = H100_SXM if rec["mesh"] == H100X1.name else TPU_V5E
     n_dev = rec["n_devices"]
     flops = rec["hlo_flops_per_device"]
     bytes_ = rec["hlo_bytes_per_device"]
@@ -115,6 +119,7 @@ def run() -> list[Row]:
         cells = load_cells()
         single = [c for c in cells if c["mesh"] == "pod16x16"]
         multi = [c for c in cells if c["mesh"] == "pod2x16x16"]
+        card = [c for c in cells if c["mesh"] == H100X1.name]
         if cells:
             write_csv(
                 "roofline",
@@ -128,16 +133,21 @@ def run() -> list[Row]:
                 f.write(to_markdown(single))
                 f.write("\n## Multi-pod (2x16x16) — pod-axis sharding check\n\n")
                 f.write(to_markdown(multi))
-        return cells, single, multi
+                if card:
+                    f.write("\n## One H100 (h100x1), priced with H100_SXM — the port's "
+                            "dry run\n\n")
+                    f.write(to_markdown(card))
+        return cells, single, multi, card
 
-    (cells, single, multi), us = timed(build)
+    (cells, single, multi, card), us = timed(build)
     if not cells:
         return [("roofline_report", us, "no dryrun artefacts found (run repro.launch.dryrun)")]
     doms = {}
-    for c in single:
+    for c in single + card:
         doms[c["dominant"]] = doms.get(c["dominant"], 0) + 1
     derived = (
         f"single_pod_cells={len(single)};multi_pod_cells={len(multi)};"
+        + (f"one_card_cells={len(card)};" if card else "")
         + ";".join(f"{k}={v}" for k, v in sorted(doms.items()))
     )
     return [("roofline_report", us, derived)]

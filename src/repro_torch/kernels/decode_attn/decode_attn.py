@@ -5,7 +5,10 @@ Counterparts of the Pallas kernels ``repro.kernels.decode_attn.decode_attn``
 ``decode_attention`` and ``paged_decode_attention``. On a CUDA tensor a
 wrapper launches its kernel or raises; there is no fallback. Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the CPU path does not
-count).
+count). On a meta tensor (the dry run) a wrapper launches nothing and
+counts no launch: it returns an empty meta output and adds its
+``kernels.cost`` count to the active counter (shape inference, not a
+fallback).
 
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
 are attended, and with ``window > 0`` only those ``kpos >= valid_len -
@@ -24,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
@@ -148,6 +152,12 @@ def decode_attention(q, k, v, valid_len, *, scale: float, softcap: float = 0.0,
     (the last ``window`` of them when ``window > 0``)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window)
+    if q.device.type == "meta":
+        b, h, dk = q.shape
+        keys, _ = cost.meta_keys(b, k.shape[1], window)
+        cost.record("decode_attention", cost.decode_attention(
+            b, h, k.shape[2], dk, v.shape[-1], q.element_size(), keys))
+        return q.new_empty((b, h, v.shape[-1]))
     if k.shape[0] != q.shape[0]:
         raise ValueError("decode_attention: cache batch != q batch")
     out = _launch("decode_attention", q, k, v, valid_len, None,
@@ -167,6 +177,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, valid_len, *,
                                           valid_len, scale, softcap=softcap, window=window)
     nb = block_tables.shape[1]
     bs = k_pages.shape[1]
+    if q.device.type == "meta":
+        b, h, dk = q.shape
+        keys, pages = cost.meta_keys(b, nb * bs, window, bs)
+        cost.record("paged_decode_attention", cost.paged_decode_attention(
+            b, h, k_pages.shape[2], dk, v_pages.shape[-1], q.element_size(), keys, pages))
+        return q.new_empty((b, h, v_pages.shape[-1]))
     if block_tables.shape[0] != q.shape[0]:
         raise ValueError("paged_decode_attention: block_tables batch != q batch")
     out = _launch("paged_decode_attention", q, k_pages, v_pages, valid_len,

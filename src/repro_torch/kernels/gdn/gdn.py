@@ -6,7 +6,9 @@ PyTorch version of ``ref.py`` on a CPU tensor.
 Counterpart of the Pallas kernel ``repro.kernels.gdn.gdn.gdn_scan``. On a
 CUDA tensor the wrapper launches its kernel or raises; there is no
 fallback. It counts its launches in ``gdn_scan.launches`` (the CPU path does
-not count).
+not count). On a meta tensor (the dry run) it launches nothing and counts
+no launch: it returns empty meta outputs and adds its ``kernels.cost``
+count to the active counter.
 
 ``gdn_scan`` is differentiable: it runs through the autograd Function
 ``GdnScan``, whose backward is the backward kernel of ``gdn_bwd.py`` on a
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.gdn.ref import gdn_scan_ref
 
@@ -119,6 +122,9 @@ def _forward(q, k, v, beta, alpha):
         y, fs = gdn_scan_ref(q, k, v, beta, alpha)
         return y.to(q.dtype), fs
     bsz, s, h, kd = q.shape
+    if q.device.type == "meta":
+        cost.record("gdn_scan", cost.gdn_scan(bsz, s, h, kd, q.element_size()))
+        return torch.empty_like(q), q.new_empty((bsz, h, kd, kd), dtype=torch.float32)
     if kd not in HEAD_DIMS:
         raise ValueError(f"gdn_scan: K={kd} must be one of {HEAD_DIMS}")
     dev = q.device

@@ -7,7 +7,9 @@ JAX package differentiates its jnp scan); the port's forward on the card is
 a kernel, so its gradient is one too. ``gdn.GdnScan`` calls it. On a CUDA
 tensor the wrapper launches its kernels or raises; there is no fallback. It
 counts its launches in ``gdn_scan_bwd.launches``, one a call (the CPU path
-does not count).
+does not count). On a meta tensor (the dry run) it launches nothing and
+counts no launch: it returns empty meta gradients and adds its
+``kernels.cost`` count to the active counter.
 
 The kernels take the chunked (WY) form of ``ref.gdn_scan_bwd_chunked_ref``
 on the tensor cores, every product on fp16 hi + lo operands (its
@@ -26,6 +28,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.gdn.gdn import HEAD_DIMS, _check
 from repro_torch.kernels.gdn.ref import gdn_scan_bwd_ref
@@ -62,6 +65,9 @@ def gdn_scan_bwd(q, k, v, beta, alpha, dy, dfinal=None):
     if q.device.type == "cpu":
         grads = gdn_scan_bwd_ref(q, k, v, beta, alpha, dy, dfinal)
         return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v, beta, alpha)))
+    if q.device.type == "meta":
+        cost.record("gdn_scan_bwd", cost.gdn_scan_bwd(bsz, s, h, kd, q.element_size()))
+        return tuple(torch.empty_like(t) for t in (q, k, v, beta, alpha))
     if kd not in HEAD_DIMS:
         raise ValueError(f"gdn_scan_bwd: K={kd} must be one of {HEAD_DIMS}")
     dev = q.device

@@ -5,7 +5,9 @@ Counterparts of the Pallas kernels ``repro.kernels.mla_decode.mla_decode``
 ``mla_latent_decode`` and ``mla_paged_latent_decode``. On a CUDA tensor a
 wrapper launches its kernel or raises; there is no fallback. Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the CPU path does not
-count).
+count). On a meta tensor (the dry run) a wrapper launches nothing and
+counts no launch: it returns an empty meta output and adds its
+``kernels.cost`` count to the active counter.
 
 Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
 are attended; the result is (B, H, rank) in q's dtype. ``ckv`` and ``kr``
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.mla_decode.ref import (
     mla_latent_decode_ref,
@@ -160,6 +163,12 @@ def mla_latent_decode(q_lat, q_rope, ckv, kr, valid_len, *, scale: float) -> tor
     over its keys ``< valid_len``."""
     if q_lat.device.type == "cpu":
         return mla_latent_decode_ref(q_lat, q_rope, ckv, kr, valid_len, scale)
+    if q_lat.device.type == "meta":
+        b, h, rank = q_lat.shape
+        keys, _ = cost.meta_keys(b, ckv.shape[1])
+        cost.record("mla_latent_decode", cost.mla_latent_decode(
+            b, h, rank, q_rope.shape[-1], q_lat.element_size(), keys))
+        return q_lat.new_empty((b, h, rank))
     if ckv.shape[0] != q_lat.shape[0]:
         raise ValueError("mla_latent_decode: cache batch != q batch")
     out = _launch("mla_latent_decode", q_lat, q_rope, ckv, kr, valid_len, None,
@@ -181,6 +190,12 @@ def mla_paged_latent_decode(q_lat, q_rope, ckv_pages, kr_pages, block_tables, va
         raise ValueError("mla_paged_latent_decode: block_tables must be (B, nb) for q's B")
     nb = block_tables.shape[1]
     bs = ckv_pages.shape[1]
+    if q_lat.device.type == "meta":
+        b, h, rank = q_lat.shape
+        keys, pages = cost.meta_keys(b, nb * bs, bs=bs)
+        cost.record("mla_paged_latent_decode", cost.mla_paged_latent_decode(
+            b, h, rank, q_rope.shape[-1], q_lat.element_size(), keys, pages))
+        return q_lat.new_empty((b, h, rank))
     out = _launch("mla_paged_latent_decode", q_lat, q_rope, ckv_pages, kr_pages, valid_len,
                   block_tables, nb * bs, bs, nb, scale)
     mla_paged_latent_decode.launches += 1

@@ -4,7 +4,9 @@ tensor, the plain PyTorch version of ``ref.py`` on a CPU tensor.
 Counterpart of the Pallas kernel ``repro.kernels.ssd.ssd.ssd_scan``. On a
 CUDA tensor the wrapper launches its kernel or raises; there is no
 fallback. It counts its calls in ``ssd_scan.launches`` (the CPU path does
-not count). bf16 runs the tensor-core kernel (``ssd_tc_kernel``, one
+not count). On a meta tensor (the dry run) it launches nothing and counts
+no launch: it returns empty meta outputs and adds its ``kernels.cost``
+count to the active counter. bf16 runs the tensor-core kernel (``ssd_tc_kernel``, one
 launch); fp32 the CUDA-core kernels (a c.b pass, then the scan).
 
 ``ssd_scan`` is differentiable: it runs through the autograd Function
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
@@ -110,6 +113,9 @@ def _forward(x, dt, a, b, c):
         return y.to(x.dtype), fs
     bsz, s, h, p = x.shape
     n = b.shape[-1]
+    if x.device.type == "meta":
+        cost.record("ssd_scan", cost.ssd_scan(bsz, s, h, p, n, x.element_size()))
+        return torch.empty_like(x), x.new_empty((bsz, h, p, n), dtype=torch.float32)
     if p % ROWS_PER_CTA or n not in STATE_DIMS:
         raise ValueError(f"ssd_scan: P={p} must be a multiple of {ROWS_PER_CTA} and "
                          f"N={n} one of {STATE_DIMS}")

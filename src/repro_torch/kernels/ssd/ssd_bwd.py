@@ -6,7 +6,9 @@ JAX package differentiates its jnp scan); the port's forward on the card is
 a kernel, so its gradient is one too. ``ssd.SsdScan`` calls it. On a CUDA
 tensor the wrapper launches its kernel or raises; there is no fallback. It
 counts its launches in ``ssd_scan_bwd.launches`` (the CPU path does not
-count).
+count). On a meta tensor (the dry run) it launches nothing and counts no
+launch: it returns empty meta gradients and adds its ``kernels.cost`` count
+to the active counter.
 
 bf16 runs the tensor-core kernel (``ssd_bwd_tc_kernel``), fp32 the
 CUDA-core one (``ssd_bwd_kernel``); one launch each.
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.ssd.ref import ssd_scan_bwd_ref
 from repro_torch.kernels.ssd.ssd import CHUNK, ROWS_PER_CTA, STATE_DIMS, _check
@@ -67,6 +70,9 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dfinal=None):
     if x.device.type == "cpu":
         grads = ssd_scan_bwd_ref(x, dt, a, b, c, dy, dfinal)
         return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, a, b, c)))
+    if x.device.type == "meta":
+        cost.record("ssd_scan_bwd", cost.ssd_scan_bwd(bsz, s, h, p, n, x.element_size()))
+        return tuple(torch.empty_like(t) for t in (x, dt, a, b, c))
     if p % ROWS_PER_CTA or n not in STATE_DIMS:
         raise ValueError(f"ssd_scan_bwd: P={p} must be a multiple of {ROWS_PER_CTA} and "
                          f"N={n} one of {STATE_DIMS}")

@@ -21,7 +21,11 @@ def dt(name: str) -> torch.dtype:
 def normal_init(shape, generator: torch.Generator, scale: float, dtype, device) -> torch.Tensor:
     """``normal(shape) * scale`` drawn in fp32 on the generator's device,
     then cast and moved (the JAX init draws fp32 and casts the same way);
-    scaled in place, so a large leaf needs no second fp32 copy."""
+    scaled in place, so a large leaf needs no second fp32 copy. On
+    ``device="meta"`` it draws nothing (``generator`` may be None) and
+    returns the leaf's shape and dtype: the dry run's abstract params."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
     return x.mul_(scale).to(device=device, dtype=dtype)

@@ -10,6 +10,7 @@ Greedy tokens must be equal, and the port's paged path must give its dense
 path's logits. ``minitron-4b`` runs GQA with a squared-ReLU MLP and an
 untied table; ``minitron-4b-mla`` runs the absorbed MLA block (latent cache
 ``{"ckv", "kr"}``), also with a low-rank query (``q_lora_rank``);
+``nemotron-4-15b`` runs GQA (G 6 at full width) with a squared-ReLU MLP;
 ``mamba2-4b`` and ``gdn-4b`` run the recurrent blocks, whose O(1) state
 (``{"ssm", "conv"}``, ``{"gdn"}``) stays slot indexed in the paged cache
 (the JAX ``ssd_chunked`` against the port's sequential plain scan, the same
@@ -137,7 +138,8 @@ def test_prefill_at_bucket_1024_matches_reference_flash_branch(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-4b", "minitron-4b", "minitron-4b-mla",
-                                  "minitron-4b-mla+q_lora", "mamba2-4b", "gdn-4b"])
+                                  "minitron-4b-mla+q_lora", "mamba2-4b", "gdn-4b",
+                                  "nemotron-4-15b"])
 def test_prefill_and_decode_match_reference(arch):
     jcfg, cfg, jp, tp, prompts, lengths = _setup(arch)
     keys = _cache_keys(cfg)
