@@ -15,7 +15,9 @@ Phases; any failure exits non-zero:
    calls bitwise equal) against its plain PyTorch version on the card, at
    the main paths' shapes and others (GQA
    also with the logit softcap and the sliding window, whole splits and
-   pages below the window among them; the backward kernels at the training
+   pages below the window among them, and at the replica banks' folded
+   batches of phase 11, B 512 x H 8 / D 256 and B 128 x H 36 / D 64, timed
+   in fp32 and bf16; the backward kernels at the training
    shapes of mamba2-780m, zamba2-1.2b and gdn-4b, off the chunk and, for
    the SSD one, at a P that 64 does not divide), and
    time kernel, plain version and, where one PyTorch call computes the same
@@ -38,8 +40,8 @@ Phases; any failure exits non-zero:
    layer and prefill call; every other kernel never); one decode step's
    logits graph vs eager on copies of one cache, and kernel path vs plain
    path (for the recurrent models the prefill logits, the final states and
-   one decode step after them); then fp32 graph engines (dense, paged) and
-   an eager one (dense) whose greedy streams must all agree; for gemma2-9b also two
+   one decode step after them); then fp32 graph engines (dense, paged)
+   whose greedy streams must agree; for gemma2-9b also two
    requests of ~4200 tokens in a cache of 8192, past its 4096 window,
    dense and paged, kernel vs plain logits over three decode steps;
 5. ``[cluster]``: the phase-disaggregated ``Cluster`` (a prefill pool handing
@@ -71,16 +73,29 @@ Phases; any failure exits non-zero:
    the three configurations part, the first parting is printed and the
    phase fails;
 10. ``[events]``: ``serve_events``' fleet (16 gemma-2b replicas on one
-   weight set, 32 pools on one card) on its wave trace cut to 256
-   requests, twice (equal sha256, fused decode coverage), then its burst
-   trace on the event engine against the barrier; then the fold
-   measurement (one decode step folded to batch K x 8 against the K member
-   steps, K 4 and 16). In phases 5-10 every run counts its kernel launches
-   across the prefill and decode pools (decode kernel layers x decode
-   steps, as eager launches + replays x captured launches; scan layers x
-   prefill calls; every other kernel never), and each phase prints its
-   seconds;
-11. ``[paper]``: every analytic table and figure driver of the paper
+   weight set, 32 pools on one card, each fused group stepped as one step
+   over a replica bank) on its wave trace cut to 256 requests, twice
+   (equal sha256, fused decode coverage), then its burst trace on the
+   event engine against the barrier; then the fold measurement in bf16
+   (one decode step folded to batch K x 8 against the K member steps, K 4,
+   16 and 64: logits bit for bit, also with kernel 1's split plan pinned
+   to the member's batch; eager times, and a bank's graph replay against
+   the K member graphs' replays);
+11. ``[scale]``: ``serve_scale``'s recipe through its own ``run``, 88
+   gemma-2b + 12 minicpm-2b replicas at full width in fp32 (200 pools on
+   one card), traces cut to whole waves (``SCALE_COUNTS``): every gate of
+   the recipe (completion, two equal replays, aligned fused coverage,
+   dispatches, batched sha256 == tuple sha256, the quantum, batched faster
+   than tuple per fused call at g >= 8), each replay's ``EngineStats`` and
+   bank steps, captures and replays; the fold measurement in fp32; an
+   untimed bf16 replay of two aligned waves, batched against tuple, with
+   the requests whose tokens part. In phases 5-11 every run counts its
+   kernel launches across the prefill and decode pools and the replica
+   banks (decode kernel layers x (each pool's own decode steps + each
+   bank step), as eager launches + replays x captured launches; scan
+   layers x prefill calls, a batched prefill one call; every other kernel
+   never), and each phase prints its seconds;
+12. ``[paper]``: every analytic table and figure driver of the paper
    (Table 1, Figs 1-4, the hypotheses, the policy table, ``tpu_native`` on
    the v5e, ``roofline_report``) through its own ``run``, the recipes'
    verdicts asserted; ``roofline_report`` over the one-card dry run of
@@ -90,14 +105,14 @@ Phases; any failure exits non-zero:
    priced with ``H100_SXM``); the dry run held against the card: gemma-2b's
    decode cell at phase 4's shape (B 8, a cache of 1024) counts the
    argument bytes the card holds and as many kernel-1 calls as one
-   ``decode_step`` launches there (18), and phase 12's train shape (8 x
+   ``decode_step`` launches there (18), and phase 13's train shape (8 x
    512) the argument bytes of the card's train state and batch, with the
    counted FLOPs and temp estimate printed beside the card's figures;
    ``tpu_native``'s ``H100_SXM`` table printed;
    ``kernels_micro`` on the card (four fp32 kernels against their plain
    versions, CUDA-event times), its launches counted; the card's clock and
    power surface printed beside ``H100_SXM``'s fields;
-12. ``[train]``: the training path through ``run_training`` at full width
+13. ``[train]``: the training path through ``run_training`` at full width
    (gemma-2b, bf16, batch 8 x 512 tokens, 20 AdamW + WSD steps with remat
    and the chunked loss): falling finite losses, a finite nonzero gradient
    on every parameter leaf at step 1, step ms, tokens/s, the model-FLOP
@@ -117,13 +132,13 @@ Phases; any failure exits non-zero:
    losses), 3 steps of gdn-4b at 4 x 512 and one of zamba2-1.2b, each with
    its launches counted (a recurrent layer's forward scan twice a step, its
    backward once), step ms, tokens/s, peak memory and a profiled step;
-13. ``[examples]``: the port's examples and scripts on the card at their
+14. ``[examples]``: the port's examples and scripts on the card at their
    own sizes (``repro_torch.examples.{characterize_paper, quickstart,
    serve_decode_pool, train_wsd}``, ``repro_torch.scripts.{calibrate,
    smoke_models}``): the cap never engaged on decode and the lock saving
    more than 20 %, finite losses, every block kind's prefill + decode
    through the kernels against the training forward;
-14. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
+15. print the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` it runs none of these phases: it builds the kernels
 of this checkout and of the checkout in DIR (another commit, unpacked with
@@ -167,7 +182,7 @@ SCAN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=2e-2, r
 # gemma2-9b's final softcap bounds its logits to +-30; deepseek-v2-lite-16b
 # as minitron-4b-mla; zamba2-1.2b as the recurrent models; nemotron-4-15b
 # (32 layers, G 6, squared-ReLU MLP) as its pruned descendant minitron-4b;
-# the full-width llama-3.2-vision-11b and musicgen-large steps of phase 12
+# the full-width llama-3.2-vision-11b and musicgen-large steps of phase 13
 # (GQA, kernel 1) at the GQA models' 0.25
 LOGIT_ATOL_BF16 = {"gemma-2b": 0.25, "minitron-4b-mla": 0.5, "mamba2-4b": 0.5, "gdn-4b": 0.5,
                    "qwen3-4b": 0.25, "minitron-4b": 0.3, "gemma2-9b": 0.25,
@@ -250,9 +265,12 @@ FLEET_CAVEAT = "energy-aware routing spent"
 # the scans' plain versions run ~10 PyTorch ops per token: time fewer calls
 PLAIN_SCAN_REPS = 3
 # phase 4's runs per layout (paged?): the graph run, and the eager run on the
-# dense layout only (graph == eager is held there, bf16 and fp32; the eager
-# step's code is the same for both layouts)
+# dense layout only (graph == eager is held there; the eager step's code is
+# the same for both layouts). In fp32 the graph runs only (dense == paged):
+# the eager fp32 run, which [scale] paid for, held graph == eager a second
+# time where bf16 holds it already
 EAGER_LAYOUTS = {False: (True, False), True: (True,)}
+FP32_LAYOUTS = {False: (True,), True: (True,)}
 
 
 def nvidia_smi(query: str) -> str:
@@ -375,11 +393,18 @@ KERNEL_CASES = (
     Gqa("decode_attention", False, 2, 32, 32, 64, 64, 256, 0, False, 0.0, 64),
     Gqa("decode_attention", False, 8, 16, 8, 256, 256, 8192, 0, False, 50.0, 4096),
     Gqa("paged_decode_attention", True, 8, 16, 8, 256, 256, 8192, 16, False, 50.0, 4096),
+    # the event engine's replica banks ([scale]): a fused group folded to
+    # one batch of p2 x 8 rows, gemma-2b's 64 members and minicpm-2b's 16
+    Gqa("decode_attention", False, 512, 8, 1, 256, 256, 64, 0, False),
+    Gqa("decode_attention", False, 128, 36, 36, 64, 64, 64, 0, False),
 )
+# the folded cases: timed in fp32 (the [scale] run's dtype) and bf16
+FOLDED = tuple(c for c in KERNEL_CASES if c.b >= 128)
 # not main cases, but timed (and printed) as well: minicpm-2b's decode at
 # the [cluster] phase's shapes, where one query row fills a 16-row MMA tile,
-# and gemma2-9b's long context
-TIMED_EXTRA = tuple(c for c in KERNEL_CASES if (c.h, c.l) == (36, 128) or c.l == 8192)
+# gemma2-9b's long context and the folded cases
+TIMED_EXTRA = tuple(c for c in KERNEL_CASES
+                    if (c.h, c.l) == (36, 128) or c.l == 8192 or c in FOLDED)
 # kernel 2 over block tables whose rows share pages, at the [prefix] shape
 # (gemma-2b, bs 16, max_seq_len 128): per row its valid_len and its table
 # entries (page ids); rows 0-4 share a three-page trunk, rows 3 and 4 also
@@ -770,14 +795,19 @@ def check_kernels(torch, F, kmod):
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"{name} {label} disagrees with its plain version ({dname})")
-            if case in TIMED_EXTRA and dname == "bfloat16":
+            if case in TIMED_EXTRA and (dname == "bfloat16" or case in FOLDED):
                 sets = cold_sets(inputs)
                 ms = cuda_time_ms(torch, lambda *a: kernel(*a, **kw), sets)[0]
                 plain_ms = cuda_time_ms(torch, lambda *a: plain(*a, **kw), sets)[0]
                 bound_ms, bound_by = bound_fn(torch, case, inputs, out.element_size())
-                print(f"[kernels] {name} {label} bf16 (not a main case), device ms (CUDA "
-                      f"graph): kernel {ms:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} "
-                      f"({bound_by}); valid_len={inputs[-1].tolist()}")
+                sdpa = ("" if paged or case.softcap or case.window else ", sdpa %.5f" % (
+                    cuda_time_ms(torch, gqa_sdpa(torch, F, l, kw["scale"]), sets)[0]))
+                valid = inputs[-1].tolist()
+                print(f"[kernels] {name} {label} {dname} (not a main case), device ms (CUDA "
+                      f"graph): kernel {ms:.5f}, plain {plain_ms:.5f}{sdpa}, bound "
+                      f"{bound_ms:.5f} ({bound_by}); valid_len={valid[:16]}"
+                      + (f" ... ({len(valid)} rows, {sum(valid)} keys)" if len(valid) > 16
+                         else ""))
                 del sets
             if not (main and dname == "bfloat16"):
                 continue
@@ -936,16 +966,21 @@ def check_scan_bwd_kernels(torch, kmod, records) -> None:
                 torch.cuda.empty_cache()
 
 
-def expected_launches(arch, paged, cfg, stats) -> dict:
+def expected_launches(arch, paged, cfg, stats, *, decode_steps=None, prefill_calls=None
+                      ) -> dict:
     """Each counted kernel's launches in one serving run of ``arch``: its
     decode kernel once per attention layer and decode step, its prefill scan
-    once per recurrent layer and prefill call."""
+    once per recurrent layer and prefill call (``stats``' counts, unless
+    ``decode_steps`` / ``prefill_calls`` give the steps and calls that ran
+    the model)."""
     want = dict.fromkeys(COUNTED, 0)
     kernels = KERNELS_OF[arch]
+    steps = stats.decode_steps if decode_steps is None else decode_steps
+    calls = stats.prefill_calls if prefill_calls is None else prefill_calls
     if kernels["decode"]:
-        want[kernels["decode"][paged]] = _n_layers(cfg, "decode") * stats.decode_steps
+        want[kernels["decode"][paged]] = _n_layers(cfg, "decode") * steps
     if kernels["prefill"]:
-        want[kernels["prefill"]] = _n_layers(cfg, "scan") * stats.prefill_calls
+        want[kernels["prefill"]] = _n_layers(cfg, "scan") * calls
     return want
 
 
@@ -1521,7 +1556,7 @@ def main() -> int:
 
 
 def smoke(torch, F, dry) -> int:
-    """Phases 1-14 (the module docstring); ``dry`` is the dry run's process,
+    """Phases 1-15 (the module docstring); ``dry`` is the dry run's process,
     which ``[paper]`` waits for."""
     from repro_torch import kernels as kmod
     from repro_torch.configs import get_config
@@ -1567,13 +1602,16 @@ def smoke(torch, F, dry) -> int:
     prefix_phase(torch, kmod, records)
     events_phase(torch, kmod, records)
 
-    # ---- 11. the paper's analysis drivers, the dry run, kernels_micro
+    # ---- 11. serve_scale's 100-replica fleet in fp32, on replica banks
+    scale_phase(torch, kmod, records)
+
+    # ---- 12. the paper's analysis drivers, the dry run, kernels_micro
     paper_phase(torch, kmod, records, dry)
 
-    # ---- 12. training at full width
+    # ---- 13. training at full width
     train_phase(torch, kmod, records)
 
-    # ---- 13. the examples and scripts on the card
+    # ---- 14. the examples and scripts on the card
     examples_phase(torch, kmod)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1591,9 +1629,9 @@ def serve_model(torch, kmod, cfg, records) -> None:
     launches, its prefill scan once per layer and prefill call, the others
     never), one full-batch step graph vs eager (and kernel vs plain) on
     copies of one cache, the bf16 prefill kernel vs plain path, then fp32
-    graph engines (dense, paged) and an eager one (dense) whose greedy
-    streams must all agree. The eager runs use the dense layout only
-    (``EAGER_LAYOUTS``). Adds each main-path launch count (the bf16 graph
+    graph engines (dense, paged) whose greedy streams must agree. The eager
+    runs are bf16 on the dense layout only (``EAGER_LAYOUTS``,
+    ``FP32_LAYOUTS``). Adds each main-path launch count (the bf16 graph
     runs, dense and paged) to ``records``."""
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
@@ -1702,7 +1740,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
     t_fp32 = time.perf_counter()
     for paged in (False, True):
         tag = "paged" if paged else "dense"
-        for graphs in EAGER_LAYOUTS[paged]:
+        for graphs in FP32_LAYOUTS[paged]:
             engine, reqs, info = serve(torch, cfg32, params32, prompts, paged=paged, max_new=8,
                                        kmod=kmod, graphs=graphs)
             streams[tag, graphs] = [r.output for r in reqs]
@@ -1712,10 +1750,9 @@ def serve_model(torch, kmod, cfg, records) -> None:
                   f"{info['graph_replays']}, first stream {streams[tag, graphs][0]}")
             del engine
     if len({json.dumps(v) for v in streams.values()}) != 1:
-        raise SystemExit(f"{arch}: fp32 greedy streams differ between dense / paged and "
-                         "graph / eager")
-    print(f"[serve] {arch} fp32 greedy streams equal, dense == paged, graph == eager "
-          f"(dense): ok; fp32 serving {time.perf_counter() - t_fp32:.1f} s")
+        raise SystemExit(f"{arch}: fp32 greedy streams differ between dense / paged")
+    print(f"[serve] {arch} fp32 greedy streams equal, dense == paged: ok; fp32 serving "
+          f"{time.perf_counter() - t_fp32:.1f} s")
     if MODELS[arch]["prefill"]:
         cmp = prefill_kernel_vs_plain(torch, cfg32, params32, short_long)
         print(f"[serve] {arch} fp32 prefill kernel vs plain: " + json.dumps(cmp)
@@ -1761,29 +1798,51 @@ def zero_counts(torch, kmod) -> None:
         getattr(kmod, name).launches = 0
 
 
-def check_stack_launches(torch, kmod, replicas, what, records=None, graphs=True) -> dict:
+def check_stack_launches(torch, kmod, replicas, what, records=None, graphs=True,
+                         batched=None) -> dict:
     """Launches of one run across the replicas' prefill and decode pools,
     read just after it: each counted wrapper's count plus, for every pool,
     its graph replays x the launches its capture recorded. Each must equal
     ``expected_launches`` summed over the replicas (the arch's decode
-    kernel layers x the decode pool's steps, its scan layers x the prefill
-    pool's prefill calls, every other kernel 0), and a graph-replaying
-    decode pool must have run exactly one eager step. Adds the launches to
-    ``records``' main-path counts when given."""
+    kernel layers x the decode pool's own steps, its scan layers x the
+    prefill pool's prefill calls, every other kernel 0), and a
+    graph-replaying decode pool must have run exactly one of its own steps
+    eagerly. ``batched`` (``Fleet.last_batched_calls``) adds the event
+    engine's replica banks: per config, its decode kernel's layers once per
+    bank step (the whole group's step) and the launches the bank graphs'
+    replays ran; a pool that stepped inside a bank took its other steps
+    itself, and may have taken none (no eager step). A batched prefill call
+    prefills several requests with one launch per scan layer. Adds the
+    launches to ``records``' main-path counts when given."""
     torch.cuda.synchronize()
     got = {name: getattr(kmod, name).launches for name in COUNTED}
     want = dict.fromkeys(COUNTED, 0)
+    batched = batched or {}
+    by_cfg = {}
     for r in replicas:
+        dp = r.decode_pool
+        by_cfg.setdefault(r.cfg.name, r)
         for pool in r.pools().values():
             for name, n in pool.captured_launches.items():
                 got[name] += pool.graph_replays * n
-        for name, n in expected_launches(r.arch, r.decode_pool.paged, r.cfg,
-                                         r.stats).items():
+        own = dp._decode_steps_run
+        for name, n in expected_launches(r.arch, dp.paged, r.cfg, r.stats,
+                                         decode_steps=own).items():
             want[name] += n
-        steps, replays = r.decode_stats.decode_steps, r.decode_pool.graph_replays
-        if replays != (max(steps - 1, 0) if graphs else 0) or r.prefill_pool.graph_replays:
-            raise SystemExit(f"{what} {r.name}: {replays} graph replays in {steps} decode "
-                             f"steps (graphs={graphs})")
+        steps, replays = r.decode_stats.decode_steps, dp.graph_replays
+        if (own + dp.bank_steps != steps or replays != (max(own - 1, 0) if graphs else 0)
+                or r.prefill_pool.graph_replays):
+            raise SystemExit(f"{what} {r.name}: {replays} graph replays in {own} own decode "
+                             f"steps and {dp.bank_steps} bank steps of {steps} "
+                             f"(graphs={graphs})")
+    for cfg_name, ent in batched.items():
+        r = by_cfg[cfg_name]
+        for name, n in ent["replay_launches"].items():
+            got[name] += n
+        for name, n in expected_launches(
+                r.arch, False, r.cfg, r.stats, decode_steps=ent["decode_steps"],
+                prefill_calls=ent["prefill_calls"] - ent["prefill_requests"]).items():
+            want[name] += n
     if got != want:
         raise SystemExit(f"{what}: launches {got} != {want}")
     if records is not None:
@@ -1821,7 +1880,8 @@ def cluster_phase(torch, kmod, records) -> dict:
     def report(row, cluster, reqs, graphs=True):
         tag = f"{row['arch']} {row['mode']} {'graph' if graphs else 'eager'}"
         launches = check_stack_launches(torch, kmod, [cluster._replica], f"[cluster] {tag}",
-                                        records if graphs else None, graphs)
+                                        records if graphs else None, graphs,
+                                        cluster._fleet.last_batched_calls)
         streams.setdefault(row["arch"], {})[tag] = [r.output for r in reqs]
         rows[tag] = row
         run = row["run"]
@@ -1875,7 +1935,7 @@ def trace_phase(torch, kmod, records, params_for) -> None:
     def report(row, wall_s, cluster):
         tag = f"{row['arch']} {row['mode']}"
         launches = check_stack_launches(torch, kmod, [cluster._replica], f"[trace] {tag}",
-                                        records)
+                                        records, batched=cluster._fleet.last_batched_calls)
         print(f"[trace] {tag}: " + json.dumps({
             "completed": row["completed"], "decode_j": row["decode_j"],
             "p99_tbt_s": row["p99_tbt_s"], "tbt_target_s": row["tbt_target_s"],
@@ -1910,7 +1970,17 @@ def stack_report(torch, fleet, m, wall_s) -> dict:
         "graph_captures": {r.name: int(r.decode_pool._graph is not None)
                            for r in fleet.replicas},
         "graph_replays": {r.name: r.decode_pool.graph_replays for r in fleet.replicas},
+        "bank_steps": {r.name: r.decode_pool.bank_steps for r in fleet.replicas},
+        "banks": bank_report(fleet),
         "wall_s": wall_s, "memory_allocated": torch.cuda.memory_allocated()}
+
+
+def bank_report(fleet) -> dict:
+    """The replay's replica banks per config (``Fleet.last_batched_calls``):
+    bank steps, graph captures and replays, batched prefill calls and the
+    requests they served."""
+    return {name: {k: v for k, v in ent.items() if k != "replay_launches"}
+            for name, ent in (fleet.last_batched_calls or {}).items()}
 
 
 def fleet_phase(torch, kmod, records) -> None:
@@ -1944,7 +2014,8 @@ def fleet_phase(torch, kmod, records) -> None:
         tag = (f"{'homo-gqa' if m['archs'] == list(sf.HOMO_ARCHS) else 'het'}/"
                f"{m['routing']}/{m['mode']}{'/drain1' if m['drained'] else ''}")
         results[tag] = m
-        launches = check_stack_launches(torch, kmod, fleet.replicas, f"[fleet] {tag}", records)
+        launches = check_stack_launches(torch, kmod, fleet.replicas, f"[fleet] {tag}", records,
+                                        batched=fleet.last_batched_calls)
         print(f"[fleet] {tag}: " + json.dumps({**stack_report(torch, fleet, m, wall_s),
                                                "launches": launches}))
         zero_counts(torch, kmod)        # the next replay starts from 0
@@ -1996,7 +2067,7 @@ def autoscale_phase(torch, kmod, records) -> None:
     def report(m, wall_s, fleet):
         tag = f"{m['mode']} ({m['requests']} requests)"
         launches = check_stack_launches(torch, kmod, fleet.replicas, f"[autoscale] {tag}",
-                                        records)
+                                        records, batched=fleet.last_batched_calls)
         print(f"[autoscale] {tag}: " + json.dumps({
             **stack_report(torch, fleet, m, wall_s), "ramp_ttft_s": m["ramp_ttft_s"],
             "scale_events": [[e["t_s"], e["action"], e["replica"]] for e in m["scale_events"]],
@@ -2081,7 +2152,8 @@ def prefix_phase(torch, kmod, records) -> None:
     def report(tag, m, wall, fleet, done):
         share, config = tag
         launches = check_stack_launches(torch, kmod, fleet.replicas,
-                                        f"[prefix] {share} {config}", records)
+                                        f"[prefix] {share} {config}", records,
+                                        batched=fleet.last_batched_calls)
         aliased = sum(counts.pop(id(r.decode_pool), 0) for r in fleet.replicas)
         ps = m["prefix_stats"]
         print(f"[prefix] share={share} {config}: " + json.dumps({
@@ -2120,13 +2192,36 @@ def prefix_phase(torch, kmod, records) -> None:
 EVENTS_REQUESTS = 256      # serve_events' wave trace, cut from 2000 (smoke) / 100 000
 
 
-def fold_measurement(torch, cfg, params, ks=(4, 16), b=8, l=64, seed=5) -> dict:
-    """The replica fold of a fused dense decode: K caches of B rows stepped
-    as K member steps (what the port's fused dispatch runs) and as ONE step
-    folded to batch K x B, on copies of the same random cache, lengths and
-    tokens; the logits compared bit for bit, and both timed (CUDA events,
-    eager, median of 5)."""
-    from repro_torch.models import decode_step, init_cache
+FOLD_KS = (4, 16, 64)      # group sizes of the fold measurement
+
+
+def _median_ms(torch, fn, reps: int = 5) -> float:
+    """Median CUDA-event ms of ``fn`` over ``reps`` calls."""
+    ms = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return sorted(ms)[reps // 2]
+
+
+def fold_measurement(torch, cfg, params, ks=FOLD_KS, b=8, l=64, seed=5) -> dict:
+    """The replica fold of a fused dense decode in ``cfg``'s dtype: K caches
+    of B rows stepped as K member steps (what the tuple dispatch runs) and
+    as ONE step folded to batch K x B (what a replica bank runs), on copies
+    of the same random cache, lengths and tokens. The logits are compared
+    bit for bit, and again with kernel 1's split plan pinned to the
+    member's batch (``decode_attention(plan_batch=B)``, passed in for this
+    measurement only), which leaves the GEMMs' shapes as the only
+    difference. Timed (CUDA events, median of 5): both eagerly, and a
+    bank's graph replay (``CacheBank`` of K members, captured as the
+    engine captures it) against the K member graphs' replays back to back
+    (K banks of one member: a pool's step and graph)."""
+    from repro_torch.models import attention, decode_step, init_cache
+    from repro_torch.serving import CacheBank
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
@@ -2149,25 +2244,43 @@ def fold_measurement(torch, cfg, params, ks=(4, 16), b=8, l=64, seed=5) -> dict:
 
         with torch.inference_mode():
             a, m = folded(), member_steps()
-            times = {}
-            for name, fn in (("folded", folded), ("members", member_steps)):
-                ms = []
-                for _ in range(5):
-                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                        enable_timing=True)
-                    e0.record()
-                    fn()
-                    e1.record()
-                    torch.cuda.synchronize()
-                    ms.append(e0.elapsed_time(e1))
-                times[name] = sorted(ms)[2]
-        diff = (a - m).abs()
+            kernel = attention.decode_attention
+            attention.decode_attention = functools.partial(kernel, plan_batch=b)
+            try:
+                pinned = folded()
+            finally:
+                attention.decode_attention = kernel
+            eager = {"folded": _median_ms(torch, folded),
+                     "members": _median_ms(torch, member_steps)}
+            banks = [CacheBank(cfg, params, k, b, l, device="cuda")] + [
+                CacheBank(cfg, params, 1, b, l, device="cuda") for _ in range(k)]
+            for dst, src in zip(_leaves(banks[0].tree), _leaves(cache)):
+                dst.copy_(src)
+            for bank, mem in zip(banks[1:], members):
+                for dst, src in zip(_leaves(bank.tree), _leaves(mem)):
+                    dst.copy_(src)
+            toks, lens = tokens.cpu().numpy(), lengths.cpu().numpy()
+            for i, bank in enumerate(banks):
+                sl = slice(None) if i == 0 else slice((i - 1) * b, i * b)
+                for _ in range(2):          # eager, then captured (and replayed)
+                    bank.decode(toks[sl], lens[sl])
+            graph = {"bank_replay": _median_ms(torch, banks[0]._graph.replay),
+                     "member_replays": _median_ms(
+                         torch, lambda: [bk._graph.replay() for bk in banks[1:]]),
+                     "bank_capture_ms": banks[0].graph_capture_ms}
+        diff, pdiff = (a - m).abs(), (pinned - m).abs()
         out[k] = {"bitwise_equal": bool(torch.equal(a, m)),
                   "max_abs_diff": diff.max().item(),
                   "rows_differing": int((diff.amax(-1) > 0).sum()), "rows": k * b,
                   "argmax_equal": bool(torch.equal(a.argmax(-1), m.argmax(-1))),
-                  "folded_ms": times["folded"], "member_steps_ms": times["members"]}
-        del cache, members, a, m
+                  "pinned_plan_bitwise_equal": bool(torch.equal(pinned, m)),
+                  "pinned_plan_max_abs_diff": pdiff.max().item(),
+                  "pinned_plan_rows_differing": int((pdiff.amax(-1) > 0).sum()),
+                  "folded_ms": eager["folded"], "member_steps_ms": eager["members"],
+                  "bank_replay_ms": graph["bank_replay"],
+                  "member_replays_ms": graph["member_replays"],
+                  "bank_capture_ms": graph["bank_capture_ms"]}
+        del cache, members, a, m, pinned, banks
     torch.cuda.empty_cache()
     return out
 
@@ -2180,19 +2293,23 @@ def events_phase(torch, kmod, records) -> None:
     ``EVENTS_REQUESTS`` requests: two replays (sha256 equal, fused decode
     covering >= 80 % of the steps), then the burst trace on the event
     engine and on the barrier (event p99 TTFT strictly lower). Each run's
-    launch invariant across its pools, ``EngineStats``, wall seconds, graph
-    captures and replays are read as it ends (``on_run``). Then the fold
-    measurement (``fold_measurement``, K 4 and 16)."""
+    launch invariant across its pools and replica banks, ``EngineStats``,
+    wall seconds, graph captures and replays are read as it ends
+    (``on_run``). Then the fold measurement in bf16 (``fold_measurement``,
+    K 4, 16 and 64 at L 64, and K 16 at L 1024, where kernel 1's split plan
+    differs between a member's batch and the fold's)."""
     from repro_torch.benchmarks import serve_events as se
     from repro_torch.benchmarks.common import random_params
     from repro_torch.configs import get_config
+    from repro_torch.serving import clear_program_caches
 
     t_phase = time.perf_counter()
     params = random_params(se.ARCH, full_config=True)
     torch.cuda.synchronize()
 
     def report(tag, m, wall, fleet):
-        launches = check_stack_launches(torch, kmod, fleet.replicas, f"[events] {tag}", records)
+        launches = check_stack_launches(torch, kmod, fleet.replicas, f"[events] {tag}", records,
+                                        batched=fleet.last_batched_calls)
         st = fleet.last_engine_stats
         pools = [r.decode_pool for r in fleet.replicas]
         print(f"[events] {tag}: " + json.dumps({
@@ -2202,6 +2319,7 @@ def events_phase(torch, kmod, records) -> None:
             "graph_replays": sum(p.graph_replays for p in pools),
             "capture_ms_mean": (sum(p.graph_capture_ms for p in pools)
                                 / max(1, sum(p._graph is not None for p in pools))),
+            "bank_steps": sum(p.bank_steps for p in pools), "banks": bank_report(fleet),
             "launches": launches}, default=float))
         zero_counts(torch, kmod)
 
@@ -2211,16 +2329,114 @@ def events_phase(torch, kmod, records) -> None:
                                    on_run=report):
         print(f"[events] {name}: {derived}")
     print(f"[events] wave trace cut to {EVENTS_REQUESTS} requests (smoke 2000, full 100 000)")
+    clear_program_caches()
     fold = fold_measurement(torch, get_config(se.ARCH), params)
     zero_counts(torch, kmod)          # the fold's launches are no run's
     for k, row in fold.items():
         print(f"[events] fold K={k} x B=8 (gemma-2b bf16, L 64): " + json.dumps(row))
+    # at L 64 kernel 1 plans one split for a member and for the fold alike;
+    # at L 1024 a member's rows split 16 ways and the fold's 2: the pinned
+    # plan's row tells how much of the fold's difference that is
+    for k, row in fold_measurement(torch, get_config(se.ARCH), params, ks=(16,),
+                                   l=1024).items():
+        print(f"[events] fold K={k} x B=8 (gemma-2b bf16, L 1024): " + json.dumps(row))
+    zero_counts(torch, kmod)
     del params
     torch.cuda.empty_cache()
     print(f"[events] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 12, ``[train]``: full-width gemma-2b through ``run_training``
+# [scale]'s request counts, cut from the recipe's smoke tier (4000 / 2000 /
+# 1000, curve 1500 at g 4, 8, 32): the scale trace keeps its dispatch
+# ceiling (1.474 dispatches a request at 1600, 1.51 at 1000 and 1.53 at
+# 1200: the count is the reference's, the same on the CPU and the card);
+# the aligned trace three whole waves of 100; the compare trace 100
+# drifted requests (under 100 there is no aligned wave) and the curve one
+# wave, the fewest each gate reads
+SCALE_COUNTS = {"n_scale": 1600, "n_aligned": 300, "n_compare": 100, "n_curve": 100}
+SCALE_SMOKE = {"n_scale": 4000, "n_aligned": 2000, "n_compare": 1000, "n_curve": 1500}
+SCALE_BF16_WAVES = 1       # the untimed bf16 cross-mode replay: aligned waves of 100
+
+
+def scale_phase(torch, kmod, records) -> None:
+    """Phase 11, ``[scale]``: ``serve_scale.run`` at full width in fp32 (the
+    recipe's dtype; 88 gemma-2b + 12 minicpm-2b replicas on one weight set
+    each, lock, batch 8, ``max_seq_len`` 64; 200 pools on one card), the
+    recipe and gates ``python -m repro_torch.benchmarks.serve_scale --smoke
+    --full-config`` runs, on ``SCALE_COUNTS``' cut traces: completion, two
+    scale replays with equal sha256 and metrics, aligned fused decode
+    coverage >= 80 %, dispatches below the serial pattern and under 1.5 a
+    request, batched sha256 == tuple sha256 with batched decode calls,
+    quantum 0 == the exact-tie engine and the positive quantum invariant,
+    batched faster than tuple per fused call at g >= 8. Each replay's
+    launch invariant across pools and banks, ``EngineStats``, wall seconds,
+    bank steps, captures and replays are read as it ends (``on_run``). Then
+    the fold measurement in fp32 (``fold_measurement``, gemma-2b) and, with
+    the fp32 weights freed, an untimed bf16 replay of ``SCALE_BF16_WAVES``
+    aligned waves batched against tuple: how many requests' tokens part,
+    and where first. No gate reads it."""
+    from repro_torch.benchmarks import serve_scale as ss
+    from repro_torch.serving import clear_program_caches
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = ss.params_for_fleet(full_config=True, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[scale] fp32 weights of {ss.ARCH_MAIN} and {ss.ARCH_ALT}: init "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    def report(tag, m, wall, fleet):
+        launches = check_stack_launches(torch, kmod, fleet.replicas, f"[scale] {tag}", records,
+                                        batched=fleet.last_batched_calls)
+        st = fleet.last_engine_stats
+        pools = [r.decode_pool for r in fleet.replicas]
+        print(f"[scale] {tag}: " + json.dumps({
+            "requests": m["requests"], "completed": m.get("completed"), "wall_s": wall,
+            "engine_stats": st.as_dict(),
+            "pool_graph_captures": sum(p._graph is not None for p in pools),
+            "pool_graph_replays": sum(p.graph_replays for p in pools),
+            "bank_steps": sum(p.bank_steps for p in pools), "banks": bank_report(fleet),
+            "launches": launches, "memory_allocated": torch.cuda.memory_allocated()},
+            default=float))
+        zero_counts(torch, kmod)
+
+    zero_counts(torch, kmod)
+    for name, _, derived in ss.run(smoke=True, full_config=True, device="cuda",
+                                   params_for=params, on_run=report, **SCALE_COUNTS):
+        print(f"[scale] {name}: {derived}")
+    print(f"[scale] requests cut to {SCALE_COUNTS} (the recipe's smoke tier: {SCALE_SMOKE}); "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    clear_program_caches()
+    fold = fold_measurement(torch, ss.config_for(ss.ARCH_MAIN, full_config=True),
+                            params[ss.ARCH_MAIN])
+    zero_counts(torch, kmod)          # the fold's launches are no run's
+    for k, row in fold.items():
+        print(f"[scale] fold K={k} x B=8 (gemma-2b fp32, L 64): " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = ss.params_for_fleet(full_config=True, device="cuda", dtype="bfloat16")
+    trace, _ = ss.aligned_trace(SCALE_BF16_WAVES * ss.N_REPLICAS)
+    streams = {}
+    for mode in ("batched", "tuple"):
+        done = []
+        ss.replay(trace, params, full_config=True, device="cuda", dtype="bfloat16",
+                  batch_replicas=mode == "batched", on_finish=done.append)
+        streams[mode] = [(r.prompt.tolist(), r.output)
+                         for r in sorted(done, key=lambda r: (r.replica, r.uid))]
+    zero_counts(torch, kmod)          # an untimed measurement, no run of the gates
+    clear_program_caches()
+    parted = sum(a[1] != b[1] for a, b in zip(streams["batched"], streams["tuple"]))
+    print(f"[scale] bf16 batched vs tuple, {len(trace)} aligned requests (not gated): "
+          + json.dumps({"requests_parted": parted, "first_parting": _first_parting(streams),
+                        "seconds": time.perf_counter() - t0}))
+    del params
+    torch.cuda.empty_cache()
+    print(f"[scale] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 13, ``[train]``: full-width gemma-2b through ``run_training``
 TRAIN_ARCH = "gemma-2b"
 TRAIN_SHAPE = {"batch_size": 8, "seq_len": 512}     # loss chunk 512: the train step's default
 TRAIN_STEPS = 20
@@ -2273,7 +2489,7 @@ def check_no_launches(torch, kmod, what, want=None) -> dict:
 
 
 def train_phase(torch, kmod, records) -> None:
-    """Phase 12, ``[train]``: the training path on the card.
+    """Phase 13, ``[train]``: the training path on the card.
 
     1. Full-width gemma-2b (bf16 params, fp32 moments) through
        ``run_training``: TRAIN_STEPS steps of TRAIN_SHAPE with
@@ -2719,7 +2935,7 @@ def recurrent_train(torch, kmod, records, arch, shape, steps, smi) -> None:
 DRYRUN_RECORDS, DRYRUN_OK = 40, 32
 DRYRUN_TIMEOUT_S = 400
 # the cells held against the card: phase 4's gemma-2b decode step (B 8, a
-# cache of 1024) and phase 12's train step (8 x 512)
+# cache of 1024) and phase 13's train step (8 x 512)
 DRYRUN_DECODE = ("gemma-2b", 8, 1024)
 TRAIN_FLOPS_ESTIMATE = 8.2e13            # PERF.md section 2's gemma-2b step estimate
 
@@ -2843,7 +3059,7 @@ def supported_graphics_clocks() -> list:
 
 
 def paper_phase(torch, kmod, records, dry) -> None:
-    """Phase 11, ``[paper]``: every analytic table and figure driver of
+    """Phase 12, ``[paper]``: every analytic table and figure driver of
     ``repro_torch.benchmarks`` through its ``run`` (CSVs into a temporary
     directory), the recipes' verdicts asserted (``PAPER_VERDICTS``), with
     ``roofline_report`` reading the one-card dry run's cells (``dry``, a
@@ -2926,7 +3142,7 @@ def paper_phase(torch, kmod, records, dry) -> None:
 
 
 def examples_phase(torch, kmod) -> None:
-    """Phase 13, ``[examples]``: the port's examples and scripts on the card
+    """Phase 14, ``[examples]``: the port's examples and scripts on the card
     at their own sizes, through their ``main``: ``characterize_paper`` and
     ``calibrate`` (analytic), ``quickstart`` (reduced gemma-2b: 20 train
     steps, 6 served requests; losses finite), ``serve_decode_pool`` (reduced

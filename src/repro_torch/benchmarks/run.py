@@ -6,8 +6,8 @@ Counterpart of the reference's ``benchmarks/run.py``: prints
 per-table artefacts to ``$REPRO_BENCH_OUT`` (default results/benchmarks).
 ``--device`` reaches the drivers that run a model or a kernel (the serving
 recipes and ``kernels_micro``); ``--smoke`` runs the serving recipes' smoke
-tier. ``tpu_native`` runs twice: the v5e table and its H100 counterpart.
-``serve_scale`` is not ported yet.
+tier. ``tpu_native`` runs twice: the v5e table and its H100 counterpart;
+``serve_scale`` twice, as in the reference: batched and the tuple baseline.
 
     python -m repro_torch.benchmarks.run [--device cpu] [--smoke]
 """
@@ -41,6 +41,7 @@ def main(argv=None) -> None:
         serve_events,
         serve_fleet,
         serve_prefix,
+        serve_scale,
         serve_trace,
         table1_power_cap,
         tpu_native,
@@ -62,6 +63,8 @@ def main(argv=None) -> None:
         (serve_autoscale, serving, ""),
         (serve_events, serving, ""),
         (serve_prefix, serving, ""),
+        (serve_scale, {**serving, "batched": True}, "batched"),
+        (serve_scale, {**serving, "batched": False}, "unbatched"),
         (tpu_native, {}, ""),
         (tpu_native, {"chip": "h100-sxm"}, "h100"),
         (kernels_micro, {"device": args.device}, ""),

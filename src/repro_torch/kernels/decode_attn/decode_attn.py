@@ -97,7 +97,8 @@ def _launcher(name: str, dtype: torch.dtype):
     return fn
 
 
-def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softcap, window):
+def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softcap, window,
+            plan_batch=0):
     b, h, dk = q.shape
     kv, dv = k.shape[2], v.shape[-1]
     if q.dtype not in _SUFFIX:
@@ -127,7 +128,7 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softc
         block_tables, "block_tables", name, q.device, torch.int32))
 
     g = h // kv
-    _, n_split, split_len = plan(q.dtype, b * kv, extent)
+    _, n_split, split_len = plan(q.dtype, (plan_batch or b) * kv, extent)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if n_split > 1:
         part_m = torch.empty((b * kv * n_split * g,), dtype=torch.float32, device=q.device)
@@ -146,10 +147,12 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softc
 
 
 def decode_attention(q, k, v, valid_len, *, scale: float, softcap: float = 0.0,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, plan_batch: int = 0) -> torch.Tensor:
     """q (B,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv), valid_len (B,) int32 ->
     (B,H,Dv): attention of each query row over its keys ``< valid_len``
-    (the last ``window`` of them when ``window > 0``)."""
+    (the last ``window`` of them when ``window > 0``). ``plan_batch`` > 0
+    plans the splits as for a call of that batch (each row then splits as
+    it would in a call of ``plan_batch`` rows); 0 plans for B."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window)
     if q.device.type == "meta":
@@ -161,7 +164,7 @@ def decode_attention(q, k, v, valid_len, *, scale: float, softcap: float = 0.0,
     if k.shape[0] != q.shape[0]:
         raise ValueError("decode_attention: cache batch != q batch")
     out = _launch("decode_attention", q, k, v, valid_len, None,
-                  k.shape[1], 0, 0, scale, softcap, window)
+                  k.shape[1], 0, 0, scale, softcap, window, plan_batch)
     decode_attention.launches += 1
     return out
 

@@ -4,9 +4,7 @@ spec-first — fleets of N heterogeneous replicas behind pluggable routers,
 each replica holding its own energy-aware clock controller on one shared
 wall or virtual timeline (trace replay on the discrete-event engine, with
 an SLO-regulated DVFS loop). Exports the reference's names
-(``repro.serving``) but ``CacheBank``, ``BankRow`` and
-``clear_program_caches``: the port stacks no replica caches and keeps no
-program caches."""
+(``repro.serving``)."""
 from repro_torch.core.clock import VirtualClock
 from repro_torch.core.latency import LatencyLedger, LatencySummary, summarize_latency
 from repro_torch.core.traces import (
@@ -30,7 +28,13 @@ from repro_torch.serving.engine import EOS, PhaseStats, Request, ServingEngine
 from repro_torch.serving.events import EngineStats, EventDrivenFleet
 from repro_torch.serving.fleet import Fleet, Replica, Scheduler
 from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
-from repro_torch.serving.pool import Pool, params_token_for
+from repro_torch.serving.pool import (
+    BankRow,
+    CacheBank,
+    Pool,
+    clear_program_caches,
+    params_token_for,
+)
 from repro_torch.serving.prefix import PrefixHit, PrefixIndex, PrefixStats
 from repro_torch.serving.router import (
     ROUTERS,
@@ -58,6 +62,9 @@ __all__ = [
     "Request",
     "ServingEngine",
     "Pool",
+    "CacheBank",
+    "BankRow",
+    "clear_program_caches",
     "params_token_for",
     "Cluster",
     "Scheduler",

@@ -17,30 +17,47 @@ dependencies are ready. Consequences:
   and the autoscaler; a fast replica takes as many steps as fit in the
   time a slow one needs for one.
 * **Fused homogeneous decode.** Decode events that pop at the same virtual
-  time with the same model signature step in ONE fused dispatch: the
-  member pools' decode steps (each a replay of the pool's own CUDA graph on
-  a card) are issued back to back, and their tokens come back to the host
-  together. Each pool still samples from its own generator and keeps its
-  own accounting, so token streams are independent of grouping.
-* **Batched replica axis** (``batch_replicas``, default on). The
-  reference runs a fused group as one ``jax.vmap`` program over
-  replica-stacked caches kept in a ``CacheBank``. The port does not
-  restack: each pool's captured graph binds its own cache, and a padded
-  repeat would write the first member's cache twice. So the batched
-  dispatch issues the members' own steps and reads their tokens back in
-  ONE stacked transfer. Pad members are counted (``pad_waste``), never run.
-  ``batch_replicas=False`` is the tuple dispatch (one transfer per member),
-  the reference's tuple-of-K baseline. ``batch_layout="shard_map"`` (the
+  time with the same model signature step in ONE fused dispatch; each pool
+  still samples from its own generator and keeps its own accounting, so
+  token streams are independent of grouping.
+* **Batched replica axis** (``batch_replicas``, default on). A fused group
+  of K dense pools runs as ONE ``decode_step`` of batch ``p2 * B`` (p2 the
+  power of two at or above K) over a ``CacheBank``
+  (``repro_torch.serving.pool``): the members' caches stacked along the
+  batch, whose rows the member pools hold as ``BankRow`` views between
+  steps, so a stable group pays no restack and reads the weights once a
+  step (the reference's ``vmap`` over replica-stacked caches with the
+  params broadcast). On a card the bank's step is a CUDA graph of the
+  bank's own, captured at its second step. Three ways in, as in the
+  reference: *coherent* (every member views row j of one bank of size p2:
+  no copy), *gather* (every member views some row of one bank: the rows
+  are copied into another bank, ``bank_gathers``) and *rebuild* (rows on
+  several banks or in the pools' own caches: copied in,
+  ``bank_rebuilds``). A restack never writes a bank any pool still views;
+  before a coherent step, a pool outside the group that still views one of
+  the bank's pad rows with live slots copies its rows back into its own
+  cache first (the reference's step writes over them). Each member samples
+  its own slice of the logits, and the tokens come back in ONE stacked
+  transfer. Admission prefill is batched the same way: one ``prefill`` of
+  batch p over the group's stacked prompts (``batched_prefill_calls``),
+  whose rows are handed over as batch-1 cache rows. The fold is bitwise
+  equal to the member steps on the CPU, not on a card (the GEMMs run at
+  another M); the batched prefill is not bitwise even on the CPU (logits
+  within ~1e-6), so batched replays are held to equal tokens, not bits. A config with routed-MoE blocks runs the member steps even
+  under ``batch_replicas``: the capacity dispatch would couple the rows of
+  a folded batch, where the reference's ``vmap`` keeps one capacity per
+  replica. ``batch_replicas=False`` is the tuple dispatch: each member's
+  own step (its own graph on a card) and K batch-1 prefills, the
+  reference's tuple-of-K baseline. ``batch_layout="shard_map"`` (the
   replica axis over several devices) is dropped: the port serves on one
   card, and it raises.
 * **Fused admission prefill.** Admission events that pop at the same
   instant defer their prefills; the engine groups them by (config,
-  params, prompt bucket) and issues each group's K independent batch-1
-  prefills as one dispatch (never one batch-K prefill: another GEMM shape
-  gives other bits), then replays the per-request accounting (clock
-  advance, gauge bracketing, ledger stamps, sampling order, modelled
-  joules) in exactly the serial order. ``fuse_prefill=False`` is the
-  serial baseline.
+  params, prompt bucket) and issues each group as one dispatch (batched as
+  above, or K independent batch-1 prefills), then replays the per-request
+  accounting (clock advance, gauge bracketing, ledger stamps, sampling
+  order, modelled joules) in exactly the serial order.
+  ``fuse_prefill=False`` is the serial baseline.
 * **Fusion quantum.** ``fusion_quantum_s=q`` widens decode fusion from
   exact ties to consecutive decode events at the top of the heap inside
   ``[t, t+q)``; each pool still advances its own clock by its own step
@@ -52,22 +69,27 @@ completions < arrivals < admissions < decode steps < autoscaler timers)
 then by insertion sequence — the replay is a pure function of the trace.
 
 Scale plumbing: arrivals enter the heap LAZILY (one in flight, so the heap
-stays O(replicas)); fused group sizes bucket to powers of two, as the
-reference pads its programs (``pad_waste`` counts the pads); ``on_finish``
-streams finished requests (pair it with
-``repro_torch.serving.pool.release_request`` for a memory-flat replay);
-``EngineStats`` counts events, dispatches, fusion coverage and heap depth,
-and ``Fleet.last_engine_stats`` hands it to the benchmarks.
+stays O(replicas)); fused group sizes bucket to powers of two (pad rows of
+a bank run and are thrown away; a tuple dispatch counts its pads in
+``pad_waste`` and runs none); the per-engine program cache is a capped
+LRU (``fused_cache_cap``) over a process-wide one, whose bank sets (each
+(signature, p2)'s banks with their graphs) fresh engines over the same
+fleet shape reuse without capturing again, until
+``pool.clear_program_caches()``; ``on_finish`` streams finished requests
+(pair it with ``repro_torch.serving.pool.release_request`` for a
+memory-flat replay); ``EngineStats`` counts events, dispatches, fusion
+coverage and heap depth, and ``Fleet.last_engine_stats`` hands it to the
+benchmarks.
 
-``EngineStats`` has the reference's counters on the same replay, with
-these differences. The port has no jitted programs and no stacked bank, so
-it keeps none of the reference's counters of them: ``fused_traces``
-(programs built), ``bank_gathers`` / ``bank_rebuilds`` (bank re-stacks)
-and ``batched_prefill_calls`` (vmapped prefills), nor its
-``fused_cache_cap`` option. ``fused_decode_wall`` is wall seconds. Under
-``batch_replicas`` the reference's ``pool_jit_dispatches`` (with it
-``jit_dispatches``) also count the gathers that materialise a pool's row
-out of a bank, so the port's count is the tuple dispatch's.
+``EngineStats`` has the reference's counters, equal on the same replay:
+``fused_traces`` counts inserts into the per-engine cache under the
+reference's keys, and ``pool_jit_dispatches`` counts each bank row copied
+back into a pool's own cache as the reference counts its gathers.
+``fused_decode_wall`` is wall seconds. ``Fleet.last_batched_calls`` adds,
+per config, the replay's bank steps, their graph captures and replays and
+the kernel launches the replays ran (a capture puts the wrappers' counts
+back, as a pool's does), and its batched prefill calls with the requests
+they served: what a count of kernel launches needs.
 
 Semantics notes (parity with the barrier engine where timelines coincide):
 
@@ -87,16 +109,19 @@ Semantics notes (parity with the barrier engine where timelines coincide):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 import time
+from collections import Counter, OrderedDict
 from typing import (
     Any, Callable, Dict, List, Optional, Set, Tuple, TYPE_CHECKING,
 )
 
+import numpy as np
 import torch
 
 from repro_torch.serving.pool import (
-    Pool, Request, observe_latencies, requeue_front,
+    BankRow, CacheBank, Pool, Request, cache_rows, observe_latencies, requeue_front,
 )
 
 BATCH_LAYOUTS = ("vmap", "shard_map")
@@ -112,6 +137,57 @@ __all__ = ["EngineStats", "EventDrivenFleet"]
 PRIO_WARM, PRIO_ARRIVAL, PRIO_ADMIT, PRIO_DECODE, PRIO_SCALE = range(5)
 
 _EPS = 1e-12
+
+# Process-wide fused programs, keyed on what they depend on: for a decode
+# group the bank set of its (signature, p2) (the banks carry the graphs,
+# which bind their trees, the params and their static inputs), for a
+# batched prefill the eager call itself. The per-engine ``_fused_cache``
+# keeps the reference's capped-LRU bookkeeping on top, so a benchmark that
+# replays one fleet shape through several fresh engines captures each
+# bank's graph once per process, not once per engine. Capped LRU; it holds
+# the banks (and the weights their graphs bind) until evicted or
+# ``pool.clear_program_caches()``.
+_PROGRAM_CACHE_CAP = 128
+_PROGRAM_CACHE: "OrderedDict[Tuple[Any, ...], Any]" = OrderedDict()
+
+
+def _program(key: Tuple[Any, ...], make: Callable[[], Any]):
+    fn = _PROGRAM_CACHE.get(key)
+    if fn is None:
+        fn = _PROGRAM_CACHE[key] = make()
+        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
+            _PROGRAM_CACHE.popitem(last=False)
+    else:
+        _PROGRAM_CACHE.move_to_end(key)
+    return fn
+
+
+def _foldable(cfg) -> bool:
+    """Whether a group's rows may share one batch: every kind but routed
+    MoE, whose capacity dispatch ranks the tokens of the whole batch."""
+    return not any("moe" in k for k in cfg.block_kinds_flat())
+
+
+class _BankSet:
+    """The banks of one (decode signature, p2), each with its own graph.
+    ``acquire`` hands out a bank no pool views (so never one a pool
+    outside the new group still reads) and drops the other free ones, or
+    allocates a bank when none is free."""
+
+    def __init__(self, pool: Pool, size: int):
+        self.make = functools.partial(
+            CacheBank, pool.cfg, pool.params, size, pool.max_batch, pool.max_seq_len,
+            device=pool.device, cuda_graphs=pool.cuda_graphs)
+        self.banks: List[CacheBank] = []
+
+    def acquire(self) -> CacheBank:
+        free = [b for b in self.banks if not b.viewers]
+        for extra in free[1:]:
+            self.banks.remove(extra)
+        if free:
+            return free[0]
+        self.banks.append(self.make())
+        return self.banks[-1]
 
 
 @dataclasses.dataclass(slots=True)
@@ -132,10 +208,15 @@ class EngineStats:
     fused_decode_calls: int = 0        # multi-pool decode dispatches
     serial_decode_calls: int = 0       # one-pool decode dispatches
     batched_decode_calls: int = 0      # fused decode dispatches that ran
-                                       # batched (one stacked token read;
-                                       # subset of fused_decode_calls)
+                                       # as ONE step over a bank (subset of
+                                       # fused_decode_calls)
+    batched_prefill_calls: int = 0     # ditto for fused admission prefill
+    bank_gathers: int = 0              # churned groups re-stacked by a row
+                                       # gather off ONE bank
+    bank_rebuilds: int = 0             # batched groups re-stacked from
+                                       # mixed banks / pools' own caches
+    fused_traces: int = 0              # fused programs built (LRU inserts)
     pad_waste: int = 0                 # pow2 pad slots across fused calls
-                                       # (counted, never run)
     # measured wall seconds inside fused decode dispatches, keyed by the
     # pow2-padded group size as a string: size -> [calls, seconds]. Only
     # populated with ``time_dispatch=True`` (blocking on each dispatch
@@ -197,6 +278,7 @@ class EventDrivenFleet:
                  fusion_quantum_s: float = 0.0,
                  fuse_prefill: bool = True,
                  max_fused_group: int = 64,
+                 fused_cache_cap: int = 64,
                  batch_replicas: bool = True,
                  batch_layout: str = "vmap",
                  time_dispatch: bool = False,
@@ -222,8 +304,9 @@ class EventDrivenFleet:
         self.fuse_prefill = bool(fuse_prefill)
         # pow2 so chunk sizes bucket onto themselves
         self.max_fused_group = 1 << (int(max_fused_group) - 1).bit_length()
-        # batch_replicas=True (the default) reads each fused group's tokens
-        # in one stacked transfer; False is the tuple dispatch — the
+        self.fused_cache_cap = max(4, int(fused_cache_cap))
+        # batch_replicas=True (the default) steps each fused group as ONE
+        # decode step over a replica bank; False is the tuple dispatch — the
         # serial-fused byte-identity baseline
         self.batch_replicas = bool(batch_replicas)
         self.batch_layout = batch_layout
@@ -251,6 +334,12 @@ class EventDrivenFleet:
         self._admit_sched: Dict[str, int] = {r.name: 0 for r in fleet.replicas}
         self._warm_sched: Set[Tuple[str, float]] = set()
         self._scale_pending: Set[float] = set()
+        # capped LRU of fused programs, keyed (kind, sig, pow2 size, ...)
+        self._fused_cache: "OrderedDict[Tuple[Any, ...], Any]" = OrderedDict()
+        # per config name: bank steps, graph captures and replays, the
+        # launches the replays ran, batched prefill calls and the requests
+        # they served (``Fleet.last_batched_calls``)
+        self._batched_calls: Dict[str, Dict[str, Any]] = {}
         self._steps = 0
         # lazy arrival feed: one trace arrival in the heap at a time
         self._trace: List[Any] = []
@@ -301,6 +390,19 @@ class EventDrivenFleet:
             self._next_arrival = i + 1
             self._push(self._t_start + self._trace[i].arrival_s,
                        PRIO_ARRIVAL, "arrival", i)
+
+    def _fused_fn(self, key: Tuple[Any, ...], build: Callable[[], Any]):
+        """Capped-LRU lookup of a fused program."""
+        cache = self._fused_cache
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = build()
+            self.stats.fused_traces += 1
+            while len(cache) > self.fused_cache_cap:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        return fn
 
     @staticmethod
     def _pow2(n: int) -> int:
@@ -432,6 +534,7 @@ class EventDrivenFleet:
             st.saved_prefill_j = ps.saved_prefill_j
             st.prefix_stats = ps.as_dict()
             fleet.last_engine_stats = st
+            fleet.last_batched_calls = self._batched_calls
         return done
 
     # --------------------------------------------------------------- arrivals
@@ -622,7 +725,8 @@ class EventDrivenFleet:
         for sig in order:
             items = groups[sig]
             for i in range(0, len(items), self.max_fused_group):
-                self._prefill_fused_chunk(items[i:i + self.max_fused_group], results)
+                self._prefill_fused_chunk(sig, items[i:i + self.max_fused_group],
+                                          results)
         for pp, req, entry, hit, dp in jobs:
             if hit is not None:
                 first, cache1 = pp.prefill_request(req, shared=hit, donor=dp)
@@ -637,17 +741,38 @@ class EventDrivenFleet:
             st.prefills += 1
 
     @torch.inference_mode()
-    def _prefill_fused_chunk(self, items, results: Dict[int, Any]):
-        """One fused prefill dispatch: the chunk's K independent batch-1
-        bucketed prefills issued back to back with no host read in between
-        — the same computations as the serial ``prefill_row`` calls, only
-        the dispatch is shared. The pow2 padding of the reference's program
-        is counted (``pad_waste``), not run."""
+    def _prefill_fused_chunk(self, sig, items, results: Dict[int, Any]):
+        """One fused prefill dispatch of K requests, pow2-padded to p.
+
+        With ``batch_replicas`` ONE ``prefill`` of batch p over the stacked
+        (p, bucket) prompts and true lengths, the pad rows repeating row 0
+        (thrown away); each request's logits row and cache rows (views of
+        the batch's cache) are handed over as a batch-1 result. Without it
+        (or for a routed-MoE config, ``_foldable``) the K batch-1 prefills
+        are issued back to back with no host read in between — the same
+        computations as the serial ones; its pads are counted, not run."""
         st = self.stats
+        k = len(items)
+        p = self._pow2(k)
+        pp0, toks0, len0, _, _ = items[0]
+        # the reference's program-cache entry (``fused_traces`` counts it);
+        # the port's program is the eager prefill itself
+        fn = self._fused_fn(("prefill", sig, p), lambda: Pool.prefill_rows)
+        if self.batch_replicas and _foldable(pp0.cfg):
+            toks = np.concatenate([it[1] for it in items] + [toks0] * (p - k))
+            lens = np.concatenate([it[2] for it in items] + [len0] * (p - k))
+            logits, cache = fn(pp0, toks, lens)
+            for i, it in enumerate(items):
+                results[id(it[4])] = (logits[i:i + 1], cache_rows(cache, i, i + 1))
+            st.batched_prefill_calls += 1
+            ent = self._batched(pp0.cfg.name)
+            ent["prefill_calls"] += 1
+            ent["prefill_requests"] += k
+        else:
+            for pp, toks, true_len, _, entry in items:
+                results[id(entry)] = fn(pp, toks, true_len)
         st.fused_prefill_calls += 1
-        st.pad_waste += self._pow2(len(items)) - len(items)
-        for pp, toks, true_len, _, entry in items:
-            results[id(entry)] = pp.prefill_row(toks, true_len)
+        st.pad_waste += p - k
 
     def _flush(self, r: "Replica"):
         """Place pending prefilled rows whose handoff time the decode
@@ -754,7 +879,7 @@ class EventDrivenFleet:
             groups.setdefault(sig, []).append(r)
         for sig, rs in groups.items():
             if not sig[2] and len(rs) >= self.fast_path_min:
-                finished_by.update(self._decode_fused(rs))
+                finished_by.update(self._decode_fused(sig, rs))
             else:
                 for r in rs:
                     finished_by[r.name] = r.decode_pool.decode_once()
@@ -762,32 +887,28 @@ class EventDrivenFleet:
         return finished_by
 
     @torch.inference_mode()
-    def _decode_fused(self, reps: List["Replica"]) -> Dict[str, List[Request]]:
+    def _decode_fused(self, sig, reps: List["Replica"]) -> Dict[str, List[Request]]:
         """Fused steps over K homogeneous dense pools, in chunks of
-        ``max_fused_group`` whose sizes bucket to powers of two (the
-        padding is counted, never run). Each pool's sampling and
-        accounting are byte for byte the per-pool path's — only the
-        dispatch is shared: every member's step (a replay of its own graph
-        on a card) and sampling are issued back to back, then
-        ``batch_replicas`` (default) reads the chunk's tokens in one
-        stacked transfer, and the tuple path (``batch_replicas=False``)
-        reads each member's tokens on its own."""
+        ``max_fused_group`` whose sizes bucket to powers of two. Each
+        pool's sampling and accounting are byte for byte the per-pool
+        path's — only the dispatch is shared. ``batch_replicas`` (default)
+        runs each chunk as ONE step over a replica bank
+        (``_decode_chunk_batched``); the tuple path
+        (``batch_replicas=False``, and routed-MoE configs) issues each
+        member's own step (``_decode_chunk_tuple``)."""
         st = self.stats
         pools = [r.decode_pool for r in reps]
-        pres = [p._decode_begin() for p in pools]
+        batched = self.batch_replicas and _foldable(pools[0].cfg)
+        pres = [p._decode_begin(keep_view=batched) for p in pools]
         finished: Dict[str, List[Request]] = {}
         for i in range(0, len(reps), self.max_fused_group):
             chunk_pools = pools[i:i + self.max_fused_group]
             chunk_pres = pres[i:i + self.max_fused_group]
-            p2 = self._pow2(len(chunk_pools))
             t0 = time.perf_counter()
-            toks = [p._sample(*p._run_decode_fn(), pre["temps"])
-                    for p, pre in zip(chunk_pools, chunk_pres)]
-            if self.batch_replicas:
-                outs = list(torch.stack(toks).cpu().numpy())
-                st.batched_decode_calls += 1
+            if batched:
+                outs, p2 = self._decode_chunk_batched(sig, chunk_pools, chunk_pres)
             else:
-                outs = [t.cpu().numpy() for t in toks]
+                outs, p2 = self._decode_chunk_tuple(sig, chunk_pools, chunk_pres)
             if self.time_dispatch:              # the tokens are on the host by now
                 ent = st.fused_decode_wall.setdefault(str(p2), [0, 0.0])
                 ent[0] += 1
@@ -798,6 +919,143 @@ class EventDrivenFleet:
                                       chunk_pools, chunk_pres, outs):
                 finished[r.name] = p._decode_finish(pre, out)
         return finished
+
+    def _decode_chunk_tuple(self, sig, pools: List[Pool],
+                            pres: List[dict]) -> Tuple[List[Any], int]:
+        """The members' own steps (each a replay of its own graph on a
+        card) issued back to back, each member's tokens read on its own."""
+        p2 = self._pow2(len(pools))
+        # the reference's program-cache entry; the program is each pool's step
+        step = self._fused_fn(("decode", sig, p2), lambda: Pool._run_decode_fn)
+        toks = [p._sample(*step(p), pre["temps"]) for p, pre in zip(pools, pres)]
+        return [t.cpu().numpy() for t in toks], p2
+
+    def _bank_coherent(self, pools: List[Pool], p2: int) -> Optional[CacheBank]:
+        """The chunk's bank, if every member still views row j of ONE bank
+        of exactly this pow2 size: last step's bank IS this step's input."""
+        c0 = pools[0].cache
+        if not isinstance(c0, BankRow) or c0.bank.size != p2 or c0.index != 0:
+            return None
+        bank = c0.bank
+        for j, p in enumerate(pools[1:], start=1):
+            c = p.cache
+            if not isinstance(c, BankRow) or c.bank is not bank or c.index != j:
+                return None
+        return bank
+
+    @staticmethod
+    def _bank_rows_common(pools: List[Pool]):
+        """(bank, row indices) if every member views SOME row of one common
+        bank, in any order: the membership-churn shape."""
+        c0 = pools[0].cache
+        if not isinstance(c0, BankRow):
+            return None
+        bank = c0.bank
+        idx = [c0.index]
+        for p in pools[1:]:
+            c = p.cache
+            if not isinstance(c, BankRow) or c.bank is not bank:
+                return None
+            idx.append(c.index)
+        return bank, idx
+
+    @staticmethod
+    def _copy_rows(dst: CacheBank, src_tree, src_rows: List[int], dst_rows: List[int]):
+        """Member rows ``src_rows`` of ``src_tree`` (each ``dst.batch`` rows
+        of every leaf) into member rows ``dst_rows`` of ``dst``: one gather
+        and one scatter a leaf."""
+        b = dst.batch
+        src_i = torch.tensor([i * b + s for i in src_rows for s in range(b)],
+                             device=dst.device)
+        dst_i = torch.tensor([i * b + s for i in dst_rows for s in range(b)],
+                             device=dst.device)
+        for sc, dc in zip(src_tree["stages"], dst.tree["stages"]):
+            for name, blk in sc.items():
+                for key, t in blk.items():
+                    dc[name][key].index_copy_(1, dst_i, t.index_select(1, src_i))
+
+    def _decode_chunk_batched(self, sig, pools: List[Pool],
+                              pres: List[dict]) -> Tuple[List[Any], int]:
+        """ONE decode step of batch ``p2 * B`` over a replica bank: member j
+        at rows ``[j * B, (j + 1) * B)``, pad members (p2 - K of them) on
+        the bank's own rows with member 0's tokens and lengths, their
+        results thrown away.
+
+        Coherent path — the members already view rows 0..K-1 of one bank of
+        size p2: the step runs on it in place, so a stable group pays no
+        restack; a pool outside the group that still views a pad row and
+        holds live slots copies its rows back into its own cache first.
+        Gather path — every member views some row of one bank: those rows
+        are copied into a bank no pool views (``bank_gathers``), the source
+        left as it is for the pools that left the group. Rebuild path —
+        rows on several banks or in the pools' own caches: copied in the
+        same way (``bank_rebuilds``), counting one dispatch per source bank
+        on its first member, as the reference counts its row gathers.
+
+        Each member samples its own logits slice with its own generator and
+        temperatures; the tokens come back in ONE stacked transfer, and
+        every member's cache becomes a ``BankRow`` of the bank."""
+        st = self.stats
+        k = len(pools)
+        p2 = self._pow2(k)
+        pool0 = pools[0]
+
+        def bank_set():
+            return _program(("bank", sig, p2, pool0.cuda_graphs),
+                            lambda: _BankSet(pool0, p2))
+
+        bank = self._bank_coherent(pools, p2)
+        if bank is not None:
+            self._fused_fn(("decode", sig, p2), bank_set)
+            group = set(pools)
+            for p in list(bank.viewers):
+                if p not in group and p.occupancy() > 0:
+                    p.materialize_cache()
+        elif (common := self._bank_rows_common(pools)) is not None:
+            src, idx = common
+            bank = self._fused_fn(("decode_gather", sig, p2, src.size), bank_set).acquire()
+            self._copy_rows(bank, src.tree, idx, list(range(k)))
+            st.bank_gathers += 1
+        else:
+            bank = self._fused_fn(("decode_restack", sig, p2), bank_set).acquire()
+            sources: Dict[CacheBank, List[int]] = {}
+            for j, p in enumerate(pools):
+                c = p.cache
+                if isinstance(c, BankRow):
+                    sources.setdefault(c.bank, []).append(j)
+                else:
+                    self._copy_rows(bank, c, [0], [j])
+            for src, js in sources.items():
+                pools[js[0]].jit_dispatches += 1
+                self._copy_rows(bank, src.tree, [pools[j].cache.index for j in js], js)
+            st.bank_rebuilds += 1
+        pad = [pool0] * (p2 - k)
+        replays = bank.graph_replays
+        logits, greedy = bank.decode(
+            np.concatenate([p._host_cur_token for p in pools + pad]),
+            np.concatenate([p._host_lengths for p in pools + pad]))
+        self._count_bank_step(bank, replays)
+        b = pool0.max_batch
+        toks = [p._sample(logits[j * b:(j + 1) * b], greedy[j * b:(j + 1) * b], pre["temps"])
+                for j, (p, pre) in enumerate(zip(pools, pres))]
+        for j, p in enumerate(pools):
+            p.cache = BankRow(bank, j)
+            p.bank_steps += 1
+        st.batched_decode_calls += 1
+        return list(torch.stack(toks).cpu().numpy()), p2
+
+    def _batched(self, cfg_name: str) -> Dict[str, Any]:
+        return self._batched_calls.setdefault(cfg_name, {
+            "decode_steps": 0, "captures": 0, "replays": 0, "replay_launches": Counter(),
+            "prefill_calls": 0, "prefill_requests": 0})
+
+    def _count_bank_step(self, bank: CacheBank, replays_before: int) -> None:
+        ent = self._batched(bank.cfg.name)
+        ent["decode_steps"] += 1
+        if bank.graph_replays > replays_before:
+            ent["replays"] += 1
+            ent["captures"] += replays_before == 0
+            ent["replay_launches"].update(bank.captured_launches)
 
     # ------------------------------------------------------ warm / autoscaler
     def _schedule_warm(self, r: "Replica"):

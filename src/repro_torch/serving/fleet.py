@@ -265,13 +265,15 @@ class Replica:
         params: Any = None,
         meter_interval_s: float = 0.050,
         device="cuda",
+        cfg: Any = None,
     ) -> "Replica":
         """Build a live replica from a declarative spec. ``params`` may be
         shared across replicas of the same arch; when omitted they are
         initialised from ``spec.rng_seed`` through a ``torch.Generator`` on
         ``device`` (other values than the reference's ``jax.random`` init).
         The controller's policy table always resolves the FULL config;
-        ``spec.reduced`` only picks the config the pools execute."""
+        ``spec.reduced`` only picks the config the pools execute, and
+        ``cfg`` overrides that pick (another dtype of the same model)."""
         import torch
 
         from repro_torch.configs import get_config, reduced_config
@@ -282,7 +284,8 @@ class Replica:
 
         emodel = emodel if emodel is not None else EnergyModel(H200_SXM)
         full = get_config(spec.arch)
-        cfg = reduced_config(spec.arch) if spec.reduced else full
+        if cfg is None:
+            cfg = reduced_config(spec.arch) if spec.reduced else full
         if params is None:
             dev = resolve_device(device)
             params = init_params(cfg, torch.Generator(dev).manual_seed(spec.rng_seed),
@@ -525,6 +528,8 @@ class Fleet:
         # until run_trace(engine="events") completes) — what the serving
         # benchmarks write into their JSON artifacts
         self.last_engine_stats = None
+        # and its batched calls (bank steps, prefills) per config
+        self.last_batched_calls = None
         names = [r.name for r in self.replicas]
         if len(set(names)) != len(names):
             raise ValueError(f"replica names must be unique, got {names}")
@@ -596,6 +601,7 @@ class Fleet:
         params_for: Optional[Mapping[str, Any]] = None,
         meter_interval_s: float = 0.050,
         device="cuda",
+        configs: Optional[Mapping[str, Any]] = None,
     ) -> "Fleet":
         """Build N live replicas + the router from a declarative spec.
 
@@ -603,7 +609,8 @@ class Fleet:
         trace-replay-first); ``params_for`` maps arch name -> params so
         same-arch replicas (and repeated builds in a benchmark) can share
         one initialisation instead of paying it per replica. ``device`` goes
-        to every replica's pools.
+        to every replica's pools; ``configs`` maps arch name -> the config
+        its pools run, where it is not the spec's pick (``Replica.from_spec``).
         """
         if clock is None:
             # TWO VirtualClocks per replica — decode and prefill are
@@ -615,12 +622,13 @@ class Fleet:
         else:
             clock_pairs = [(clock, clock)] * len(spec.replicas)
         params_for = params_for or {}
+        configs = configs or {}
         replicas = [
             Replica.from_spec(
                 rs, emodel=emodel, clock=c, prefill_clock=pc,
                 params=params_for.get(rs.arch),
                 meter_interval_s=meter_interval_s,
-                device=device,
+                device=device, cfg=configs.get(rs.arch),
             )
             for rs, (c, pc) in zip(spec.replicas, clock_pairs)
         ]

@@ -36,8 +36,9 @@ own cache, parameter and buffer addresses: nothing may reallocate them
 (``defrag`` moves pages in place). ``cuda_graphs=False`` runs the step
 eagerly on the card, as the comparison for the graph; on the CPU the
 function is always called directly. ``jit_dispatches`` counts one per
-prefill, ``place`` / ``place_many``, decode step and copy-on-write split, as
-the reference counts its dispatches.
+prefill, ``place`` / ``place_many``, decode step, copy-on-write split and
+bank row copied back (``materialize_cache``), as the reference counts its
+dispatches.
 
 Prefix sharing (``prefix_sharing=True``, paged attention-family pools
 only), as in the reference: a ``PrefixIndex`` holds refcounted pages of
@@ -51,15 +52,25 @@ copying them. A shared page is never written: before a decode step
 pages in place, on the stream the graph replays on, so a captured decode
 step keeps every address it bound.
 
+Replica banks, as in the reference: the event engine's batched fused
+decode keeps the dense caches of a fused group in one ``CacheBank`` (one
+cache of batch ``size * max_batch``, member ``j``'s rows at ``[:, j * B:
+(j + 1) * B]`` of every leaf) and steps them all with ONE ``decode_step``,
+a CUDA graph of the bank's own on a card. Between steps a member pool's
+``cache`` is a ``BankRow``: a cache tree of views of its rows, so
+``place`` / ``place_many`` write straight through to the bank. The pool
+keeps its own cache beside it (the tensors its graph binds);
+``materialize_cache`` copies the rows back into those tensors when the
+pool steps on its own again.
+
 Differences from the reference: caches are updated in place; the bucketed
 prefill runs eagerly (no graph per bucket yet); greedy sampling is
 ``argmax`` (first maximum, as ``jnp.argmax``), and a temperature above 0
 samples from the pool's own ``torch.Generator``, outside the step, which
-gives other bits than ``jax.random``. There is no replica ``CacheBank``:
-a pool keeps its own cache, which its captured graph binds, and the event
-engine's fused decode steps the member pools one by one. The reference's
-process-wide program caches (and ``clear_program_caches``) have no
-counterpart: prefill and placement run eagerly.
+gives other bits than ``jax.random``. The process-wide program cache that
+``clear_program_caches`` empties holds the event engine's banks and their
+graphs (the reference's holds jitted programs); prefill and placement run
+eagerly, so there is no per-pool program cache.
 """
 from __future__ import annotations
 
@@ -156,6 +167,148 @@ def _leaves(cache, layout):
         for name, blk in sc.items():
             for key in blk:
                 yield blk, key, sl[name][key]
+
+
+def cache_rows(cache, start: int, stop: int) -> Dict:
+    """Views of batch rows ``[start, stop)`` of a dense cache tree (every
+    leaf has its batch on dim 1)."""
+    return {"stages": [{name: {key: t[:, start:stop] for key, t in blk.items()}
+                        for name, blk in sc.items()} for sc in cache["stages"]]}
+
+
+def clear_program_caches() -> None:
+    """Drop the event engine's process-wide program cache: the replica
+    banks of each (decode signature, group size) with their CUDA graphs,
+    and the batched-prefill entries. Benchmark sweeps call this between
+    sweep points so each point pays its own captures instead of riding
+    (and retaining) the previous point's. A bank a live pool still views
+    stays alive with that pool, so clearing never breaks an engine
+    mid-replay: the next restack takes a new bank."""
+    from repro_torch.serving import events as _events
+    _events._PROGRAM_CACHE.clear()
+
+
+# ---------------------------------------------------------------------------
+# The decode step as a CUDA graph: the pool's own step and a replica bank's.
+class _GraphedStep:
+    """A decode step over static buffers (``_decode_fn``, given by the
+    subclass, which sets ``device`` first): eager on the CPU and with
+    ``cuda_graphs`` off; on a card eager at the first step (on the side
+    stream the graph is captured on), captured at the second and replayed
+    from then on. A failed capture or replay raises."""
+
+    def _init_graph(self, cuda_graphs: bool) -> None:
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._decode_steps_run = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._graph_stream = None
+        self.graph_replays = 0
+        self.captured_launches: dict = {}   # counted wrapper -> launches per replay
+        self.graph_capture_ms = 0.0
+
+    def _run_decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        self._decode_steps_run += 1
+        if not self.cuda_graphs:
+            return self._decode_fn()
+        if self._graph is None:
+            if self._graph_stream is None:
+                self._graph_stream = torch.cuda.Stream(self.device)
+            side, main = self._graph_stream, torch.cuda.current_stream(self.device)
+            if self._decode_steps_run == 1:
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    out = self._decode_fn()
+                main.wait_stream(side)
+                return out
+            self._capture(side)
+        self._graph.replay()
+        self.graph_replays += 1
+        return self._graph_out
+
+    def _capture(self, stream) -> None:
+        """Capture ``_decode_fn`` into the graph. Capture records and runs
+        nothing, so the counted kernel wrappers' launch counts are put back
+        where they were, and how far each moved is kept as the launches of
+        one replay (``captured_launches``)."""
+        t0 = time.perf_counter()
+        before = {fn.__name__: fn.launches for fn in COUNTED_KERNELS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._decode_fn()
+        self.captured_launches = {fn.__name__: fn.launches - before[fn.__name__]
+                                  for fn in COUNTED_KERNELS}
+        for fn in COUNTED_KERNELS:
+            fn.launches = before[fn.__name__]
+        self._graph, self._graph_out = graph, out
+        self.graph_capture_ms = (time.perf_counter() - t0) * 1e3
+
+
+class CacheBank(_GraphedStep):
+    """The dense caches of one batched fused-decode group: one
+    ``init_cache`` tree of batch ``size * batch`` (``size`` a power of two),
+    member ``j``'s ``batch`` rows at ``[:, j * batch:(j + 1) * batch]`` of
+    every leaf. Rows past the members' are pad rows: a step runs them with
+    member 0's tokens and lengths and its results there are thrown away.
+
+    ``decode`` is ONE ``decode_step`` over the whole tree from static token
+    and length buffers, like a pool's step, and on a card a CUDA graph of
+    the bank's own (eager first, captured at the second step, replayed
+    after). The graph binds the tree, so the tree is never reallocated: a
+    restack copies rows into it. ``viewers`` are the live pools whose
+    ``cache`` is a ``BankRow`` of this bank."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, size: int, batch: int,
+                 max_seq_len: int, *, device, cuda_graphs: bool = True):
+        self.cfg, self.params = cfg, params
+        self.size, self.batch = size, batch
+        self.device = resolve_device(device)
+        self.tree = init_cache(cfg, size * batch, max_seq_len, device=self.device)
+        self.viewers: "weakref.WeakSet[Pool]" = weakref.WeakSet()
+        on_card = self.device.type == "cuda"
+        n = size * batch
+        self._step_host = {k: torch.zeros(n, dtype=torch.int32, pin_memory=on_card)
+                           for k in ("tokens", "lengths")}
+        self._step_in = ({k: torch.zeros(n, dtype=torch.int32, device=self.device)
+                          for k in self._step_host} if on_card else self._step_host)
+        self._init_graph(cuda_graphs)
+
+    def rows(self, index: int) -> Dict:
+        """Views of member ``index``'s rows of every leaf."""
+        return cache_rows(self.tree, index * self.batch, (index + 1) * self.batch)
+
+    def _decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        s = self._step_in
+        logits, _, _ = decode_step(self.params, self.cfg, s["tokens"], self.tree,
+                                   s["lengths"])
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def decode(self, tokens: np.ndarray, lengths: np.ndarray
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step of every row: (logits (size * batch, V) fp32, greedy).
+        The staging buffers are written again only after the previous
+        step's tokens were read back, as a pool's are."""
+        host = self._step_host
+        host["tokens"].numpy()[:] = tokens
+        host["lengths"].numpy()[:] = lengths
+        if self._step_in is not host:
+            for key, dst in self._step_in.items():
+                dst.copy_(host[key], non_blocking=True)
+        return self._run_decode_fn()
+
+
+class BankRow(dict):
+    """A member pool's cache between batched steps: row ``index`` of
+    ``bank``, as a cache tree (``{"stages": ...}``) whose leaves are views
+    of that member's rows, so the pool's own indexing writes through to
+    the bank."""
+
+    __slots__ = ("bank", "index")
+
+    def __init__(self, bank: CacheBank, index: int):
+        super().__init__(bank.rows(index))
+        self.bank = bank
+        self.index = index
 
 
 # -------------------------------------------------------- queue primitives
@@ -394,7 +547,7 @@ def observe_latencies(controller, pool: "Pool", admitted: List[Request],
     )
 
 
-class Pool:
+class Pool(_GraphedStep):
     """Slot pool + model calls + phase/energy accounting for one phase."""
 
     def __init__(
@@ -451,8 +604,12 @@ class Pool:
         self._measured_j_total = 0.0
 
         # the decode cache allocates lazily on first placement, so a
-        # prefill-role pool never holds an unused stacked KV cache
-        self.cache = None
+        # prefill-role pool never holds an unused stacked KV cache. Between
+        # batched fused steps ``cache`` is a ``BankRow``; ``_own_cache`` is
+        # the pool's own cache all the same (its graph binds it)
+        self._cache = None
+        self._own_cache = None
+        self.bank_steps = 0                 # decode steps taken inside a bank
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.peak_occupancy = 0
         # sampling draws (temperature > 0) come from this generator only
@@ -519,16 +676,42 @@ class Pool:
         # the decode step's static buffers (allocated with the cache) and,
         # on a card, its CUDA graph: captured at the second decode step,
         # replayed at every later one
-        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self._step_host: dict = {}          # staging (pinned on a card)
         self._step_in: dict = {}            # what the step reads
-        self._decode_steps_run = 0
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        self._graph_stream = None
-        self.graph_replays = 0
-        self.captured_launches: dict = {}   # counted wrapper -> launches per replay
-        self.graph_capture_ms = 0.0
+        self._init_graph(cuda_graphs)
+
+    # ----------------------------------------------------- bank-view cache
+    @property
+    def cache(self):
+        return self._cache
+
+    @cache.setter
+    def cache(self, value) -> None:
+        # a bank knows which pools view it: a restack never takes a bank
+        # some pool still reads
+        if isinstance(self._cache, BankRow):
+            self._cache.bank.viewers.discard(self)
+        if isinstance(value, BankRow):
+            value.bank.viewers.add(self)
+        self._cache = value
+
+    def cache_is_view(self) -> bool:
+        return isinstance(self._cache, BankRow)
+
+    @torch.inference_mode()
+    def materialize_cache(self) -> None:
+        """Copy a ``BankRow`` view's rows into this pool's own cache (the
+        tensors its graph binds, never new ones) and hold that again,
+        counted as one dispatch as the reference counts its gather. No-op
+        when the cache is the pool's own."""
+        row = self._cache
+        if not isinstance(row, BankRow):
+            return
+        for (dst, key, _), (src, _, _) in zip(_leaves(self._own_cache, self._layout),
+                                              _leaves(row, self._layout)):
+            dst[key].copy_(src[key])
+        self.cache = self._own_cache
+        self.jit_dispatches += 1
 
     # ------------------------------------------------------------- internals
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -664,16 +847,17 @@ class Pool:
         return float(self._host_lengths[mask].mean())
 
     def _ensure_decode_state(self):
-        if self.cache is None:
+        if self._cache is None:
             if self.paged:
-                self.cache = init_paged_cache(
+                self._own_cache = init_paged_cache(
                     self.cfg, self.max_batch,
                     self.allocator.num_blocks + 1,   # + the null page
                     self.kv_block_size, device=self.device,
                 )
             else:
-                self.cache = init_cache(self.cfg, self.max_batch, self.max_seq_len,
-                                        device=self.device)
+                self._own_cache = init_cache(self.cfg, self.max_batch, self.max_seq_len,
+                                             device=self.device)
+            self.cache = self._own_cache
             self._alloc_step_buffers()
 
     def _alloc_step_buffers(self):
@@ -968,10 +1152,13 @@ class Pool:
         toks[0, :l] = req.prompt
         return toks, np.asarray([l], np.int32), bucket
 
-    def prefill_row(self, toks: np.ndarray, true_len: np.ndarray) -> Tuple[Any, Any]:
-        """The bucketed batch-1 prefill itself: (logits (1, V), cache row)
-        of ``prefill_tokens``' triple, with no accounting."""
-        cache1 = init_cache(self.cfg, 1, self.max_seq_len, device=self.device)
+    def prefill_rows(self, toks: np.ndarray, true_len: np.ndarray) -> Tuple[Any, Any]:
+        """The bucketed prefill itself, with no accounting: (logits (n, V),
+        cache of batch n) of ``n`` padded prompts (``toks`` (n, bucket),
+        ``true_len`` (n,)). A request's own prefill is batch 1
+        (``prefill_tokens``' triple); the event engine's batched admission
+        prefills a group's prompts in one call."""
+        cache1 = init_cache(self.cfg, toks.shape[0], self.max_seq_len, device=self.device)
         logits, cache1, _ = prefill(self.params, self.cfg, self._tensor(toks), cache1,
                                     prompt_lengths=self._tensor(true_len))
         return logits, cache1
@@ -1012,7 +1199,7 @@ class Pool:
                 logits, cache1 = dp.shared_prefill(self.params, toks, true_len, shared)
                 self.jit_dispatches += 1
             else:
-                logits, cache1 = self.prefill_row(*self.prefill_tokens(req)[:2])
+                logits, cache1 = self.prefill_rows(*self.prefill_tokens(req)[:2])
                 self.jit_dispatches += 1
             row = logits[0]
             if req.temperature > 0.0:
@@ -1080,7 +1267,9 @@ class Pool:
         blocks to the null page, which holds nothing anyone reads, so they
         are skipped here. Every copy writes into the cache's own storage,
         on the current stream: a captured decode graph reads these very
-        tensors. ``first_token_s`` overrides the first-token stamp: with
+        tensors. A ``BankRow`` cache is a tree of views of the bank, so the
+        copy writes through to the bank, as the reference's bank scatter
+        does. ``first_token_s`` overrides the first-token stamp: with
         per-pool clocks the prefill timeline produced the token at its own
         time.
 
@@ -1137,7 +1326,8 @@ class Pool:
         calls — only the K copies fuse (distinct slots, so the final cache
         is the same). Exactly the K rows are scattered: the reference pads
         to a power of two to reuse a jitted program, which eager PyTorch
-        has none of. Paged pools fall back to sequential ``place`` (block
+        has none of. A ``BankRow`` cache takes the rows through its views,
+        into the bank. Paged pools fall back to sequential ``place`` (block
         allocation is request-granular)."""
         if self.paged or len(items) == 1:
             return [self.place(req, cache1, first, length, first_token_s=ts)
@@ -1156,12 +1346,17 @@ class Pool:
     def _req_eos(self, req: Request) -> int:
         return self.eos_token_id if req.eos_token_id is None else req.eos_token_id
 
-    def _decode_begin(self) -> Optional[dict]:
+    def _decode_begin(self, *, keep_view: bool = False) -> Optional[dict]:
         """Host-side first half of ``decode_once``: block-table growth,
         copy-on-write splits, active mask, and the host mirrors copied into
         the step's static inputs. ``None`` when no slot is live. The event
         engine composes this with ``_run_decode_fn`` and ``_decode_finish``
-        to step many pools in one fused dispatch."""
+        to step many pools in one fused dispatch.
+
+        A cache held as a ``BankRow`` view is materialised here by default,
+        so that the pool's own step reads its own cache; the batched engine
+        path passes ``keep_view=True``, steps the bank itself and reads the
+        host mirrors, so nothing is shipped to the pool's inputs."""
         if self.paged and any(r is not None for r in self.slot_req):
             self._grow_tables()
             if self._prefix is not None:
@@ -1169,8 +1364,12 @@ class Pool:
         active = self.active_mask()
         if not active.any():
             return None
+        if not keep_view:
+            self.materialize_cache()
         self._ensure_decode_state()
         t0 = self.clock()
+        if keep_view:
+            return {"active": active, "t0": t0, "temps": self._slot_temp.copy()}
         # ship the host mirrors once per step (placements only wrote numpy).
         # The staging buffers are written again only after the step's
         # result was read back (``_decode_finish`` waits for the device),
@@ -1198,46 +1397,6 @@ class Pool:
             logits, _, _ = decode_step(self.params, self.cfg, s["tokens"], self.cache,
                                        s["lengths"])
         return logits, torch.argmax(logits, dim=-1).to(torch.int32)
-
-    def _run_decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One decode step: eager on the CPU and with ``cuda_graphs=False``;
-        on a card, eager at the pool's first step (on the side stream the
-        graph is captured on), captured at its second and replayed from
-        then on. A failed capture or replay raises."""
-        self._decode_steps_run += 1
-        if not self.cuda_graphs:
-            return self._decode_fn()
-        if self._graph is None:
-            if self._graph_stream is None:
-                self._graph_stream = torch.cuda.Stream(self.device)
-            side, main = self._graph_stream, torch.cuda.current_stream(self.device)
-            if self._decode_steps_run == 1:
-                side.wait_stream(main)
-                with torch.cuda.stream(side):
-                    out = self._decode_fn()
-                main.wait_stream(side)
-                return out
-            self._capture(side)
-        self._graph.replay()
-        self.graph_replays += 1
-        return self._graph_out
-
-    def _capture(self, stream) -> None:
-        """Capture ``_decode_fn`` into the pool's graph. Capture records and
-        runs nothing, so the counted kernel wrappers' launch counts are put
-        back where they were, and how far each moved is kept as the
-        launches of one replay (``captured_launches``)."""
-        t0 = time.perf_counter()
-        before = {fn.__name__: fn.launches for fn in COUNTED_KERNELS}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            out = self._decode_fn()
-        self.captured_launches = {fn.__name__: fn.launches - before[fn.__name__]
-                                  for fn in COUNTED_KERNELS}
-        for fn in COUNTED_KERNELS:
-            fn.launches = before[fn.__name__]
-        self._graph, self._graph_out = graph, out
-        self.graph_capture_ms = (time.perf_counter() - t0) * 1e3
 
     @torch.inference_mode()
     def decode_once(self) -> List[Request]:

@@ -1079,9 +1079,11 @@ def test_cow_guard_is_what_keeps_shared_pages_unwritten():
 @pytest.mark.gpu
 def test_fused_event_replay_equals_serial_on_the_card():
     """A 4-replica reduced gemma-2b fleet (fp32, the reduced config's own
-    dtype; one weight set) on the event engine: the batched dispatch, the tuple dispatch and the serial
-    engine replay byte-identically, every decode pool steps through its
-    own captured graph, and the launch invariant holds across the pools."""
+    dtype; one weight set) on the event engine: the batched dispatch (one
+    step over a replica bank, its own graph), the tuple dispatch and the
+    serial engine replay byte-identically; every decode pool replays its
+    own graph at each of its own steps but the first, and kernel 1
+    launches layers x (the pools' own steps + the bank steps)."""
     _need_card()
     from repro_torch.core.energy import EnergyModel
     from repro_torch.core.traces import TracedRequest
@@ -1110,11 +1112,14 @@ def test_fused_event_replay_equals_serial_on_the_card():
         got = sum(fn.launches - before[fn.__name__] for fn in COUNTED_KERNELS
                   if fn.__name__ == "decode_attention")
         got += sum(p.graph_replays * p.captured_launches.get("decode_attention", 0)
-                   for p in pools)
-        assert got == layers * sum(r.decode_stats.decode_steps for r in fleet.replicas)
-        assert all(p.graph_replays == p.stats.decode_steps - 1 for p in pools)
+                   for p in pools) + _bank_launches(fleet, "decode_attention")
+        assert got == layers * (sum(p._decode_steps_run for p in pools)
+                                + _bank_steps(fleet))
+        assert all(p._decode_steps_run + p.bank_steps == p.stats.decode_steps
+                   and p.graph_replays == max(p._decode_steps_run - 1, 0) for p in pools)
         st = fleet.last_engine_stats
         assert (st.fused_decode_calls > 0) == (mode != "serial")
+        assert (_bank_steps(fleet) > 0) == (mode == "batched")
         blobs[mode] = [(r.output, r.ledger.first_token_s, r.ledger.finish_s, r.decode_j)
                        for r in done]
     assert blobs["batched"] == blobs["tuple"] == blobs["serial"]
@@ -1154,13 +1159,25 @@ def test_fold_of_the_fused_decode(k):
 
 
 # ------------------------------------------- the fleet recipes' fleets on the card
+def _bank_steps(fleet):
+    """The last replay's replica-bank steps, every config."""
+    return sum(e["decode_steps"] for e in (fleet.last_batched_calls or {}).values())
+
+
+def _bank_launches(fleet, name):
+    """``name``'s launches by the last replay's bank graph replays."""
+    return sum(e["replay_launches"].get(name, 0)
+               for e in (fleet.last_batched_calls or {}).values())
+
+
 def _decode_launches(fleet, name, before):
-    """``name``'s launches since ``before`` across the fleet's decode pools:
-    eager launches plus graph replays x the launches each capture recorded."""
+    """``name``'s launches since ``before`` across the fleet's decode pools
+    and replica banks: eager launches plus graph replays x the launches
+    each capture recorded."""
     fn = next(f for f in COUNTED_KERNELS if f.__name__ == name)
     return fn.launches - before + sum(r.decode_pool.graph_replays
                                       * r.decode_pool.captured_launches.get(name, 0)
-                                      for r in fleet.replicas)
+                                      for r in fleet.replicas) + _bank_launches(fleet, name)
 
 
 @pytest.mark.gpu
@@ -1170,11 +1187,12 @@ def test_autoscaled_fleet_keeps_graphs_across_power_cycles(monkeypatch):
     trace, decode steps within one modelled step of each other fused from
     two members up (the recipe's own options fuse only same-instant steps
     of four, which its trace never lines up): a replica powered down and up
-    again replays the graph it captured before (one capture per pool, every
-    cache leaf at the address it had when the replica powered up), fused
-    groups of changing size form from the powered members, kernel 1
-    launches layers x decode steps, and the streams equal the eager
-    replay's."""
+    again replays the graph it captured before (one capture per pool that
+    took two steps of its own, every cache leaf of its own at the address
+    it had when the replica powered up), fused groups of changing size form
+    from the powered members on replica banks, kernel 1 launches layers x
+    (the pools' own steps + the bank steps), and the streams equal the
+    eager replay's."""
     _need_card()
     from repro_torch.benchmarks import serve_autoscale as sa
     from repro_torch.serving import Replica
@@ -1198,7 +1216,8 @@ def test_autoscaled_fleet_keeps_graphs_across_power_cycles(monkeypatch):
     def noted_power_up(self, warmup_s=0.0):
         pool = self.decode_pool
         ups.append((self, pool._graph, pool.graph_replays,
-                    pool.cache is not None and [t.data_ptr() for t in _leaf_list(pool.cache)]))
+                    pool._own_cache is not None
+                    and [t.data_ptr() for t in _leaf_list(pool._own_cache)]))
         power_up(self, warmup_s)
 
     monkeypatch.setattr(Pool, "_capture", counted_capture)
@@ -1218,21 +1237,23 @@ def test_autoscaled_fleet_keeps_graphs_across_power_cycles(monkeypatch):
                       key=lambda r: (r.ledger.arrival_s, r.uid))
         torch.cuda.synchronize()
         assert len(done) == 120
-        assert _decode_launches(fleet, "decode_attention", before) == layers * sum(
-            p.stats.decode_steps for p in pools)
+        assert _decode_launches(fleet, "decode_attention", before) == layers * (sum(
+            p._decode_steps_run for p in pools) + _bank_steps(fleet))
+        assert all(p._decode_steps_run + p.bank_steps == p.stats.decode_steps for p in pools)
         st = fleet.last_engine_stats
         assert st.fused_decode_calls > 0 and len(st.fused_decode_wall) >= 2
+        assert st.batched_decode_calls == _bank_steps(fleet) > 0
         actions = [e.action for e in fleet.scale_events]
         assert "power_down" in actions and "power_up" in actions
         if graphs:
-            assert all(captures.get(id(p), 0) == (p.stats.decode_steps >= 2) for p in pools)
-            assert all(p.graph_replays == max(p.stats.decode_steps - 1, 0) for p in pools)
+            assert all(captures.get(id(p), 0) == (p._decode_steps_run >= 2) for p in pools)
+            assert all(p.graph_replays == max(p._decode_steps_run - 1, 0) for p in pools)
             rewoken = [(r, g, ptrs) for r, g, n, ptrs in ups
                        if g is not None and r.decode_pool.graph_replays > n]
             assert rewoken
             for r, g, ptrs in rewoken:
                 assert r.decode_pool._graph is g
-                assert [t.data_ptr() for t in _leaf_list(r.decode_pool.cache)] == ptrs
+                assert [t.data_ptr() for t in _leaf_list(r.decode_pool._own_cache)] == ptrs
         else:
             assert all(p.graph_replays == 0 and p._graph is None for p in pools)
         streams[graphs] = [(r.replica, r.output) for r in done]

@@ -34,7 +34,7 @@ SERVING_MODULES = (
     "repro_torch.benchmarks.common", "repro_torch.benchmarks.serve_cluster",
     "repro_torch.benchmarks.serve_trace", "repro_torch.benchmarks.serve_prefix",
     "repro_torch.benchmarks.serve_events", "repro_torch.benchmarks.serve_fleet",
-    "repro_torch.benchmarks.serve_autoscale",
+    "repro_torch.benchmarks.serve_autoscale", "repro_torch.benchmarks.serve_scale",
 )
 # the analysis core, the H100 spec and the paper's benchmarks
 PAPER_MODULES = (

@@ -291,7 +291,8 @@ def test_serve_chip_h100_resolves(monkeypatch, capsys):
 
 def test_runner_reaches_every_driver(monkeypatch, capsys):
     """``run.main`` calls every driver of the port once (``tpu_native``
-    twice), passing ``--device`` to those that run a model or kernel."""
+    and ``serve_scale`` twice), passing ``--device`` to those that run a
+    model or kernel."""
     import importlib
     import pkgutil
 
@@ -307,6 +308,7 @@ def test_runner_reaches_every_driver(monkeypatch, capsys):
     trun.main(["--device", "cpu", "--smoke"])
     assert sorted({n for n, _ in calls}) == names
     assert [kw for n, kw in calls if n == "tpu_native"] == [{}, {"chip": "h100-sxm"}]
+    assert [kw.pop("batched") for n, kw in calls if n == "serve_scale"] == [True, False]
     for n, kw in calls:
         if n.startswith("serve_"):
             assert kw == {"smoke": True, "device": "cpu"}
