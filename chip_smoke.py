@@ -22,7 +22,10 @@ Phases; any failure exits non-zero:
    the SSD one, at a P that 64 does not divide), and
    time kernel, plain version and, where one PyTorch call computes the same
    function, that call (``F.scaled_dot_product_attention``; yardstick only,
-   the port never calls it) beside the bound;
+   the port never calls it) beside the bound; kernels 1 and 4's
+   log-sum-exp output (``return_lse``) against their twins at the main
+   cases and at a cache shard's rows (valid_len 0, past L, a window
+   starting past L);
 4. for each served model -- full-width gemma-2b (GQA), minitron-4b-mla
    (absorbed MLA), mamba2-4b (Mamba2 SSD), gdn-4b (Gated DeltaNet),
    qwen3-4b (GQA, G = 4), minitron-4b (GQA, G = 3), gemma2-9b (GQA with
@@ -32,8 +35,8 @@ Phases; any failure exits non-zero:
    random weights from a seeded generator -- serve through
    ``ServingEngine`` with a lock-mode
    ``ClockController``, dense then paged, each with the pool's decode step
-   replayed from a CUDA graph (after one eager step), and on the dense
-   layout then eager on the same prompts: greedy streams equal, step times,
+   replayed from a CUDA graph (after one eager step), and for gemma-2b on
+   the dense layout then eager on the same prompts: greedy streams equal, step times,
    profiles and capture cost side by side, kernel launches counted (a model's decode kernel
    once per attention layer and decode step, as eager launches plus graph
    replays x the launches captured; its prefill scan once per recurrent
@@ -44,6 +47,16 @@ Phases; any failure exits non-zero:
    whose greedy streams must agree; for gemma2-9b also two
    requests of ~4200 tokens in a cache of 8192, past its 4096 window,
    dense and paged, kernel vs plain logits over three decode steps;
+4b. ``[mesh]``: the multi-device layer on a one-rank NCCL group: its (1, 1)
+   ``make_host_mesh()``, ``compressed_psum`` against int8
+   quantise-then-dequantise, full-width gemma-2b in bf16 (phase 4's batch,
+   prompts and 32 greedy steps) with params, cache and inputs laid out by
+   the sharding rules as DTensors, kernel 1 launched inside ``local_map``,
+   against the same steps on plain tensors (tokens equal, logits within
+   LOGIT_ATOL_BF16, 18 launches a step, host ms a step); then the pod dry
+   run's ``POD_CELLS`` on the 16 x 16 and 2 x 16 x 16 meshes (a fake
+   process group on the CPU, in a process started with the run), one line
+   a cell;
 5. ``[cluster]``: the phase-disaggregated ``Cluster`` (a prefill pool handing
    its cache rows to a paged decode pool whose step is a CUDA graph) on
    ``serve_cluster``'s recipe at full width, driven through the recipe's
@@ -87,9 +100,8 @@ Phases; any failure exits non-zero:
    the recipe (completion, two equal replays, aligned fused coverage,
    dispatches, batched sha256 == tuple sha256, the quantum, batched faster
    than tuple per fused call at g >= 8), each replay's ``EngineStats`` and
-   bank steps, captures and replays; the fold measurement in fp32; an
-   untimed bf16 replay of two aligned waves, batched against tuple, with
-   the requests whose tokens part. In phases 5-11 every run counts its
+   bank steps, captures and replays; the fold measurement in fp32. In
+   phases 5-11 every run counts its
    kernel launches across the prefill and decode pools and the replica
    banks (decode kernel layers x (each pool's own decode steps + each
    bank step), as eager launches + replays x captured launches; scan
@@ -268,8 +280,11 @@ PLAIN_SCAN_REPS = 3
 # dense layout only (graph == eager is held there; the eager step's code is
 # the same for both layouts). In fp32 the graph runs only (dense == paged):
 # the eager fp32 run, which [scale] paid for, held graph == eager a second
-# time where bf16 holds it already
+# time where bf16 holds it already. The bf16 eager serving run is
+# EAGER_ARCHS' only (the cut for [mesh]): every model's step graph == eager
+# stays held on copies of one cache (``step_logits``)
 EAGER_LAYOUTS = {False: (True, False), True: (True,)}
+EAGER_ARCHS = ("gemma-2b",)
 FP32_LAYOUTS = {False: (True,), True: (True,)}
 
 
@@ -837,6 +852,63 @@ def check_kernels(torch, F, kmod):
                   f"sdpa {lib_eager}; valid_len={inputs[-1].tolist()}")
             del sets
     return records
+
+
+# kernels 1 and 4 with their log-sum-exp output (return_lse), held against
+# their plain twins: the main cases, then the rows of a shard of a cache
+# split over ranks -- valid_len 0 (no key here: output 0, lse -inf), past L
+# (the keys run on into the next shard), and under a window whose first key
+# lies past L (none here either)
+LSE_SHARD_VALID = (0, 300, 129, 700, 17, 256, 1000, 64)
+LSE_SHARD_L, LSE_SHARD_WINDOW = 256, 200
+
+
+def _lse_agree(torch, got, want, tol) -> tuple:
+    """(max |err| over finite entries, the same entries infinite)."""
+    same_inf = bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+    fin = torch.isfinite(want)
+    err = (got[fin].float() - want[fin].float()).abs().max().item() if fin.any() else 0.0
+    return err, same_inf and torch.allclose(got[fin].float(), want[fin].float(), **tol)
+
+
+def check_lse(torch, kmod) -> None:
+    """Phase 3: kernels 1 and 4's ``return_lse`` outputs (out and lse)
+    against their twins, fp32 and bf16, at the main cases and at a shard's
+    rows (``LSE_SHARD_VALID``)."""
+    main = {"decode_attention": next(c for c in KERNEL_CASES if c.main and not c.paged),
+            "mla_latent_decode": next(c for c in MLA_CASES if c.main and not c.paged)}
+    for name, case in main.items():
+        kernel, plain = getattr(kmod, name), getattr(kmod, name + "_ref")
+        make = make_inputs if name == "decode_attention" else make_mla_inputs
+        kw = case_kwargs(case)
+        for shard in (False, True):
+            for dname in ("float32", "bfloat16"):
+                dtype = getattr(torch, dname)
+                inputs = list(make(torch, case, dtype, seed=case_seed(case)))
+                extra = {}
+                if shard:      # the first L_SHARD keys, the shard's valid lengths
+                    inputs = [t[:, :LSE_SHARD_L].contiguous()
+                              if t.dim() > 2 and t.shape[1] == case.l else t for t in inputs]
+                    inputs[-1] = torch.tensor(LSE_SHARD_VALID, dtype=torch.int32,
+                                              device="cuda")[:case.b]
+                    if name == "decode_attention":
+                        extra = {"window": LSE_SHARD_WINDOW}
+                out, lse = kernel(*inputs, **kw, **extra, return_lse=True)
+                want, want_lse = plain(*inputs, **kw, **extra, return_lse=True)
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs().max().item()
+                lse_err, lse_ok = _lse_agree(torch, lse, want_lse, TOL[dname])
+                ok = (lse_ok and bool(torch.isfinite(out).all())
+                      and torch.allclose(out.float(), want.float(), **TOL[dname]))
+                rows = "shard rows valid_len=%s%s" % (
+                    inputs[-1].tolist(), f" window {LSE_SHARD_WINDOW}" if extra else "") \
+                    if shard else "main case"
+                print(f"[kernels] {name} return_lse {rows} {dname}: out max_abs_err={err:.3e}, "
+                      f"lse max_abs_err={lse_err:.3e} (-inf rows "
+                      f"{int(torch.isinf(lse).sum())}) tol={TOL[dname]} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{name} return_lse disagrees with its twin ({dname})")
 
 
 def check_scan_kernels(torch, kmod, records) -> None:
@@ -1548,16 +1620,18 @@ def main() -> int:
         time_steps(args.against, args.steps)
         return 0
     sys.path.insert(0, str(SRC))
-    dry = DryRunProcess()
+    dry, pod = DryRunProcess(), PodDryRunProcess()
     try:
-        return smoke(torch, F, dry)
+        return smoke(torch, F, dry, pod)
     finally:
         dry.stop()
+        pod.stop()
 
 
-def smoke(torch, F, dry) -> int:
+def smoke(torch, F, dry, pod) -> int:
     """Phases 1-15 (the module docstring); ``dry`` is the dry run's process,
-    which ``[paper]`` waits for."""
+    which ``[paper]`` waits for, ``pod`` the pod dry run's, which ``[mesh]``
+    waits for."""
     from repro_torch import kernels as kmod
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -1584,6 +1658,7 @@ def smoke(torch, F, dry) -> int:
 
     # ---- 3. kernels vs plain versions
     records = check_kernels(torch, F, kmod)
+    check_lse(torch, kmod)
     check_aliased_pages(torch, kmod)
     check_scan_kernels(torch, kmod, records)
     check_scan_bwd_kernels(torch, kmod, records)
@@ -1591,6 +1666,9 @@ def smoke(torch, F, dry) -> int:
     # ---- 4. full-width models through ServingEngine
     for arch in MODELS:
         serve_model(torch, kmod, get_config(arch), records)
+
+    # ---- 4b. [mesh]: the multi-device layer on a one-rank mesh, the pod dry run
+    mesh_phase(torch, kmod, records, pod)
 
     # ---- 5-10. the disaggregated serving stack at full width
     params_for = cluster_phase(torch, kmod, records)
@@ -1656,7 +1734,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
     for paged in (False, True):
         tag = "paged" if paged else "dense"
         side = {}
-        for graphs in EAGER_LAYOUTS[paged]:
+        for graphs in EAGER_LAYOUTS[paged] if arch in EAGER_ARCHS else (True,):
             mode = "graph" if graphs else "eager"
             engine, reqs, info = serve(torch, cfg, params, prompts, paged=paged, max_new=32,
                                        kmod=kmod, graphs=graphs, profile=True)
@@ -2355,7 +2433,6 @@ def events_phase(torch, kmod, records) -> None:
 # wave, the fewest each gate reads
 SCALE_COUNTS = {"n_scale": 1600, "n_aligned": 300, "n_compare": 100, "n_curve": 100}
 SCALE_SMOKE = {"n_scale": 4000, "n_aligned": 2000, "n_compare": 1000, "n_curve": 1500}
-SCALE_BF16_WAVES = 1       # the untimed bf16 cross-mode replay: aligned waves of 100
 
 
 def scale_phase(torch, kmod, records) -> None:
@@ -2371,10 +2448,9 @@ def scale_phase(torch, kmod, records) -> None:
     batched faster than tuple per fused call at g >= 8. Each replay's
     launch invariant across pools and banks, ``EngineStats``, wall seconds,
     bank steps, captures and replays are read as it ends (``on_run``). Then
-    the fold measurement in fp32 (``fold_measurement``, gemma-2b) and, with
-    the fp32 weights freed, an untimed bf16 replay of ``SCALE_BF16_WAVES``
-    aligned waves batched against tuple: how many requests' tokens part,
-    and where first. No gate reads it."""
+    the fold measurement in fp32 (``fold_measurement``, gemma-2b). (An
+    untimed bf16 batched-vs-tuple replay that ran here -- 12 of 100
+    requests parted -- is cut for [mesh]'s time.)"""
     from repro_torch.benchmarks import serve_scale as ss
     from repro_torch.serving import clear_program_caches
 
@@ -2415,24 +2491,6 @@ def scale_phase(torch, kmod, records) -> None:
     del params
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    params = ss.params_for_fleet(full_config=True, device="cuda", dtype="bfloat16")
-    trace, _ = ss.aligned_trace(SCALE_BF16_WAVES * ss.N_REPLICAS)
-    streams = {}
-    for mode in ("batched", "tuple"):
-        done = []
-        ss.replay(trace, params, full_config=True, device="cuda", dtype="bfloat16",
-                  batch_replicas=mode == "batched", on_finish=done.append)
-        streams[mode] = [(r.prompt.tolist(), r.output)
-                         for r in sorted(done, key=lambda r: (r.replica, r.uid))]
-    zero_counts(torch, kmod)          # an untimed measurement, no run of the gates
-    clear_program_caches()
-    parted = sum(a[1] != b[1] for a, b in zip(streams["batched"], streams["tuple"]))
-    print(f"[scale] bf16 batched vs tuple, {len(trace)} aligned requests (not gated): "
-          + json.dumps({"requests_parted": parted, "first_parting": _first_parting(streams),
-                        "seconds": time.perf_counter() - t0}))
-    del params
-    torch.cuda.empty_cache()
     print(f"[scale] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2947,7 +3005,7 @@ class DryRunProcess:
     ``finish`` waits for it and checks its records, ``stop`` ends it if it
     still runs and removes its files."""
 
-    def __init__(self):
+    def __init__(self, args=()):
         import os
         import tempfile
 
@@ -2958,7 +3016,7 @@ class DryRunProcess:
         self.log = open(self.log_path, "w")
         env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", self.cells],
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", self.cells, *args],
             stdout=self.log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
 
     def finish(self) -> str:
@@ -2990,6 +3048,50 @@ class DryRunProcess:
             self.proc.wait()
         self.log.close()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+# the pod dry run [mesh] reads: the reference probe's four cells and
+# gemma-2b's train step, on the 16 x 16 and 2 x 16 x 16 meshes
+POD_CELLS = (("gemma-2b", "decode_32k"), ("deepseek-v2-lite-16b", "decode_32k"),
+             ("mamba2-780m", "long_500k"), ("minicpm-2b", "train_4k"), ("gemma-2b", "train_4k"))
+POD_TIMEOUT_S = 600
+
+
+class PodDryRunProcess(DryRunProcess):
+    """``POD_CELLS`` on both pod meshes (``python -m repro_torch.launch.dryrun
+    --both-meshes --cells ...``: meta DTensors over a fake process group of
+    256 / 512 ranks) on the CPU, in a process of its own started with the
+    run; ``finish`` waits for it and prints one line a cell."""
+
+    def __init__(self):
+        super().__init__(["--both-meshes", "--cells", *(f"{a}:{c}" for a, c in POD_CELLS)])
+
+    def finish(self) -> list:
+        t_wait = time.perf_counter()
+        rc = self.proc.wait(timeout=POD_TIMEOUT_S)
+        self.log.close()
+        waited = time.perf_counter() - t_wait
+        recs = [json.loads(p.read_text()) for p in sorted(Path(self.cells).glob("*.json"))]
+        for r in recs:
+            if not r.get("ok"):
+                print(f"[mesh] pod cell {r['arch']} {r['shape']} {r['mesh']}: "
+                      f"{r.get('error')}\n{r.get('traceback', '')}")
+                continue
+            ma = r["memory_analysis"]
+            print(f"[mesh] pod {r['arch']} {r['shape']} {r['mesh']} (fsdp {r['fsdp']}): "
+                  f"flops/device {r['hlo_flops_per_device']:.4e}, bytes/device "
+                  f"{r['hlo_bytes_per_device']:.4e}, argument GB "
+                  f"{ma['argument_size_in_bytes'] / 1e9:.4f}, collectives "
+                  f"{r['collective_bytes_per_device'] / 1e6:.3f} MB "
+                  f"{json.dumps(r['collective_count_by_op'], sort_keys=True)} MB by op "
+                  f"{json.dumps({k: round(v / 1e6, 3) for k, v in sorted(r['collective_bytes_by_op'].items())})}"
+                  f"; local_map {r['local_map_sites']}; traced {r['t_trace_s']} s")
+        traced = sum(r.get("t_trace_s", 0.0) for r in recs)
+        print(f"[mesh] pod dry run: {len(recs)} records, exit code {rc}, {traced:.1f} s of "
+              f"tracing beside the card phases; waited {waited:.1f} s for it")
+        if rc != 0 or len(recs) != 2 * len(POD_CELLS) or not all(r.get("ok") for r in recs):
+            raise SystemExit("[mesh] the pod dry run failed or wrote the wrong records")
+        return recs
 
 
 def dryrun_card_check(torch, kmod, records) -> None:
@@ -3191,6 +3293,136 @@ def examples_phase(torch, kmod) -> None:
         raise SystemExit(f"[examples] train_wsd: losses {w['losses']}")
     run("smoke_models", lambda: smoke_models.main(["--device", "cuda"]))
     print(f"[examples] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+MESH_ARCH = "gemma-2b"
+MESH_SHAPE = {"batch": 8, "max_seq_len": 1024, "new": 32}   # phase 4's decode
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _greedy(torch, kmod, cfg, params, prompts, place) -> dict:
+    """Prefill ``prompts`` (padded into one batch) and MESH_SHAPE["new"]
+    greedy decode steps, eager, every tensor passed through ``place`` (the
+    rules' layout on the mesh, or as it is): the tokens, the first step's
+    logits, kernel 1's launches and host ms a decode step."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    b, s = len(prompts), max(len(p) for p in prompts)
+    inputs = torch.zeros((b, s), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        inputs[i, :len(p)] = torch.as_tensor(p)
+    plens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    cache = place(init_cache(cfg, b, MESH_SHAPE["max_seq_len"], device="cuda"), "cache")
+    batch = place({"inputs": inputs.cuda(), "lengths": plens.cuda()}, "batch")
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    with torch.no_grad():
+        logits, cache, lengths = prefill(params, cfg, batch["inputs"], cache,
+                                         prompt_lengths=batch["lengths"])
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        tokens, first = [full(token).cpu()], None
+        torch.cuda.synchronize()
+        kernel = kmod.decode_attention
+        n0, ms = kernel.launches, []
+        for _ in range(MESH_SHAPE["new"]):
+            t0 = time.perf_counter()
+            logits, cache, lengths = decode_step(params, cfg, token, cache, lengths)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = full(logits).float()
+            tokens.append(full(token).cpu())
+    return {"tokens": torch.stack(tokens, dim=1), "logits": first,
+            "launches": kernel.launches - n0, "ms": ms}
+
+
+def mesh_phase(torch, kmod, records, pod) -> None:
+    """[mesh]: the multi-device layer on the card. A one-rank NCCL group on
+    the H100 and its (1, 1) ``make_host_mesh()``; ``compressed_psum`` over
+    it equals int8 quantise-then-dequantise; full-width gemma-2b in bf16
+    (phase 4's B 8, max_seq_len 1024, prompts and 32 new tokens) with
+    params, cache and inputs laid out by the rules (kernel 1 launched inside
+    ``local_map``) against the same steps on plain tensors: greedy tokens
+    equal, the first step's logits within LOGIT_ATOL_BF16 (expected equal:
+    the same kernels in the same order), 18 kernel-1 launches a step, host
+    ms a step printed; then the pod dry run's cells (``pod``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import init_params
+    from repro_torch.training import make_prompts
+    from repro_torch.training.compression import (
+        compressed_psum,
+        dequantize_int8,
+        quantize_int8,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = M.make_host_mesh()
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda" or tuple(
+                mesh.shape) != (1, 1):
+            raise SystemExit(f"[mesh] expected a (1, 1) NCCL mesh on the card, got "
+                             f"{dist.get_backend()} {mesh}")
+        print(f"[mesh] {mesh}, backend {dist.get_backend()}")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        x = torch.randn(1 << 20, generator=g, device="cuda") * 3.0
+        got = compressed_psum(x, dist.group.WORLD)
+        want = dequantize_int8(*quantize_int8(x))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit("[mesh] compressed_psum over one rank != quantise-then-dequantise: "
+                             f"max |d| {(got - want).abs().max().item():.3e}")
+        print("[mesh] compressed_psum over the one-rank group == int8 quantise-then-dequantise "
+              f"(1M fp32 values, absmax {x.abs().max().item():.3f}): equal")
+
+        cfg = get_config(MESH_ARCH)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        prompts = make_prompts(cfg, MESH_SHAPE["batch"], 64, 512, seed=0)
+        fsdp = S.needs_fsdp(cfg, mesh)
+        layout = {"cache": lambda t: S.cache_shardings(t, mesh),
+                  "batch": lambda t: S.batch_shardings(t, mesh)}
+        on_mesh = lambda t, kind: S.distribute(t, layout[kind](t), mesh)
+        dparams = S.distribute(params, S.param_shardings(params, mesh, fsdp=fsdp), mesh)
+        _greedy(torch, kmod, cfg, params, prompts[:1], lambda t, kind: t)   # warm-up
+        plain = _greedy(torch, kmod, cfg, params, prompts, lambda t, kind: t)
+        from repro_torch import dtensor as dtm
+
+        dtm.SITES.clear()
+        sharded = _greedy(torch, kmod, cfg, dparams, prompts, on_mesh)
+        steps = MESH_SHAPE["new"]
+        per_step = sharded["launches"] / steps
+        records["decode_attention"]["launches"] += sharded["launches"]
+        d = (sharded["logits"] - plain["logits"]).abs().max().item()
+        same = bool(torch.equal(sharded["tokens"], plain["tokens"]))
+        pm = sorted(plain["ms"][1:])
+        dm = sorted(sharded["ms"][1:])
+        print(f"[mesh] {MESH_ARCH} bf16 B {MESH_SHAPE['batch']} max_seq_len "
+              f"{MESH_SHAPE['max_seq_len']}, {steps} greedy steps: tokens equal {same}; first "
+              f"step's logits max |d| {d:.4e} (tol {LOGIT_ATOL_BF16[MESH_ARCH]}); kernel-1 "
+              f"launches a step: DTensor {per_step:g}, plain {plain['launches'] / steps:g}; "
+              f"local_map sites {sorted(dtm.SITES)}; host ms a step (median of steps 2-"
+              f"{steps}, eager): DTensor {dm[len(dm) // 2]:.3f}, plain {pm[len(pm) // 2]:.3f}")
+        if not same or d > LOGIT_ATOL_BF16[MESH_ARCH] or per_step != _n_layers(cfg, "decode"):
+            raise SystemExit("[mesh] the (1, 1)-mesh step parts from the plain step")
+        del dparams, params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    pod.finish()
+    print(f"[mesh] {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_launches(arch, what, paged, cfg, stats, info) -> None:

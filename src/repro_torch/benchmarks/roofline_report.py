@@ -13,10 +13,15 @@ Counterpart of the reference's ``benchmarks/roofline_report.py``: the same
 ``analyse_cell``, ``load_cells``, ``to_markdown`` and ``run``, with the
 artefact and output directories read at call time (``$REPRO_DRYRUN_OUT``,
 ``$REPRO_BENCH_OUT``). The reference's pod cells (meshes ``pod16x16``,
-``pod2x16x16``) are priced with ``TPU_V5E`` as there; the port's one-card
-cells (``launch.dryrun``, mesh ``h100x1``) with ``H100_SXM`` (989 TFLOP/s
-bf16, 3.35 TB/s), in a table of their own. Without artefacts ``run``
-reports that none were found.
+``pod2x16x16``) are priced with ``TPU_V5E`` as there; the port's cells
+(``launch.dryrun``: meshes ``h100x1``, ``h100x16x16``, ``h100x2x16x16``)
+with ``H100_SXM`` (989 TFLOP/s bf16, 3.35 TB/s), each mesh in a table of
+its own. The collective term divides the per-device collective bytes by the
+spec's ``ici_bw``, one link's rate each way, as the reference divides by one
+v5e ICI link's 50 GB/s: for ``H100_SXM`` one NVLink4 link, 450 GB/s / 18 =
+25 GB/s (a pod wired all by NVLink; across InfiniBand nodes a card has
+about 50 GB/s in all). Without artefacts ``run`` reports that none were
+found.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import os
 
 from repro_torch.hw import TPU_V5E
 from repro_torch.hw.h100 import H100_SXM
-from repro_torch.launch.mesh import H100X1
+from repro_torch.launch.mesh import H100X1, H100X2X16X16, H100X16X16
 
 from repro_torch.benchmarks.common import Row, results_dir, timed, write_csv
 
@@ -34,6 +39,14 @@ NEXT_LEVER = {
     "compute": "raise arithmetic efficiency: reduce remat/recompute, bigger microbatch GEMMs",
     "memory": "cut HBM traffic: fuse activations, cache-friendly layouts, lower-precision cache",
     "collective": "reshard to remove all-gathers; overlap collectives with compute",
+}
+
+
+# the port's dry-run meshes, priced with H100_SXM, each with its table title
+PORT_MESHES = {
+    H100X1.name: "One H100 (h100x1), priced with H100_SXM — the port's dry run",
+    H100X16X16.name: "16 x 16 H100s (h100x16x16), priced with H100_SXM — the port's pod dry run",
+    H100X2X16X16.name: "2 x 16 x 16 H100s (h100x2x16x16), priced with H100_SXM",
 }
 
 
@@ -46,7 +59,7 @@ def artefacts_dir() -> str:
 def analyse_cell(rec: dict) -> dict | None:
     if not rec.get("applicable", True) or not rec.get("ok"):
         return None
-    spec = H100_SXM if rec["mesh"] == H100X1.name else TPU_V5E
+    spec = H100_SXM if rec["mesh"] in PORT_MESHES else TPU_V5E
     n_dev = rec["n_devices"]
     flops = rec["hlo_flops_per_device"]
     bytes_ = rec["hlo_bytes_per_device"]
@@ -120,6 +133,7 @@ def run() -> list[Row]:
         single = [c for c in cells if c["mesh"] == "pod16x16"]
         multi = [c for c in cells if c["mesh"] == "pod2x16x16"]
         card = [c for c in cells if c["mesh"] == H100X1.name]
+        port = {m: [c for c in cells if c["mesh"] == m] for m in PORT_MESHES}
         if cells:
             write_csv(
                 "roofline",
@@ -133,13 +147,13 @@ def run() -> list[Row]:
                 f.write(to_markdown(single))
                 f.write("\n## Multi-pod (2x16x16) — pod-axis sharding check\n\n")
                 f.write(to_markdown(multi))
-                if card:
-                    f.write("\n## One H100 (h100x1), priced with H100_SXM — the port's "
-                            "dry run\n\n")
-                    f.write(to_markdown(card))
-        return cells, single, multi, card
+                for mesh, title in PORT_MESHES.items():
+                    if port[mesh]:
+                        f.write(f"\n## {title}\n\n")
+                        f.write(to_markdown(port[mesh]))
+        return cells, single, multi, card, port
 
-    (cells, single, multi, card), us = timed(build)
+    (cells, single, multi, card, port), us = timed(build)
     if not cells:
         return [("roofline_report", us, "no dryrun artefacts found (run repro.launch.dryrun)")]
     doms = {}
@@ -148,6 +162,8 @@ def run() -> list[Row]:
     derived = (
         f"single_pod_cells={len(single)};multi_pod_cells={len(multi)};"
         + (f"one_card_cells={len(card)};" if card else "")
+        + "".join(f"{m}_cells={len(port[m])};" for m in (H100X16X16.name, H100X2X16X16.name)
+                  if port[m])
         + ";".join(f"{k}={v}" for k, v in sorted(doms.items()))
     )
     return [("roofline_report", us, derived)]

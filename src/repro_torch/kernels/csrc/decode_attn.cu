@@ -83,6 +83,16 @@
 //   sit in shared memory, m, l and the accumulator in registers, and the
 //   warps merge through shared memory in a fixed order.
 //
+// The log-sum-exp (lse, optional): with a non-null lse pointer each output
+// row (b, h) also gets the natural-log log-sum-exp of its attended scores,
+// mx + log(l) of the merged state, written where the row's output is
+// written (the split kernel for a request of one split, else the combine).
+// A row with no attended key (n <= 0, or a window starting at or past n: a
+// shard of a cache split over ranks that holds none of the row's keys)
+// gets output 0 and lse -inf, so a cross-rank combine weighs it 0. The
+// window's first key is taken from the raw valid_len, which may exceed L
+// on such a shard (the keys past L live on the next rank).
+//
 // Both stop the key loop at valid_len: the Pallas kernel streams every
 // block_k tile of the max_seq_len cache and masks, here the bytes read are
 // the bytes the request needs. The paged kernels read block-table entries
@@ -108,6 +118,7 @@ struct Params {
   const int* valid_len;    // (B,)
   const int* block_tables; // (B, nb), paged only
   void* out;               // (B, H, Dv), q's dtype
+  float* lse;              // (B, H) log-sum-exp, or null
   float* part_m;           // (B * KV, n_split, G), n_split > 1 only
   float* part_l;           // (B * KV, n_split, G)
   float* part_acc;         // (B * KV, n_split, G, Dv)
@@ -120,15 +131,21 @@ struct Params {
   int window;              // 0: none
 };
 
-// The first key a request of n keys attends: n - window under a window.
-__device__ __forceinline__ int first_key(const Params& p, int n) {
-  return p.window > 0 ? max(n - p.window, 0) : 0;
+// The first key a request of valid length vl attends: vl - window under a
+// window (vl may exceed L: see the log-sum-exp note above).
+__device__ __forceinline__ int first_key(const Params& p, int vl) {
+  return p.window > 0 ? max(vl - p.window, 0) : 0;
 }
 
-// The first split holding a key of a request of n keys (split_len keys a
-// split): 0 without a window, with no division on that path.
-__device__ __forceinline__ int first_split(const Params& p, int n) {
-  return p.window > 0 ? first_key(p, n) / p.split_len : 0;
+// The first split holding a key of a request of valid length vl
+// (split_len keys a split): 0 without a window, with no division on that path.
+__device__ __forceinline__ int first_split(const Params& p, int vl) {
+  return p.window > 0 ? first_key(p, vl) / p.split_len : 0;
+}
+
+// lse of a merged state (max in natural-log units, sum of exponentials)
+__device__ __forceinline__ float merged_lse(float mx, float sum) {
+  return sum > 0.f ? mx + logf(sum) : -INFINITY;
 }
 
 // scale * q.k, through the softcap when there is one
@@ -155,8 +172,9 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
   const int b = bk / p.KV, kh = bk % p.KV;
   const int G = p.H / p.KV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = min(p.valid_len[b], p.L);
-  const int s0 = max(split * p.split_len, first_key(p, n));
+  const int vl = p.valid_len[b];
+  const int n = min(vl, p.L);
+  const int s0 = max(split * p.split_len, first_key(p, vl));
   const int s1 = min(split * p.split_len + p.split_len, n);
   float* out = static_cast<float*>(p.out) + ((long long)b * p.H + kh * G) * p.Dv;
   const long long part = (long long)bk * p.n_split + split;
@@ -164,8 +182,10 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
   if (s0 >= s1) {  // no key of this request falls in this split; the combine
                    // pass reads only splits first_key / split_len to
                    // ceil(n / split_len) - 1
-    if (p.n_split == 1)
+    if (p.n_split == 1) {
       for (int i = tid; i < G * p.Dv; i += THREADS) out[i] = 0.f;
+      if (p.lse && tid < G) p.lse[(long long)b * p.H + kh * G + tid] = -INFINITY;
+    }
     return;
   }
 
@@ -344,6 +364,8 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Params p) {
     const int g = i / p.Dv;
     if (p.n_split == 1) {
       out[i] = sacc[i] / fmaxf(s_sum[g], 1e-30f);
+      if (p.lse && i % p.Dv == 0)
+        p.lse[(long long)b * p.H + kh * G + g] = merged_lse(s_max[g], s_sum[g]);
     } else {
       p.part_acc[part * G * p.Dv + i] = sacc[i];
       if (i % p.Dv == 0) {
@@ -390,9 +412,12 @@ __global__ void combine_kernel(Params p) {
   const int b = bk / p.KV, kh = bk % p.KV;
   const long long base = (long long)bk * p.n_split;
   // only the splits that hold keys of this request wrote a partial state
-  const int n = min(p.valid_len[b], p.L);
-  const int s_first = first_split(p, n);
-  const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len);
+  const int vl = p.valid_len[b];
+  const int n = min(vl, p.L);
+  const int s_first = first_split(p, vl);
+  // no key at all (the window starts at or past n): nothing to merge
+  const int n_used = first_key(p, vl) < n ? min(p.n_split, (n + p.split_len - 1) / p.split_len)
+                                          : s_first;
 
   float mx = -INFINITY;
   for (int s = s_first + threadIdx.x; s < n_used; s += blockDim.x)
@@ -414,6 +439,7 @@ __global__ void combine_kernel(Params p) {
     for (int s = s_first; s < n_used; ++s) a = fmaf(w[s], acc[(long long)s * G * p.Dv + d], a);
     out[d] = a / fmaxf(sum, 1e-30f);
   }
+  if (p.lse && threadIdx.x == 0) p.lse[(long long)b * p.H + kh * G + g] = merged_lse(mx, sum);
 }
 
 // ---------------------------------------------------------------------------
@@ -465,15 +491,18 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
   const int G = p.H / p.KV, dk = p.Dk, dv = p.Dv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // tc_combine_kernel may start
-  const int n = min(p.valid_len[b], p.L);
-  const int lo = first_key(p, n);
+  const int vl = p.valid_len[b];
+  const int n = min(vl, p.L);
+  const int lo = first_key(p, vl);
   const int s0 = max(split * p.split_len, lo), s1 = min(split * p.split_len + p.split_len, n);
   // splits with keys of b: lo / split_len to ceil(n / split_len) - 1
-  const int n_used = (n + p.split_len - 1) / p.split_len - first_split(p, n);
+  const int n_used = (n + p.split_len - 1) / p.split_len - first_split(p, vl);
   bf16* out = static_cast<bf16*>(p.out) + ((long long)b * p.H + kh * G) * dv;
   if (s0 >= s1) {  // no key of this request here (below the window, or past n)
-    if (n <= 0 && split == 0)
+    if (lo >= n && split == 0) {  // none anywhere: 0, and lse -inf
       for (int i = tid; i < G * dv; i += THREADS) out[i] = __float2bfloat16(0.f);
+      if (p.lse && tid < G) p.lse[(long long)b * p.H + kh * G + tid] = -INFINITY;
+    }
     return;
   }
   // one CTA for the request: write the output; else an fp32 partial state,
@@ -675,6 +704,8 @@ __global__ void __launch_bounds__(THREADS, 1) tc_split_kernel(Params p) {
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       *reinterpret_cast<uint2*>(out + g * dv + d) =
           make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
+      if (p.lse && d == 0)  // mx in log2 units
+        p.lse[(long long)b * p.H + kh * G + g] = merged_lse(mx * LN2, sum);
     } else {
       *reinterpret_cast<float4*>(p.part_acc + (part * G + g) * dv + d) = o;
       if (d == 0) {
@@ -696,9 +727,10 @@ __global__ void __launch_bounds__(COMBINE_THREADS) tc_combine_kernel(Params p) {
   const int G = p.H / p.KV, row = blockIdx.x;  // b * H + kh * G + g
   const int bk = row / G, g = row - bk * G, b = bk / p.KV;
   const int d = 4 * threadIdx.x;
-  const int n = min(p.valid_len[b], p.L);
+  const int vl = p.valid_len[b];
+  const int n = min(vl, p.L);
   // the splits with keys of b: s_first to s_first + n_used - 1
-  const int s_first = first_split(p, n);
+  const int s_first = first_split(p, vl);
   const int n_used = min(p.n_split, (n + p.split_len - 1) / p.split_len) - s_first;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   if (n_used <= 1 || d >= p.Dv) return;  // one split wrote the row itself
@@ -745,6 +777,7 @@ __global__ void __launch_bounds__(COMBINE_THREADS) tc_combine_kernel(Params p) {
   const float inv = 1.f / fmaxf(sum, 1e-30f);
   *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + (long long)row * p.Dv + d) =
       make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
+  if (p.lse && threadIdx.x == 0) p.lse[row] = merged_lse(mx, sum);
 }
 
 template <int DMAX, bool PAGED, bool CAPPED>
@@ -821,7 +854,8 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 
 #define DECODE_ATTN_LAUNCHER(NAME, LAUNCH)                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* valid_len, \
-                      const void* block_tables, void* out, void* part_m, void* part_l,   \
+                      const void* block_tables, void* out, void* lse, void* part_m,      \
+                      void* part_l,                                                      \
                       void* part_acc, int B, int H, int KV, int Dk, int Dv, int L, int bs, \
                       int nb, int split_len, int n_split, float scale, float softcap,    \
                       int window, void* stream) {                                        \
@@ -832,6 +866,7 @@ int launch_f32(const Params& p, cudaStream_t stream) {
     p.valid_len = static_cast<const int*>(valid_len);                                   \
     p.block_tables = static_cast<const int*>(block_tables);                             \
     p.out = out;                                                                        \
+    p.lse = static_cast<float*>(lse);                                                   \
     p.part_m = static_cast<float*>(part_m);                                             \
     p.part_l = static_cast<float*>(part_l);                                             \
     p.part_acc = static_cast<float*>(part_acc);                                         \

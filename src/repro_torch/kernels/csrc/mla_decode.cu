@@ -14,6 +14,13 @@
 // both forms: the dense Pallas wrapper concatenates them on the host, which
 // copies the whole cache on every call; this kernel reads each once.
 //
+// The log-sum-exp (lse, optional): with a non-null lse pointer each output
+// row (b, h) also gets the natural-log log-sum-exp of its scores, mx +
+// log(l) of the merged state, written where the row's output is written
+// (the split kernel for one split, else the combine); -inf, and output 0,
+// for a row with no key (valid_len 0: a shard of a cache split over ranks
+// holding none of the row's keys), so a cross-rank combine weighs it 0.
+//
 // What bounds it on this card: bytes. Every key costs 2 * H * (R + P + R)
 // flops (scores over R + P features, context over R) against (R + P) * elem
 // bytes: at H = 24, R = 512, P = 64 in bf16 about 45 flops per byte, far
@@ -118,6 +125,7 @@ struct Params {
   const int* valid_len;    // (B,)
   const int* block_tables; // (B, nb), paged only
   void* out;               // (B, H, R), q's dtype
+  float* lse;              // (B, H) log-sum-exp, or null
   float* part_m;           // (B, n_split, H), n_split > 1 only
   float* part_l;           // (B, n_split, H)
   float* part_acc;         // (B, n_split, H, R)
@@ -129,6 +137,11 @@ struct Params {
 };
 
 constexpr int VN = 4;  // floats per 16-byte load
+
+// lse of a merged state (max in natural-log units, sum of exponentials)
+__device__ __forceinline__ float merged_lse(float mx, float sum) {
+  return sum > 0.f ? mx + logf(sum) : -INFINITY;
+}
 
 // the four floats of a 16-byte load
 __device__ __forceinline__ void to_float(const uint4& u, float* f) {
@@ -250,6 +263,7 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
         o[1] = 0.f;
       }
     }
+    if (p.n_split == 1 && p.lse && tid < nh) p.lse[(long long)b * p.H + h0 + tid] = -INFINITY;
     return;
   }
 
@@ -420,6 +434,8 @@ __global__ void __launch_bounds__(THREADS, 2) mla_split_kernel(Params p) {
     p.part_m[i] = s_m[tid];
     p.part_l[i] = s_l[tid];
   }
+  if (p.n_split == 1 && p.lse && tid < nh)
+    p.lse[(long long)b * p.H + h0 + tid] = merged_lse(s_m[tid], s_l[tid]);
 }
 
 // Sum (max) of v over the CTA; every thread gets the result.
@@ -479,6 +495,7 @@ __global__ void mla_combine_kernel(Params p) {
     for (int s = 0; s < n_used; ++s) a = fmaf(sm[s], acc[s * stride + d], a);
     out[d] = a / fmaxf(sum, 1e-30f);
   }
+  if (p.lse && threadIdx.x == 0) p.lse[row] = merged_lse(mx, sum);
 }
 
 // ---------------------------------------------------------------------------
@@ -590,12 +607,14 @@ __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
   const int s1 = min(s0 + p.split_len, n);
   const int n_used = (n + p.split_len - 1) / p.split_len;  // splits with keys of b
   if (s0 >= s1) {  // no key of this request here; only n <= 0 leaves split 0 empty
-    if (split == 0)
+    if (split == 0) {
       for (int i = tid; i < HG * p.R; i += THREADS) {
         const int g = i / p.R;
         if (h0 + g < p.H)
           static_cast<bf16*>(p.out)[((long long)b * p.H + h0) * p.R + i] = __float2bfloat16(0.f);
       }
+      if (p.lse && tid < HG && h0 + tid < p.H) p.lse[(long long)b * p.H + h0 + tid] = -INFINITY;
+    }
     cp_async_wait<0>();
     return;
   }
@@ -796,6 +815,8 @@ __global__ void __launch_bounds__(THREADS) mla_tc_split_kernel(Params p) {
         p.part_m[part * p.H + g] = m[nt][e] * LN2;  // natural-log units
         p.part_l[part * p.H + g] = l[nt][e];
       }
+      if (direct && p.lse && warp == 0 && r0 == 0)
+        p.lse[(long long)b * p.H + g] = merged_lse(m[nt][e] * LN2, l[nt][e]);
     }
 }
 
@@ -857,6 +878,7 @@ __global__ void __launch_bounds__(COMBINE_THREADS) mla_tc_combine_kernel(Params 
   const float inv = 1.f / fmaxf(sum, 1e-30f);
   *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + (long long)row * p.R + d) =
       make_uint2(pack(o.x * inv, o.y * inv), pack(o.z * inv, o.w * inv));
+  if (p.lse && threadIdx.x == 0) p.lse[row] = merged_lse(mx, sum);
 }
 
 template <int RMAX, int NH, bool PAGED>
@@ -944,7 +966,7 @@ int launch_f32(const Params& p, int hg, cudaStream_t stream) {
 
 #define MLA_DECODE_LAUNCHER(NAME, LAUNCH)                                                    \
   extern "C" int NAME(const void* q_lat, const void* q_rope, const void* ckv, const void* kr, \
-                      const void* valid_len, const void* block_tables, void* out,             \
+                      const void* valid_len, const void* block_tables, void* out, void* lse,  \
                       void* part_m, void* part_l, void* part_acc, int B, int H, int R, int P, \
                       int L, int bs, int nb, int split_len, int n_split, int hg, float scale, \
                       void* stream) {                                                        \
@@ -956,6 +978,7 @@ int launch_f32(const Params& p, int hg, cudaStream_t stream) {
     p.valid_len = static_cast<const int*>(valid_len);                                        \
     p.block_tables = static_cast<const int*>(block_tables);                                  \
     p.out = out;                                                                             \
+    p.lse = static_cast<float*>(lse);                                                        \
     p.part_m = static_cast<float*>(part_m);                                                  \
     p.part_l = static_cast<float*>(part_l);                                                  \
     p.part_acc = static_cast<float*>(part_acc);                                              \

@@ -10,9 +10,10 @@ counts no launch: it returns an empty meta output and adds its
 ``kernels.cost`` count to the active counter (shape inference, not a
 fallback).
 
-Contract (as the oracles): ``valid_len >= 1``; keys ``kpos < valid_len``
-are attended, and with ``window > 0`` only those ``kpos >= valid_len -
-window``; with ``softcap > 0`` each score is ``softcap * tanh(scale * q.k /
+Contract (as the oracles): keys ``kpos < min(valid_len, L)`` are
+attended, and with ``window > 0`` only those ``kpos >= valid_len -
+window``; a row with no such key gives 0 (and, with ``return_lse``, a
+log-sum-exp of -inf); with ``softcap > 0`` each score is ``softcap * tanh(scale * q.k /
 softcap)`` (the model's logit softcap and sliding window, which the Pallas
 kernels leave to jnp around them); the result has q's dtype. The bf16
 kernels, dense and paged, run both products on the tensor cores and round
@@ -44,7 +45,7 @@ TC_TARGET_CTAS = 132       # one per SM: at D = 256 its shared memory holds one
 TC_MIN_SPLIT_KEYS = 64     # at least one tile a split
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _LAUNCHERS = {}
 
@@ -98,7 +99,7 @@ def _launcher(name: str, dtype: torch.dtype):
 
 
 def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softcap, window,
-            plan_batch=0):
+            plan_batch=0, return_lse=False):
     b, h, dk = q.shape
     kv, dv = k.shape[2], v.shape[-1]
     if q.dtype not in _SUFFIX:
@@ -130,6 +131,7 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softc
     g = h // kv
     _, n_split, split_len = plan(q.dtype, (plan_batch or b) * kv, extent)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     if n_split > 1:
         part_m = torch.empty((b * kv * n_split * g,), dtype=torch.float32, device=q.device)
         part_l = torch.empty_like(part_m)
@@ -140,31 +142,39 @@ def _launch(name, q, k, v, valid_len, block_tables, extent, bs, nb, scale, softc
         scratch = [0, 0, 0]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher(name, q.dtype)(
-        *operands, out.data_ptr(), *scratch, b, h, kv, dk, dv, extent, bs, nb,
-        split_len, n_split, float(scale), float(softcap), int(window), stream)
+        *operands, out.data_ptr(), 0 if lse is None else lse.data_ptr(), *scratch, b, h, kv,
+        dk, dv, extent, bs, nb, split_len, n_split, float(scale), float(softcap), int(window),
+        stream)
     check_launch(rc, name)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention(q, k, v, valid_len, *, scale: float, softcap: float = 0.0,
-                     window: int = 0, plan_batch: int = 0) -> torch.Tensor:
+                     window: int = 0, plan_batch: int = 0, return_lse: bool = False):
     """q (B,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv), valid_len (B,) int32 ->
     (B,H,Dv): attention of each query row over its keys ``< valid_len``
     (the last ``window`` of them when ``window > 0``). ``plan_batch`` > 0
     plans the splits as for a call of that batch (each row then splits as
-    it would in a call of ``plan_batch`` rows); 0 plans for B."""
+    it would in a call of ``plan_batch`` rows); 0 plans for B.
+    ``return_lse=True`` -> (out, lse (B,H) fp32): each row's natural-log
+    log-sum-exp of its attended scores, written by the kernel's combine,
+    -inf (and out 0) for a row with no key (``valid_len`` 0: a shard of a
+    split cache holding none of its keys; ``valid_len`` may also exceed L
+    there)."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window)
+        return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window,
+                                    return_lse=return_lse)
     if q.device.type == "meta":
         b, h, dk = q.shape
         keys, _ = cost.meta_keys(b, k.shape[1], window)
         cost.record("decode_attention", cost.decode_attention(
             b, h, k.shape[2], dk, v.shape[-1], q.element_size(), keys))
-        return q.new_empty((b, h, v.shape[-1]))
+        out = q.new_empty((b, h, v.shape[-1]))
+        return (out, q.new_empty((b, h), dtype=torch.float32)) if return_lse else out
     if k.shape[0] != q.shape[0]:
         raise ValueError("decode_attention: cache batch != q batch")
     out = _launch("decode_attention", q, k, v, valid_len, None,
-                  k.shape[1], 0, 0, scale, softcap, window, plan_batch)
+                  k.shape[1], 0, 0, scale, softcap, window, plan_batch, return_lse)
     decode_attention.launches += 1
     return out
 

@@ -11,7 +11,10 @@ The logit softcap and the sliding window are the reference model's
 scaled score goes through ``softcap * tanh(s / softcap)`` before the mask,
 and key ``kpos`` is attended iff ``valid_len - window <= kpos < valid_len``
 (the model's ``lengths - kpos < window`` with ``lengths = valid_len - 1``);
-0 is none.
+0 is none. ``valid_len`` may exceed L (a shard of a split cache): keys
+past L do not exist, and the window still starts at ``valid_len - window``.
+``return_lse=True`` also returns each row's log-sum-exp of its attended
+scores (``with_lse``), what a cross-rank combine weighs the row by.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ def decode_attention_ref(
     *,
     softcap: float = 0.0,
     window: int = 0,
-) -> torch.Tensor:            # (B, H, Dv)
+    return_lse: bool = False,
+):                            # (B, H, Dv), and with return_lse (B, H) fp32
     b, h, dk = q.shape
     l, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -46,7 +50,20 @@ def decode_attention_ref(
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgl,blkd->bkgd", probs, v.float())
-    return ctx.reshape(b, h, v.shape[-1]).to(q.dtype)
+    out = ctx.reshape(b, h, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    return with_lse(out, scores, mask, (b, h))
+
+
+def with_lse(out: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor, rows: tuple):
+    """(out, lse) of masked ``scores`` (..., keys): the natural-log
+    log-sum-exp of the attended scores, -inf where a row attends no key
+    (the kernels' convention), whose output is then 0, not the mean of
+    every value."""
+    lse = torch.logsumexp(scores.masked_fill(~mask, float("-inf")), dim=-1).reshape(rows)
+    none = torch.isinf(lse)[..., None]
+    return out.masked_fill(none, 0), lse
 
 
 def paged_decode_attention_ref(
@@ -59,7 +76,8 @@ def paged_decode_attention_ref(
     *,
     softcap: float = 0.0,
     window: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Gather the pages each request's table names into a contiguous view,
     then defer to the dense version — paging must be pure layout."""
     b = q.shape[0]
@@ -68,4 +86,5 @@ def paged_decode_attention_ref(
     idx = block_tables.long()
     k = k_pages[idx].reshape(b, nb * bs, kv, k_pages.shape[-1])
     v = v_pages[idx].reshape(b, nb * bs, kv, v_pages.shape[-1])
-    return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window)
+    return decode_attention_ref(q, k, v, valid_len, scale, softcap=softcap, window=window,
+                                return_lse=return_lse)

@@ -45,7 +45,7 @@ TC_TARGET_CTAS = 132       # one per SM
 TC_MIN_SPLIT_KEYS = 64
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 _LAUNCHERS = {}
 
@@ -108,7 +108,8 @@ def _launcher(name: str, dtype: torch.dtype):
     return fn
 
 
-def _launch(name, q_lat, q_rope, ckv, kr, valid_len, block_tables, extent, bs, nb, scale):
+def _launch(name, q_lat, q_rope, ckv, kr, valid_len, block_tables, extent, bs, nb, scale,
+            return_lse=False):
     if q_lat.dim() != 3 or q_rope.dim() != 3:
         raise ValueError(f"{name}: q_lat and q_rope must be (B, H, D)")
     b, h, rank = q_lat.shape
@@ -141,6 +142,7 @@ def _launch(name, q_lat, q_rope, ckv, kr, valid_len, block_tables, extent, bs, n
 
     _, hg, n_split, split_len = plan(q_lat.dtype, b, h, extent)
     out = torch.empty((b, h, rank), dtype=q_lat.dtype, device=q_lat.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q_lat.device) if return_lse else None
     if n_split > 1:
         part_m = torch.empty((b * n_split * h,), dtype=torch.float32, device=q_lat.device)
         part_l = torch.empty_like(part_m)
@@ -151,28 +153,34 @@ def _launch(name, q_lat, q_rope, ckv, kr, valid_len, block_tables, extent, bs, n
         scratch = [0, 0, 0]
     stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     rc = _launcher(name, q_lat.dtype)(
-        *operands, out.data_ptr(), *scratch, b, h, rank, rope, extent, bs, nb,
-        split_len, n_split, hg, float(scale), stream)
+        *operands, out.data_ptr(), 0 if lse is None else lse.data_ptr(), *scratch, b, h,
+        rank, rope, extent, bs, nb, split_len, n_split, hg, float(scale), stream)
     check_launch(rc, name)
-    return out
+    return (out, lse) if return_lse else out
 
 
-def mla_latent_decode(q_lat, q_rope, ckv, kr, valid_len, *, scale: float) -> torch.Tensor:
+def mla_latent_decode(q_lat, q_rope, ckv, kr, valid_len, *, scale: float,
+                      return_lse: bool = False):
     """q_lat (B,H,rank), q_rope (B,H,rope), ckv (B,L,rank), kr (B,L,rope),
     valid_len (B,) int32 -> (B,H,rank): the latent context of each query row
-    over its keys ``< valid_len``."""
+    over its keys ``< min(valid_len, L)``. ``return_lse=True`` -> (out, lse
+    (B,H) fp32): each row's natural-log log-sum-exp, written by the
+    kernel's combine; -inf, and out 0, for a row with no key (``valid_len``
+    0: a shard of a split cache holding none of its keys)."""
     if q_lat.device.type == "cpu":
-        return mla_latent_decode_ref(q_lat, q_rope, ckv, kr, valid_len, scale)
+        return mla_latent_decode_ref(q_lat, q_rope, ckv, kr, valid_len, scale,
+                                     return_lse=return_lse)
     if q_lat.device.type == "meta":
         b, h, rank = q_lat.shape
         keys, _ = cost.meta_keys(b, ckv.shape[1])
         cost.record("mla_latent_decode", cost.mla_latent_decode(
             b, h, rank, q_rope.shape[-1], q_lat.element_size(), keys))
-        return q_lat.new_empty((b, h, rank))
+        out = q_lat.new_empty((b, h, rank))
+        return (out, q_lat.new_empty((b, h), dtype=torch.float32)) if return_lse else out
     if ckv.shape[0] != q_lat.shape[0]:
         raise ValueError("mla_latent_decode: cache batch != q batch")
     out = _launch("mla_latent_decode", q_lat, q_rope, ckv, kr, valid_len, None,
-                  ckv.shape[1], 0, 0, scale)
+                  ckv.shape[1], 0, 0, scale, return_lse)
     mla_latent_decode.launches += 1
     return out
 

@@ -3,13 +3,17 @@
 Transcriptions of ``repro.kernels.mla_decode.ref``: absorbed MLA attention
 over the COMPRESSED cache, as MQA with one shared latent head. Scores
 against ``[ckv; kr]``, values ``ckv``; scores, softmax and context in fp32,
-the result cast to q's dtype; keys ``kpos < valid_len`` are attended. The
+the result cast to q's dtype; keys ``kpos < valid_len`` are attended
+(``return_lse=True`` adds each row's log-sum-exp, -inf and output 0 where
+no key is: ``decode_attn.ref.with_lse``). The
 CPU path and the kernels' comparisons on the card use them; nothing on the
 main path calls them when a card is present.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.decode_attn.ref import with_lse
 
 NEG_INF = -2.3819763e38
 
@@ -21,7 +25,9 @@ def mla_latent_decode_ref(
     kr: torch.Tensor,         # (B, L, rope) — shared rotary key cache
     valid_len: torch.Tensor,  # (B,) int32 — attends to kpos < valid_len
     scale: float,
-) -> torch.Tensor:            # (B, H, rank) — latent context (w_uv applied outside)
+    *,
+    return_lse: bool = False,
+):                            # (B, H, rank) — latent context (w_uv applied outside)
     s = torch.einsum("bhr,blr->bhl", q_lat.float(), ckv.float())
     s = s + torch.einsum("bhk,blk->bhl", q_rope.float(), kr.float())
     s = s * scale
@@ -30,7 +36,10 @@ def mla_latent_decode_ref(
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhl,blr->bhr", p, ckv.float())
-    return ctx.to(q_lat.dtype)
+    out = ctx.to(q_lat.dtype)
+    if not return_lse:
+        return out
+    return with_lse(out, s, mask, tuple(out.shape[:2]))
 
 
 def mla_paged_latent_decode_ref(

@@ -23,6 +23,8 @@ from repro_torch.models.model import (
     params_from_numpy,
     prefill,
     prefill_suffix,
+    replica_mesh,
+    shard_map_replicas,
 )
 
 __all__ = [
@@ -42,4 +44,6 @@ __all__ = [
     "params_from_numpy",
     "prefill",
     "prefill_suffix",
+    "replica_mesh",
+    "shard_map_replicas",
 ]

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dtensor as dtm
 from repro_torch.kernels.decode_attn import (
     decode_attention,
     decode_attention_ref,
@@ -62,9 +63,40 @@ def _attn_scale(cfg) -> float:
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul."""
+    """einsum("bsd,dhk->bshk") as one matmul (on DTensors per shard:
+    ``_project_sharded``)."""
+    if dtm.is_dtensor(w):
+        return _project_sharded(x, w)
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_sharded(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_project`` under ``local_map`` (site ``attention.project``), the
+    split chosen per mesh dim from ``w``'s: heads split -> the output's heads
+    split (``x``'s gradient partial); ``d`` split on a dim the batch does not
+    use -> ``x`` cut along ``d`` and the output a partial sum; any other
+    split of ``w`` (its head dim ``k``, an FSDP shard of ``d``) gathered
+    first. DTensor's own propagation reaches splits of ``h * k`` that no
+    view back to (h, k) can take."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.device_mesh
+    x_pl, out_pl, w_pl, x_grad = [], [], [], []
+    for i, (px, pw) in enumerate(zip(dtm.batch_only(x), w.placements)):
+        if pw.is_shard() and pw.dim == 1:
+            x_pl.append(px); w_pl.append(pw); out_pl.append(Shard(2)); x_grad.append(Partial())
+        elif pw.is_shard() and pw.dim == 0 and not px.is_shard():
+            x_pl.append(Shard(2)); w_pl.append(pw); out_pl.append(Partial())
+            x_grad.append(Shard(2))
+        else:
+            x_pl.append(px); w_pl.append(Replicate()); out_pl.append(px); x_grad.append(px)
+    x_pl, w_pl, out_pl = tuple(x_pl), tuple(w_pl), tuple(out_pl)
+    return dtm.site("attention.project", _project, out_placements=(out_pl,),
+                    in_placements=(x_pl, w_pl), mesh=mesh,
+                    in_grad_placements=(
+                        tuple(x_grad), dtm.partial_over(w_pl, dtm.shard_dim_axes_of(x_pl, 0))))(
+        dtm.pin_grad(x), w)
 
 
 def _out_project(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -78,15 +110,19 @@ def attention_prefill(q, k, v, *, scale: float, window: int = 0,
     """Causal grouped attention for prefill, in plain PyTorch: the
     counterpart of ``repro.models.flash.attention_prefill_auto`` (its naive
     branch; the blocked custom-VJP branch computes the same function).
-    q (B,S,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv) -> (B,S,H,Dv)."""
+    q (B,S,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv) -> (B,S,H,Dv). On DTensors it
+    runs per shard (``_per_head_shard``, site ``attention.prefill``)."""
+    if dtm.is_dtensor(q):
+        return _per_head_shard("attention.prefill", lambda *t: attention_prefill(
+            *t, scale=scale, window=window, softcap=softcap), q, k, v)
     b, s, h, dk = q.shape
     l, kv = k.shape[1], k.shape[2]
     g = h // kv
     qg = q.reshape(b, s, kv, g, dk)
     sc = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * scale
     sc = softcap_logits(sc, softcap)
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(l, device=q.device)[None, :]
+    qpos = dtm.arange(s, sc)[:, None]
+    kpos = dtm.arange(l, sc)[None, :]
     mask = kpos <= qpos
     if window > 0:
         mask &= (qpos - kpos) < window
@@ -94,6 +130,19 @@ def attention_prefill(q, k, v, *, scale: float, window: int = 0,
     p = torch.softmax(sc, dim=-1)
     ctx = torch.einsum("bkgsl,blkd->bskgd", p.to(v.dtype), v)
     return ctx.reshape(b, s, h, v.shape[-1])
+
+
+def _per_head_shard(name: str, fn, q, k, v):
+    """``fn(q, k, v)``, an attention core over (B, S|L, heads, D) tensors,
+    under ``local_map`` (site ``name``): batch over the data axes, KV heads
+    (and their query groups) over ``model`` where the KV heads divide it,
+    else every head on every ``model`` rank. No communication; its einsums
+    are never split by DTensor's strategy search, which a 3-axis mesh
+    makes slow."""
+    mesh = q.device_mesh
+    kv_pl = dtm.axis_layout(mesh, batch=(0, q.shape[0]), heads=(2, k.shape[2]))
+    return dtm.site(name, fn, out_placements=(kv_pl,), in_placements=(kv_pl,) * 3,
+                    mesh=mesh)(q, k, v)
 
 
 def self_attention_prefill(
@@ -105,7 +154,7 @@ def self_attention_prefill(
     cache: Optional[Dict] = None,    # written at [0:S] in place when given
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = dtm.arange(s, x)[None, :]
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
@@ -114,9 +163,37 @@ def self_attention_prefill(
                             softcap=cfg.attn_softcap).to(x.dtype)
     out = _out_project(ctx, params["wo"])
     if cache is not None:
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        write_prefix(cache["k"], k)
+        write_prefix(cache["v"], v)
     return out, cache
+
+
+def write_prefix(buf: torch.Tensor, new: torch.Tensor) -> None:
+    """``buf[:, :S] = new`` IN PLACE (new (B, S, ...), buf (B, L, ...)). On
+    a DTensor cache whose sequence is split over ranks, each rank writes
+    the rows of its own range (``local_map`` site ``write_prefix``): ``new`` is cut
+    as the cache is where S == L, else replicated over the sequence's axes
+    and sliced."""
+    if not dtm.is_dtensor(buf):
+        buf[:, :new.shape[1]] = new.to(buf.dtype)
+        return
+    mesh, seq_dims, s = buf.device_mesh, dtm.shard_dim_axes_of(buf.placements, 1), new.shape[1]
+    even = s == buf.shape[1]
+    new_pl = buf.placements if even else dtm.batch_only(buf)
+
+    def local(b, n):
+        if even:
+            b.copy_(n.to(b.dtype))
+            return b
+        n_loc = b.shape[1]
+        off = dtm.shard_index(mesh, seq_dims) * n_loc
+        hi = min(max(s - off, 0), n_loc)
+        if hi:
+            b[:, :hi] = n[:, off:off + hi].to(b.dtype)
+        return b
+
+    dtm.site("write_prefix", local, out_placements=(buf.placements,),
+             in_placements=(buf.placements, new_pl), mesh=mesh)(buf, new)
 
 
 def self_attention_prefill_suffix(
@@ -201,7 +278,7 @@ def decode_index(lengths: torch.Tensor, cfg, *, rope_dim: int, max_len: int = 0,
     cos, sin = rope_tables(lengths[:, None], rope_dim, cfg.rope_theta)
     ln = lengths.long()
     if block_tables is None:
-        rows = torch.arange(ln.shape[0], device=ln.device)
+        rows = dtm.arange(ln.shape[0], ln)
         pos = ln.clamp(max=max_len - 1)
         keep = ln < max_len
     else:
@@ -256,12 +333,98 @@ def self_attention_decode(
     if index is None:
         index = decode_index(lengths, cfg, rope_dim=cfg.head_dim, max_len=cache["k"].shape[1])
     q, k_new, v_new = _decode_qkv(params, x, index)
-    _write_token(cache["k"], k_new, index)
-    _write_token(cache["v"], v_new, index)
     fn = decode_attention_ref if plain else decode_attention
-    ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], index.valid_len,
-             scale=_attn_scale(cfg), **_kernel_options(cfg, is_global))
+    opts = dict(scale=_attn_scale(cfg), **_kernel_options(cfg, is_global))
+    if dtm.is_dtensor(cache["k"]):
+        ctx = decode_over_split_cache(
+            "attention.decode", lambda qs, kv, vl: fn(qs[0], kv[0], kv[1], vl, return_lse=True,
+                                                      **opts),
+            [q[:, 0]], [k_new[:, 0], v_new[:, 0]], [cache["k"], cache["v"]], lengths,
+            window=opts["window"], index=index)
+    else:
+        _write_token(cache["k"], k_new, index)
+        _write_token(cache["v"], v_new, index)
+        ctx = fn(q[:, 0].contiguous(), cache["k"], cache["v"], index.valid_len, **opts)
     return _out_project(ctx[:, None].to(x.dtype), params["wo"]), cache
+
+
+def decode_over_split_cache(name: str, attend, queries, new_rows, caches, lengths, *,
+                            window: int = 0, index: Optional[DecodeIndex] = None
+                            ) -> torch.Tensor:
+    """One decode step's cache write and attention over DTensor caches
+    whose batch may be split over the data axes and whose SEQUENCE may be
+    split over others (``_CACHE_RULES``: gemma-2b's kv=1 cannot split
+    heads), under ``local_map`` (site ``name``).
+
+    ``queries`` and ``new_rows`` are per-row tensors (B, ...), ``caches``
+    the (B, L, ...) leaves the rows are written into, ``lengths`` (B,).
+    On each rank, with its shard holding keys ``[off, off + L_loc)``:
+
+    * the new token's row lands on the one rank whose range holds
+      ``lengths[b]`` (nothing is written where ``lengths[b] >= L``, as on
+      one device);
+    * ``attend(queries, caches, valid_len)`` runs the decode kernel over
+      the local keys with ``valid_len = lengths + 1 - off`` (0 where the
+      shard holds no attended key: weight 0, never NaN) and returns its
+      output and log-sum-exp;
+    * the kernels' own split-and-combine finishes across ranks: an
+      all-reduce MAX of the log-sum-exp, then one SUM of the rescaled
+      outputs and their weights. The cache is never gathered.
+
+    Caches replicated whole (a mesh of one rank) take the step's ``index``
+    and run exactly the single-device write and call.
+    """
+    mesh, ref = caches[0].device_mesh, caches[0]
+    seq_dims = dtm.shard_dim_axes_of(ref.placements, 1)
+    row_pl = dtm.batch_only(ref)
+    l_total = ref.shape[1]
+    n_q, n_new = len(queries), len(new_rows)
+    split = dtm.shard_count(mesh, seq_dims) > 1
+    whole = index is not None and all(p.is_replicate() for p in ref.placements)
+    if whole:
+        def local(*args):
+            qs, news = args[:n_q], args[n_q:n_q + n_new]
+            bufs, (rows, pos, keep, vl) = args[n_q + n_new:-4], args[-4:]
+            ix = DecodeIndex(None, None, vl, rows, pos, keep)
+            for buf, new in zip(bufs, news):
+                _write_token(buf, new[:, None], ix)
+            return attend([t.contiguous() for t in qs], bufs, vl)[0]
+
+        rep = dtm.replicate(row_pl)
+        fn = dtm.site(name, local, out_placements=(rep,),
+                      in_placements=(rep,) * (n_q + n_new + len(caches) + 4), mesh=mesh)
+        return fn(*queries, *new_rows, *caches, index.rows, index.pos, index.keep,
+                  index.valid_len)
+
+    def local(*args):
+        qs, news = args[:n_q], args[n_q:n_q + n_new]
+        bufs, ln = args[n_q + n_new:-1], args[-1].long()
+        n_loc = bufs[0].shape[1]
+        off = dtm.shard_index(mesh, seq_dims) * n_loc
+        pos = ln - off
+        write = (pos >= 0) & (pos < n_loc) & (ln < l_total)
+        rows = torch.arange(ln.shape[0], device=ln.device)
+        at = pos.clamp(0, n_loc - 1)
+        for buf, new in zip(bufs, news):
+            keep = write.view((-1,) + (1,) * (new.dim() - 1))
+            buf[rows, at] = torch.where(keep, new.to(buf.dtype), buf[rows, at])
+        vl = (ln + 1 - off).clamp(min=0)
+        if window > 0:      # the window starts past this shard: no key here
+            vl = torch.where(vl - window < n_loc, vl, torch.zeros_like(vl))
+        out, lse = attend([t.contiguous() for t in qs], bufs, vl.to(torch.int32))
+        if not split:
+            return out
+        m = dtm.all_reduce(lse, "max", mesh, seq_dims)
+        w = torch.exp(lse - m)[..., None]                       # 0 where lse = -inf
+        part = torch.cat([out.float() * w, w], dim=-1)
+        tot = dtm.all_reduce(part, "sum", mesh, seq_dims)
+        return (tot[..., :-1] / tot[..., -1:]).to(out.dtype)
+
+    fn = dtm.site(name, local, out_placements=(row_pl,),
+                  in_placements=(row_pl,) * (n_q + n_new)
+                  + tuple(c.placements for c in caches) + (row_pl,),
+                  mesh=mesh)
+    return fn(*queries, *new_rows, *caches, lengths)
 
 
 def self_attention_decode_paged(
@@ -318,12 +481,19 @@ def cross_attention_apply(params: Dict, x: torch.Tensor, enc_cache: Dict, cfg) -
     P.V; the output scaled by ``tanh(gate)``."""
     q = _project(x, params["wq"])
     k, v = enc_cache["k"].to(x.dtype), enc_cache["v"].to(x.dtype)
+    if dtm.is_dtensor(q):
+        ctx = _per_head_shard("attention.cross", lambda *t: _cross_core(*t, cfg), q, k, v)
+    else:
+        ctx = _cross_core(q, k, v, cfg)
+    gate = torch.tanh(params["gate"].float()).to(x.dtype)
+    return _out_project(ctx.to(x.dtype), params["wo"]) * gate
+
+
+def _cross_core(q, k, v, cfg):
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(b, s, n_kv, h // n_kv, hd)
     sc = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * _attn_scale(cfg)
     p = torch.softmax(softcap_logits(sc, cfg.attn_softcap), dim=-1)
     ctx = torch.einsum("bkgsl,blkd->bskgd", p.to(v.dtype), v)
-    ctx = ctx.reshape(b, s, h, v.shape[-1]).to(x.dtype)
-    gate = torch.tanh(params["gate"].float()).to(x.dtype)
-    return _out_project(ctx, params["wo"]) * gate
+    return ctx.reshape(b, s, h, v.shape[-1])

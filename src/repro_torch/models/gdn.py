@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dtensor as dtm
 from repro_torch.kernels.gdn import gdn_prefill as gdn_scan_prefill
 from repro_torch.models.attention import _project
 from repro_torch.models.layers import normal_init, rmsnorm
@@ -80,11 +81,26 @@ def _finish(params, y, x, cfg):
     return y @ params["w_out"]
 
 
+def _gdn_scan(q, k, v, beta, alpha, *, plain: bool):
+    """The gated-delta-rule scan (``kernels.gdn.gdn_prefill``). On DTensors
+    it runs per shard (``local_map`` site ``gdn.scan``: batch over the data
+    axes, heads over ``model``); it needs no communication, and its
+    backward kernels run on the same shards."""
+    if not dtm.is_dtensor(q):
+        return gdn_scan_prefill(q, k, v, beta, alpha, plain=plain)
+    mesh, bsz, h = q.device_mesh, q.shape[0], q.shape[2]
+    lay = lambda hd: dtm.axis_layout(mesh, batch=(0, bsz), heads=(hd, h))
+    fn = dtm.site("gdn.scan", lambda *t: gdn_scan_prefill(*t, plain=plain),
+                  out_placements=(lay(2), lay(1)),
+                  in_placements=(lay(2),) * 5, mesh=mesh)
+    return fn(q, k, v, beta, alpha)
+
+
 def gdn_prefill(params: Dict, x: torch.Tensor, cfg, *, cache: Optional[Dict] = None,
                 plain: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The whole (padded) prompt; the final state is written into ``cache``
     in place. ``plain=True`` scans with the kernel's plain version."""
-    y, final = gdn_scan_prefill(*_qkv_gates(params, x, cfg), plain=plain)
+    y, final = _gdn_scan(*_qkv_gates(params, x, cfg), plain=plain)
     out = _finish(params, y, x, cfg)
     if cache is not None:
         cache["gdn"].copy_(final)

@@ -28,7 +28,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.mla_decode import mla_fused_decode, mla_paged_fused_decode
+from repro_torch import dtensor as dtm
+from repro_torch.kernels.mla_decode import (
+    mla_fused_decode,
+    mla_latent_decode,
+    mla_latent_decode_ref,
+    mla_paged_fused_decode,
+)
+from repro_torch.kernels.mla_decode.ops import _absorb_out, _absorb_q
 from repro_torch.models.attention import (
     NEG_INF,
     DecodeIndex,
@@ -37,6 +44,8 @@ from repro_torch.models.attention import (
     _write_token,
     attention_prefill,
     decode_index,
+    decode_over_split_cache,
+    write_prefix,
 )
 from repro_torch.models.layers import normal_init, rmsnorm, rope_tables, rotate
 
@@ -122,7 +131,7 @@ def mla_prefill(
     the plain causal ``attention_prefill``, as the reference's
     ``_attend_absorbed_blocked``; ``absorb=False``: the naive path, causal."""
     s = x.shape[1]
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = dtm.arange(s, x)[None, :]
     cos, sin = rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
     q_nope, q_rope = _queries(params, x, cos, sin, cfg)
     ckv, kr = _latents(params, x, cos, sin, cfg)
@@ -138,8 +147,8 @@ def mla_prefill(
         mask = (steps[:, None] >= steps[None, :])[None, None]
         out = _attend_naive(params, q_nope, q_rope, ckv, kr, mask, cfg, x.dtype)
     if cache is not None:
-        cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
-        cache["kr"][:, :s] = kr.to(cache["kr"].dtype)
+        write_prefix(cache["ckv"], ckv)
+        write_prefix(cache["kr"], kr)
     return out, cache
 
 
@@ -150,6 +159,22 @@ def _decode_latents(params, x, cache, index: DecodeIndex, cfg):
     _write_token(cache["ckv"], ckv_new, index)
     _write_token(cache["kr"], kr_new, index)
     return q_nope[:, 0], q_rope[:, 0]
+
+
+def _decode_split(params, x, cache, lengths, index: DecodeIndex, cfg, plain: bool):
+    """The absorbed decode over DTensor latent caches: the absorb products
+    propagate, the latent row's write and kernel 4 run per shard in
+    ``attention.decode_over_split_cache`` (its sequence may be split)."""
+    q_nope, q_rope = _queries(params, x, index.cos, index.sin, cfg)
+    ckv_new, kr_new = _latents(params, x, index.cos, index.sin, cfg)
+    fn = mla_latent_decode_ref if plain else mla_latent_decode
+    scale = _mla_scale(cfg)
+    ctx_lat = decode_over_split_cache(
+        "mla.decode", lambda qs, c, vl: fn(qs[0], qs[1], c[0], c[1], vl, scale=scale,
+                                           return_lse=True),
+        [_absorb_q(params["w_uk"], q_nope[:, 0]), q_rope[:, 0]],
+        [ckv_new[:, 0], kr_new[:, 0]], [cache["ckv"], cache["kr"]], lengths, index=index)
+    return _absorb_out(ctx_lat, params["w_uv"], params["w_o"])
 
 
 def _decode_naive(params, x, q_nope, q_rope, ckv, kr, lengths, cfg):
@@ -179,6 +204,9 @@ def mla_decode(
     if index is None:
         index = decode_index(lengths, cfg, rope_dim=cfg.qk_rope_head_dim,
                              max_len=cache["ckv"].shape[1])
+    if absorb and dtm.is_dtensor(cache["ckv"]):
+        return _decode_split(params, x, cache, lengths, index, cfg, plain)[:, None].to(
+            x.dtype), cache
     q_nope, q_rope = _decode_latents(params, x, cache, index, cfg)
     if not absorb:
         return _decode_naive(params, x, q_nope, q_rope, cache["ckv"], cache["kr"], lengths,

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dtensor as dtm
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import gdn as gdn_mod
@@ -303,7 +304,7 @@ def _block(kind: str, bp: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
             a_out, _ = attn.self_attention_decode(
                 bp["attn"], h, bc, lengths, cfg, is_global=is_global,
                 plain=plain, index=step_index(kind, bc))
-    x = x + a_out
+    x = dtm.constrain_batch(x + a_out)     # DTensors: the residual stays batch-sharded
     h = rmsnorm(bp["norm2"], x, cfg.rms_eps)
     if kind == "mla_moe":         # the aux loss stays out, as in the reference
         return x + moe_mod.moe_mlp(bp["moe"], h, cfg)
@@ -362,7 +363,8 @@ def _run_stages(params: Dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
                 bc = {key: t[u] for key, t in _sc[f"b{i}"].items()} if _sc is not None else None
                 x = _block(kind, bp, x, cfg, mode, bc, lengths, enc_states, block_tables,
                            active, plain, prefix_len, step_index)
-            return x
+            # DTensor activations stay batch-sharded across unit boundaries
+            return dtm.constrain_batch(x)
 
         for u in range(stage.n_units):
             if remat and mode == "train":
@@ -414,11 +416,12 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *
     ``prompt_lengths`` included, so its state holds the padding too."""
     b, s = inputs.shape[0], inputs.shape[1]
     if prompt_lengths is None:
-        prompt_lengths = torch.full((b,), s, dtype=torch.int32, device=inputs.device)
+        prompt_lengths = dtm.lift(torch.full((b,), s, dtype=torch.int32, device=inputs.device),
+                                  inputs)
     x = _embed_inputs(params, cfg, inputs)
     x = _run_stages(params, cfg, x, "prefill", cache, None, plain=plain, enc_states=enc_states)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    last = x[torch.arange(b, device=x.device), prompt_lengths.long() - 1]
+    last = x[dtm.arange(b, x), prompt_lengths.long() - 1]
     return logits(params, cfg, last[:, None])[:, 0], cache, prompt_lengths
 
 
@@ -467,3 +470,60 @@ def decode_step_paged(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                     block_tables=block_tables, active=active, plain=plain)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return logits(params, cfg, x)[:, 0], cache, lengths + 1
+
+
+# ---------------------------------------------------------------------------
+# Replica batching over ranks. The event engine folds a fused group of K
+# replicas into one step of batch p2 x B over a ``CacheBank`` (the port's
+# counterpart of the reference's ``vmap_replicas``). ``shard_map_replicas``
+# lays that step out over a 1-D ``replica`` mesh of every rank that is up,
+# the reference's ``shard_map`` over the host's devices: each rank runs its
+# members' rows, and per-replica computations never communicate.
+
+
+def replica_mesh():
+    """A 1-D ``("replica",)`` mesh over the process group that is up:
+    ``"cuda"`` under NCCL, else ``"cpu"``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (dist.get_world_size(),),
+                            mesh_dim_names=("replica",))
+
+
+def shard_map_replicas(step_fn, n_args: int, n_broadcast: int = 1, *, out_dims,
+                       in_dims=None, mesh=None):
+    """``step_fn`` under ``local_map`` over a 1-D replica mesh (``mesh``, or
+    ``replica_mesh()``): the first ``n_broadcast`` arguments (the weights)
+    ``Replicate``, every leaf of the others ``Shard`` on its replica axis
+    (``in_dims``, one per stacked argument, default 0: a bank's cache leaves
+    carry their rows on dim 1). Every rank passes the same full arguments
+    and cuts its shard locally; ``out_dims`` gives the replica axis of each
+    output LEAF (flattened), and each output comes back whole (gathered),
+    as the reference's ``shard_map`` returns a global array. The replica
+    axis must split evenly (p2 divides the world)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+    dims = tuple(in_dims) if in_dims is not None else (0,) * (n_args - n_broadcast)
+
+    def run(*args):
+        m = mesh if mesh is not None else replica_mesh()
+        placed, in_pl = [], []
+        for i, a in enumerate(args):
+            leaves, spec = tree_flatten(a)
+            if i < n_broadcast:
+                pl = (Replicate(),)
+                leaves = [DTensor.from_local(t, m, pl, run_check=False) for t in leaves]
+            else:
+                pl = (Shard(dims[i - n_broadcast]),)
+                leaves = [distribute_tensor(t, m, pl, src_data_rank=None) for t in leaves]
+            in_pl += [pl] * len(leaves)
+            placed.append(tree_unflatten(leaves, spec))
+        out = local_map(step_fn, out_placements=tuple((Shard(d),) for d in out_dims),
+                        in_placements=tuple(in_pl), device_mesh=m)(*placed)
+        return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, out)
+
+    return run

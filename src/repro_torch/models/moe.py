@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dtensor as dtm
 from repro_torch.models.layers import init_mlp, mlp, normal_init
 
 
@@ -77,11 +78,26 @@ def load_balance_loss(gates: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
 def moe_mlp(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (B, S, d) -> out (B, S, d)."""
     b, s, d = x.shape
+    if dtm.is_dtensor(x):
+        out = _routed_sharded(params, x, cfg)
+    else:
+        out = _routed(x.reshape(b * s, d), params["router"], params["w_gate"], params["w_up"],
+                      params["w_down"], cfg).reshape(b, s, d)
+    if "shared" in params:
+        out = out + mlp(params["shared"], x, "swiglu")
+    return out
+
+
+def _routed(xf, router, w_gate, w_up, w_down, cfg, e_lo: int = 0) -> torch.Tensor:
+    """The routed experts over tokens xf (T, d) -> (T, d). ``w_*`` may hold
+    only experts ``[e_lo, e_lo + E_loc)`` (one rank's share): entries routed
+    to other experts then weigh 0 here, and the ranks' outputs sum to the
+    whole."""
+    t, d = xf.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
-    t = b * s
-    xf = x.reshape(t, d)
+    e_loc = w_gate.shape[0]
     cap = _capacity(cfg, t)
-    _, topw, topi = route(params, xf, cfg)
+    _, topw, topi = route({"router": router}, xf, cfg)
 
     # rank of each (token, slot) entry within its expert, in (token, slot)
     # order: the one-hot cumsum, taken along the inner dimension (E, T*k)
@@ -89,23 +105,56 @@ def moe_mlp(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     onehot = F.one_hot(flat_e, e).t()                                      # (E, T*k)
     pos = ((onehot.cumsum(1) - 1) * onehot).sum(0)                         # (T*k,)
     keep = pos < cap
+    if e_loc != e:                  # entries of other ranks' experts: dropped here
+        flat_e = flat_e - e_lo
+        keep = keep & (flat_e >= 0) & (flat_e < e_loc)
+        flat_e = flat_e.clamp(0, e_loc - 1)
     pos_c = torch.where(keep, pos, torch.full_like(pos, cap))              # cap: overflow row
 
-    tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
-    disp = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    tok_idx = torch.arange(t, device=xf.device).repeat_interleave(k)
+    disp = torch.zeros((e_loc, cap + 1, d), dtype=xf.dtype, device=xf.device)
     disp[flat_e, pos_c] = xf[tok_idx]
     routed = disp[:, :cap]
-    h = F.silu(torch.bmm(routed, params["w_gate"])) * torch.bmm(routed, params["w_up"])
-    y_exp = torch.bmm(h, params["w_down"])                                 # (E, cap, d)
+    h = F.silu(torch.bmm(routed, w_gate)) * torch.bmm(routed, w_up)
+    y_exp = torch.bmm(h, w_down)                                           # (E, cap, d)
 
     gathered = y_exp[flat_e, pos_c.clamp(max=cap - 1)]                     # (T*k, d)
     weights = torch.where(keep, topw.reshape(-1), torch.zeros_like(topw.reshape(-1)))
-    contrib = (gathered * weights.to(x.dtype)[:, None]).reshape(t, k, d)
+    contrib = (gathered * weights.to(xf.dtype)[:, None]).reshape(t, k, d)
     combined = contrib[:, 0]
     for j in range(1, k):
         combined = combined + contrib[:, j]
+    return combined
 
-    out = combined.reshape(b, s, d)
-    if "shared" in params:
-        out = out + mlp(params["shared"], x, "swiglu")
-    return out
+
+def _routed_sharded(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The routed experts over DTensors, as expert parallelism (``local_map``
+    site ``moe.experts``): tokens split over the data axes as the batch is,
+    the experts over the mesh dims that split their weights' expert dim.
+    Each rank routes its tokens (the capacity is its own shard's, as a
+    shard_map dispatch counts it), runs its own experts and weighs 0 the
+    entries of others: a partial sum over the experts' axes, which DTensor
+    completes.
+    The weights' FSDP shards are gathered first. Gradients: the tokens'
+    partial over the experts' axes, the weights' over the batch's (the
+    router's over both)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, x = x.device_mesh, dtm.pin_grad(x)
+    exp_dims = dtm.shard_dim_axes_of(params["w_gate"].placements, 0)
+    x_pl = dtm.batch_only(x)
+    w_pl = tuple(Shard(0) if i in exp_dims else Replicate() for i in range(mesh.ndim))
+    rep = dtm.replicate(w_pl)
+
+    def local(xl, router, wg, wu, wd):
+        b, s, d = xl.shape
+        e_lo = dtm.shard_index(mesh, exp_dims) * wg.shape[0]
+        return _routed(xl.reshape(b * s, d), router, wg, wu, wd, cfg, e_lo).reshape(b, s, d)
+
+    batch = dtm.shard_dim_axes_of(x_pl, 0)
+    return dtm.site("moe.experts", local, out_placements=(dtm.partial_over(x_pl, exp_dims),),
+                    in_placements=(x_pl, rep, w_pl, w_pl, w_pl), mesh=mesh,
+                    in_grad_placements=(dtm.partial_over(x_pl, exp_dims),
+                                        dtm.partial_over(rep, batch + exp_dims))
+                    + (dtm.partial_over(w_pl, batch),) * 3)(
+        x, params["router"], params["w_gate"], params["w_up"], params["w_down"])

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dtensor as dtm
 from repro_torch.kernels.ssd import ssd_prefill
 from repro_torch.models.layers import normal_init, rmsnorm
 
@@ -65,10 +66,16 @@ def _split_proj(cfg, proj):
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor]):
     """Depthwise causal conv1d as the reference's window sum. u: (B,S,C),
-    w: (K,C). Returns (silu(y), new_state (B, K-1, C))."""
+    w: (K,C). Returns (silu(y), new_state (B, K-1, C)). On DTensors it runs
+    per shard (``local_map`` site ``ssm.conv``: batch over the data axes,
+    channels over ``model``), so neither it nor its gradient ever splits the
+    sequence."""
+    if dtm.is_dtensor(u):
+        return _causal_conv_sharded(u, w, b, state)
     k = w.shape[0]
     if state is None:
-        pad = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+        pad = dtm.lift(torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
+                                   device=u.device), u)
     else:
         pad = state.to(u.dtype)
     full = torch.cat([pad, u], dim=1)                     # (B, S+K-1, C)
@@ -76,11 +83,58 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y), full[:, full.shape[1] - (k - 1):, :]
 
 
+def _causal_conv_sharded(u, w, b, state):
+    mesh, (bsz, _, c) = u.device_mesh, u.shape
+    act = dtm.axis_layout(mesh, batch=(0, bsz), heads=(2, c))
+    wl = dtm.axis_layout(mesh, heads=(1, c))
+    bl = dtm.axis_layout(mesh, heads=(0, c))
+    if state is None:
+        fn = lambda ul, wl_, bl_: _causal_conv(ul, wl_, bl_, None)
+        batch = dtm.shard_dim_axes_of(act, 0)
+        return dtm.site("ssm.conv", fn, out_placements=(act, act),
+                        in_placements=(act, wl, bl), mesh=mesh,
+                        in_grad_placements=(act, dtm.partial_over(wl, batch),
+                                            dtm.partial_over(bl, batch)))(u, w, b)
+    return dtm.site("ssm.conv", _causal_conv, out_placements=(act, act),
+                    in_placements=(act, wl, bl, act), mesh=mesh)(u, w, b, state)
+
+
+def _ssd_scan(x, dt, a, b, c, plain: bool):
+    """The SSD scan (``kernels.ssd.ssd_prefill``). On DTensors it runs per
+    shard (``local_map`` site ``ssd.scan``: batch over the data axes, heads
+    over ``model``); it needs no communication, and its backward kernel
+    runs on the same shards."""
+    if not dtm.is_dtensor(x):
+        return ssd_prefill(x, dt, a, b, c, plain=plain)
+    mesh, bsz, h = x.device_mesh, x.shape[0], x.shape[2]
+    lay = lambda bd, hd: dtm.axis_layout(mesh, batch=None if bd is None else (bd, bsz),
+                                         heads=None if hd is None else (hd, h))
+    ins = (lay(0, 2), lay(0, 2), lay(None, 0), lay(0, None), lay(0, None))
+    batch, heads = dtm.shard_dim_axes_of(ins[0], 0), dtm.shard_dim_axes_of(ins[0], 2)
+    # gradients: A's partial over the batch's axes, the shared B / C's over
+    # the heads'
+    grads = ins[:2] + (dtm.partial_over(ins[2], batch),) + tuple(
+        dtm.partial_over(p, heads) for p in ins[3:])
+    fn = dtm.site("ssd.scan", lambda *t: ssd_prefill(*t, plain=plain),
+                  out_placements=(lay(0, 2), lay(0, 1)), in_placements=ins, mesh=mesh,
+                  in_grad_placements=grads)
+    return fn(x, dt, a, b, c)
+
+
 def ssd_step(x, dt, a, b, c, state):
     """Single-token recurrent step (decode).
 
     x: (B,H,P), dt: (B,H), b,c: (B,G,N), state: (B,H,P,N) fp32.
-    -> y (B,H,P) fp32, new state."""
+    -> y (B,H,P) fp32, new state. On DTensors it runs per shard
+    (``local_map`` site ``ssm.step``: batch over the data axes, heads over
+    ``model``; no communication)."""
+    if dtm.is_dtensor(state):
+        mesh, (bsz, h) = state.device_mesh, state.shape[:2]
+        lay = lambda hd: dtm.axis_layout(mesh, batch=None if hd == 0 else (0, bsz),
+                                         heads=None if hd is None else (hd, h))
+        return dtm.site("ssm.step", ssd_step, out_placements=(lay(1), lay(1)),
+                        in_placements=(lay(1), lay(1), lay(0), lay(None), lay(None), lay(1)),
+                        mesh=mesh)(x, dt, a, b, c, state)
     rep = x.shape[1] // b.shape[1]
     bh = b.repeat_interleave(rep, dim=1).float()          # (B,H,N)
     ch = c.repeat_interleave(rep, dim=1).float()
@@ -94,7 +148,9 @@ def ssd_step(x, dt, a, b, c, state):
 
 def _gates(params, x, cfg):
     """In-projection of x (B,S,d) -> z, the conv input [x; B; C], dt (fp32)."""
-    z, xs, b, c, dtp = _split_proj(cfg, x @ params["w_in"])
+    # on DTensors the in-projection is gathered whole before it is split
+    # (splitting a dim sharded over ``model`` reshards along the sequence)
+    z, xs, b, c, dtp = _split_proj(cfg, dtm.constrain_batch(x @ params["w_in"]))
     return z, torch.cat([xs, b, c], dim=-1), F.softplus(dtp.float() + params["dt_bias"])
 
 
@@ -119,8 +175,8 @@ def ssm_prefill(params: Dict, x: torch.Tensor, cfg, *, cache: Optional[Dict] = N
     conv_out, conv_state = _causal_conv(conv_in, params["conv_w"], params["conv_b"], None)
     xs, b, c = torch.split(conv_out, [d_inner, g * n, g * n], dim=-1)
     xs = xs.reshape(bsz, s, heads, p)
-    y, final_state = ssd_prefill(xs, dtv, -torch.exp(params["a_log"]),
-                                 b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n), plain=plain)
+    y, final_state = _ssd_scan(xs, dtv, -torch.exp(params["a_log"]),
+                               b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n), plain)
     out = _finish(params, y, xs, z, x, cfg)
     if cache is not None:
         cache["ssm"].copy_(final_state)

@@ -48,9 +48,11 @@ dependencies are ready. Consequences:
   a folded batch, where the reference's ``vmap`` keeps one capacity per
   replica. ``batch_replicas=False`` is the tuple dispatch: each member's
   own step (its own graph on a card) and K batch-1 prefills, the
-  reference's tuple-of-K baseline. ``batch_layout="shard_map"`` (the
-  replica axis over several devices) is dropped: the port serves on one
-  card, and it raises.
+  reference's tuple-of-K baseline. ``batch_layout="shard_map"`` runs the
+  bank too: the engine serves from one process, where the reference's
+  ``shard_map`` over one device is its ``vmap``. A replay over several
+  processes, whose bank would step through ``models.shard_map_replicas``,
+  is not ported.
 * **Fused admission prefill.** Admission events that pop at the same
   instant defer their prefills; the engine groups them by (config,
   params, prompt bucket) and issues each group as one dispatch (batched as
@@ -292,12 +294,6 @@ class EventDrivenFleet:
         if batch_layout not in BATCH_LAYOUTS:
             raise ValueError(f"batch_layout {batch_layout!r} not in "
                              f"{BATCH_LAYOUTS}")
-        if batch_layout == "shard_map":
-            raise ValueError(
-                "batch_layout='shard_map' lays the replica axis over several "
-                "devices; the port serves a fleet on one card (one CUDA "
-                "device), where the reference falls back to 'vmap' too: pass "
-                "batch_layout='vmap'")
         self.fleet = fleet
         self.fast_path_min = max(2, int(fast_path_min))
         self.fusion_quantum_s = float(fusion_quantum_s)

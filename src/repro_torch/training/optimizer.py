@@ -37,7 +37,7 @@ class AdamW:
     weight_decay: float = 0.1
 
     def init(self, params) -> AdamWState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)   # a DTensor's layout too
         device = T.leaves(params)[0].device
         return AdamWState(mu=T.map(zeros, params), nu=T.map(zeros, params),
                           count=torch.zeros((), dtype=torch.int32, device=device))

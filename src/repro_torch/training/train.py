@@ -5,6 +5,9 @@ Counterpart of ``repro.training.train``. ``make_train_step(cfg, ...)``
 returns ``train_step(state, batch) -> (state, metrics)``; in PyTorch's
 idiom the step updates the state's params and moments IN PLACE (the
 reference's ``donate_argnums`` has no counterpart) and returns the state.
+On DTensor state and batch (laid out by ``launch/sharding.py``) the step is
+the reference's pjit step: the gradients' partial sums are reduced to the
+params' layout (``reduce_like``) before anything reads them.
 Batch contract (tensors on the params' device):
 
     {"inputs": (B, S) int tokens  OR (B, S, d) embeddings (audio stub),
@@ -17,6 +20,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from repro_torch import dtensor as dtm
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import tree as T
@@ -77,9 +81,9 @@ def make_train_step(
         # split (B, ...) -> M x (B/M, ...) and accumulate fp32 grads over M
         mbs = [{k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])[i]
                 for k, v in batch.items()} for i in range(microbatches)]
-        loss_sum = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
-        grads_sum = T.map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                          params)
+        loss_sum = dtm.lift(torch.zeros((), dtype=torch.float32,
+                                        device=batch["labels"].device), batch["labels"])
+        grads_sum = T.map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         for mb in mbs:
             loss, grads = value_and_grad(params, cfg, mb, remat=remat, loss_chunk=loss_chunk)
             for a, g in zip(T.leaves(grads_sum), T.leaves(grads)):
@@ -93,6 +97,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         loss, grads = compute_grads(state.params, batch)
+        grads = T.map(reduce_like, grads, state.params)
         error_buf = state.error_buf
         if compression:
             grads, error_buf = compress_with_feedback(grads, error_buf)
@@ -108,6 +113,16 @@ def make_train_step(
         return TrainState(new_params, new_opt, state.step + 1, error_buf), metrics
 
     return train_step
+
+
+def reduce_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its param: the partial sums of a
+    param replicated over the data axes are all-reduced here, before
+    compression, clipping and AdamW, as GSPMD reduces them. A plain
+    gradient is returned as it is."""
+    if dtm.is_dtensor(g) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_eval_step(cfg: ModelConfig, *, loss_chunk: int = 512):

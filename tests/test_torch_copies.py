@@ -52,6 +52,7 @@ VERBATIM = [
     "configs/deepseek_v2_236b.py", "configs/deepseek_v2_lite_16b.py",
     "configs/zamba2_1_2b.py",
     "training/data.py", "training/fault.py", "training/__init__.py",
+    "launch/hlo_stats.py",
 ]
 _IMPORT = re.compile(r"^\s*(from|import)\s+repro(_torch)?[.\s]")
 ARCHS = ["gemma-2b", "qwen3-4b", "minicpm-2b", "mamba2-780m", "deepseek-v2-lite-16b"]

@@ -5,9 +5,10 @@ Reduced gemma-2b (and mamba2-780m for a mixed fleet), weights from
 of ``tests/test_events.py`` and ``tests/test_batched_dispatch.py`` held on
 the port — barrier equivalence on a shared clock, prefill/decode overlap,
 the fused decode and admission-prefill paths, the fusion quantum, pow2
-group buckets, autoscaler timers, the batched replica axis, params tokens
-and the spec's engine options — minus the ``shard_map`` and multi-device
-cases, replaced by one test that the layout raises. Greedy replays are
+group buckets, autoscaler timers, the batched replica axis (both
+``batch_layout``s: ``shard_map`` on one process runs the bank, as the
+reference runs ``vmap`` on one device), params tokens and the spec's
+engine options — minus the multi-device cases. Greedy replays are
 held to a live reference replay: tokens, every ledger stamp, modelled and
 measured joules and ``EngineStats`` (all but the wall-clock ledger, the
 bank and program counters included) equal, on shared and split clocks,
@@ -195,6 +196,7 @@ PARITY = {
     "fast2_tuple": {"fast_path_min": 2, "batch_replicas": False},
     "quantum": {"fast_path_min": 2, "fusion_quantum_s": 0.003},
     "quantum_wide": {"fast_path_min": 2, "fusion_quantum_s": 0.5, "fuse_prefill": False},
+    "shard_map": {"batch_layout": "shard_map"},
 }
 
 
@@ -487,14 +489,18 @@ def test_batched_mixed_arch_fleet(weights):
 
 
 def test_shard_map_layout_raises(weights):
-    """The ``shard_map`` layout (the replica axis over several devices) is
-    dropped: the port serves on one card, and the layout raises saying so,
-    from the engine and through ``FleetSpec.engine_opts``."""
-    with pytest.raises(ValueError, match="one card"):
-        S.EventDrivenFleet(_fleet(PORT, n=2), batch_layout="shard_map")
-    fleet = _fleet(PORT, n=2, engine_opts={"batch_layout": "shard_map"})
-    with pytest.raises(ValueError, match="one card"):
-        fleet.run_trace(_aligned(PORT, n=2))
+    """Only an unknown layout raises. ``shard_map`` is accepted, from the
+    engine and through ``FleetSpec.engine_opts``, and on one process (no
+    group up) it steps the bank: the same replay as ``vmap``, batched calls
+    and all (the reference's parity over it: ``PARITY["shard_map"]``)."""
+    S.EventDrivenFleet(_fleet(PORT, n=2), batch_layout="shard_map")
+    blobs, stats = [], []
+    for layout in ("vmap", "shard_map"):
+        fleet = _fleet(PORT, n=4, engine_opts={"batch_layout": layout, "fast_path_min": 2})
+        blobs.append(_blob(fleet.run_trace(_aligned(PORT)), fleet))
+        stats.append(_stats(fleet))
+    assert blobs[0] == blobs[1] and stats[0] == stats[1]
+    assert stats[1]["batched_decode_calls"] > 0
     with pytest.raises(ValueError, match="batch_layout"):
         S.EventDrivenFleet(_fleet(PORT, n=1), batch_layout="pmap")
 

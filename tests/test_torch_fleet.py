@@ -336,20 +336,26 @@ def _leaves(tree):
 
 # ---------------------------------------------------------------- refusals
 def test_event_engine_is_refused_on_a_virtual_clock(weights):
-    """The event engine runs on a virtual clock, and refuses there what the
-    port cannot run: ``batch_layout="shard_map"`` (the replica axis over
-    several devices), naming the single card, before anything runs; and,
-    as the reference, a fleet whose replicas have no controller."""
+    """The event engine runs on a virtual clock, and refuses there, before
+    anything runs, an unknown ``batch_layout`` and, as the reference, a
+    fleet whose replicas have no controller. ``batch_layout="shard_map"``
+    runs (on one process it steps the bank, as the reference runs ``vmap``
+    on one device), through a ``Fleet`` and a ``Cluster``."""
     tp = weights["qwen3-4b"][1]
     rspec = _rspec("solo", "qwen3-4b")
     fleet = Fleet.from_spec(FleetSpec(replicas=(rspec,)), emodel=EnergyModel(H200_SXM),
                             params_for={"qwen3-4b": tp}, device="cpu")
-    with pytest.raises(ValueError, match="one card"):
-        fleet.run_trace(_trace(generate_trace, 2), engine_opts={"batch_layout": "shard_map"})
+    with pytest.raises(ValueError, match="batch_layout"):
+        fleet.run_trace(_trace(generate_trace, 2), engine_opts={"batch_layout": "pmap"})
     cluster = Cluster.from_spec(rspec, params=tp, clock=VirtualClock(), device="cpu")
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="batch_layout"):
         cluster.run_trace(_trace(generate_trace, 2), engine="events",
-                          engine_opts={"batch_layout": "shard_map"})
+                          engine_opts={"batch_layout": "pmap"})
+    assert not fleet.busy() and not cluster.busy()                       # nothing ran
+    assert len(fleet.run_trace(_trace(generate_trace, 2),
+                               engine_opts={"batch_layout": "shard_map"})) == 2
+    assert len(cluster.run_trace(_trace(generate_trace, 2), engine="events",
+                                 engine_opts={"batch_layout": "shard_map"})) == 2
     bare = Fleet([Replica(reduced_config("qwen3-4b"), tp, max_seq_len=64, decode_batch=2,
                           clock=VirtualClock(), device="cpu")])
     with pytest.raises(ValueError, match="ClockController"):

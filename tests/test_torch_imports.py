@@ -69,6 +69,13 @@ DRYRUN_MODULES = (
 )
 
 
+# the multi-device layer: DTensor helpers, sharding rules, the collective
+# schedule's HLO parser (the mesh, cost and dry-run modules are above)
+MESH_MODULES = (
+    "repro_torch.dtensor", "repro_torch.launch.sharding", "repro_torch.launch.hlo_stats",
+)
+
+
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -81,7 +88,7 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        f"missing = sorted(set({KERNEL_MODULES + SERVING_MODULES + PAPER_MODULES + TRAINING_MODULES + DRYRUN_MODULES!r}) "
+        f"missing = sorted(set({KERNEL_MODULES + SERVING_MODULES + PAPER_MODULES + TRAINING_MODULES + DRYRUN_MODULES + MESH_MODULES!r}) "
         "- set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n"
