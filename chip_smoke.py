@@ -25,7 +25,12 @@ Phases; any failure exits non-zero:
    the port never calls it) beside the bound; kernels 1 and 4's
    log-sum-exp output (``return_lse``) against their twins at the main
    cases and at a cache shard's rows (valid_len 0, past L, a window
-   starting past L);
+   starting past L); kernel 3 and its backward with ``ssm_groups`` B/C
+   groups (G 8 and 80 at mamba2-4b's widths and 512-token bucket, fp32 and
+   bf16, launched once each and held against the plain versions; bf16
+   device ms of G 1, 8 and 80 beside their bounds); the sampling bits
+   (``serving.prng.uniform``) on the card equal the CPU's for several keys
+   and one (8, 256000) draw, and that draw's device time;
 4. for each served model -- full-width gemma-2b (GQA), minitron-4b-mla
    (absorbed MLA), mamba2-4b (Mamba2 SSD), gdn-4b (Gated DeltaNet),
    qwen3-4b (GQA, G = 4), minitron-4b (GQA, G = 3), gemma2-9b (GQA with
@@ -44,7 +49,10 @@ Phases; any failure exits non-zero:
    logits graph vs eager on copies of one cache, and kernel path vs plain
    path (for the recurrent models the prefill logits, the final states and
    one decode step after them); then fp32 graph engines (dense, paged)
-   whose greedy streams must agree; for gemma2-9b also two
+   whose greedy streams must agree; for gemma-2b also the dense graph and
+   eager runs with every third prompt sampled at temperature 0.7 (the
+   reference's key splits, the uniform drawn on the card): the two sampled
+   streams equal; for gemma2-9b also two
    requests of ~4200 tokens in a cache of 8192, past its 4096 window,
    dense and paged, kernel vs plain logits over three decode steps;
 4b. ``[mesh]``: the multi-device layer on a one-rank NCCL group: its (1, 1)
@@ -490,6 +498,20 @@ SCAN_BWD_RTOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SCAN_BWD_NO_LIBRARY = "no PyTorch call computes the backward of either scan"
 
 
+# ssm_groups > 1 through kernel 3 and its backward: mamba2-4b's widths and
+# 512-token bucket (B, S, H, P, N) with G groups of B/C, each head reading
+# group h // (H / G); G = 1 is timed beside them in the same call
+SSD_GROUP_SHAPE = (1, 512, 80, 64, 128)
+SSD_GROUPS = (8, 80)
+# the sampling draw: keys for the device-vs-CPU bits check, and the shape of
+# one draw timed (batch 8 x gemma-2b's 256 000-entry vocabulary)
+PRNG_SEEDS = (0, 1, 42, 2**31 - 1)
+PRNG_DRAW = (8, 256000)
+# phase 4's sampled gemma-2b run: every third prompt at this temperature
+SAMPLED_ARCH = "gemma-2b"
+SAMPLED_TEMPERATURE = 0.7
+
+
 def case_seed(case) -> int:
     """The seed of a kernel case's inputs, made from the case itself, so
     that adding a case leaves every other case's inputs as they were; a GQA
@@ -623,15 +645,17 @@ def make_mla_inputs(torch, case, dtype, seed):
     return (q_lat, q_rope, ckv, kr, _tables(torch, g, valid, bs, l // bs, rows[0]), valid)
 
 
-def make_ssd_inputs(torch, shape, dtype, seed):
-    """Seeded SSD inputs (x, dt, a, b, c), scaled as tests/test_kernels.py's."""
+def make_ssd_inputs(torch, shape, dtype, seed, groups=None):
+    """Seeded SSD inputs (x, dt, a, b, c), scaled as tests/test_kernels.py's;
+    with ``groups`` b and c are (B, S, G, N)."""
     b, s, h, p, n = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((b, s, h, p), generator=g, device="cuda") * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device="cuda"))
     a = -torch.exp(torch.linspace(-2, 0.5, h, device="cuda"))
-    bm = (torch.randn((b, s, n), generator=g, device="cuda") * 0.3).to(dtype)
-    cm = (torch.randn((b, s, n), generator=g, device="cuda") * 0.3).to(dtype)
+    bc = (b, s, n) if groups is None else (b, s, groups, n)
+    bm = (torch.randn(bc, generator=g, device="cuda") * 0.3).to(dtype)
+    cm = (torch.randn(bc, generator=g, device="cuda") * 0.3).to(dtype)
     return (x, dt, a, bm, cm)
 
 
@@ -961,6 +985,148 @@ def check_scan_kernels(torch, kmod, records) -> None:
                 del sets
 
 
+def check_ssd_groups(torch, kmod) -> None:
+    """Phase 3 for ``ssm_groups > 1``: kernel 3 (``ssd_scan``) and its
+    backward (``ssd_scan_bwd``) at ``SSD_GROUP_SHAPE`` with G in
+    ``SSD_GROUPS`` groups of B/C, in fp32 and bf16, each launched once (a
+    count of the wrapper's launches: no plain fallback) and held against its
+    plain version (y and the final state at SCAN_TOL; every gradient, db and
+    dc per group, at SCAN_BWD_RTOL of its largest entry); then, in bf16, the
+    device ms of G = 1 and each G in one call, beside each one's bound from
+    ``kernels.cost`` with its G."""
+    from repro_torch.kernels import cost
+
+    timed = {}
+    for groups in SSD_GROUPS:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            seed = case_seed(("ssd_groups", groups, dname))
+            inputs = make_ssd_inputs(torch, SSD_GROUP_SHAPE, dtype, seed, groups=groups)
+            before = kmod.ssd_scan.launches
+            y, fs = kmod.ssd_scan(*inputs)
+            launched = kmod.ssd_scan.launches - before
+            want_y, want_fs = kmod.ssd_scan_ref(*inputs)
+            torch.cuda.synchronize()
+            err = max((y.float() - want_y).abs().max().item(), (fs - want_fs).abs().max().item())
+            ok = (launched == 1 and torch.allclose(y.float(), want_y, **SCAN_TOL[dname])
+                  and torch.allclose(fs, want_fs, **SCAN_TOL[dname]))
+            print(f"[groups] ssd_scan G={groups} {dname}: launches {launched}, max_abs_err="
+                  f"{err:.3e} tol={SCAN_TOL[dname]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"ssd_scan with {groups} groups disagrees with its plain "
+                                 f"version ({dname})")
+            gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+            dy = (torch.randn(inputs[0].shape, generator=gen, device="cuda") * 0.1).to(dtype)
+            before = kmod.ssd_scan_bwd.launches
+            got = kmod.ssd_scan_bwd(*inputs, dy, None)
+            launched = kmod.ssd_scan_bwd.launches - before
+            want = kmod.ssd_scan_bwd_ref(*inputs, dy, None)
+            torch.cuda.synchronize()
+            rel = {f"d{n}": ((g.float() - w).abs().max() / w.abs().max()).item()
+                   for n, g, w in zip(("x", "dt", "a", "b", "c"), got, want)}
+            ok = (launched == 1 and all(r <= SCAN_BWD_RTOL[dname] for r in rel.values())
+                  and [g.shape for g in got] == [t.shape for t in inputs])
+            print(f"[groups] ssd_scan_bwd G={groups} {dname}: launches {launched}, max |diff| / "
+                  f"max |twin| {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
+                  f"rtol {SCAN_BWD_RTOL[dname]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"ssd_scan_bwd with {groups} groups disagrees with its twin "
+                                 f"({dname})")
+            del got, want, y, fs, want_y, want_fs
+    for groups in (1,) + SSD_GROUPS:
+        inputs = make_ssd_inputs(torch, SSD_GROUP_SHAPE, torch.bfloat16, seed=7,
+                                 groups=None if groups == 1 else groups)
+        dy = (inputs[0].float() * 0.1).to(torch.bfloat16)
+        sets = cold_sets(inputs + (dy,))
+        fwd, _ = cuda_time_ms(torch, lambda *t: kmod.ssd_scan(*t[:5]), sets)
+        bwd, _ = cuda_time_ms(torch, lambda *t: kmod.ssd_scan_bwd(*t, None), sets, reps=10)
+        timed[groups] = {
+            "ssd_scan_ms": fwd,
+            "ssd_scan_bound_ms": cost.bound_ms(cost.ssd_scan(*SSD_GROUP_SHAPE, 2, g=groups))[0],
+            "ssd_scan_bwd_ms": bwd,
+            "ssd_scan_bwd_bound_ms": cost.bound_ms(
+                cost.ssd_scan_bwd(*SSD_GROUP_SHAPE, 2, g=groups))[0]}
+        del sets
+    print("[groups] bf16 device ms (CUDA graph) by G at B S H P N = "
+          f"{SSD_GROUP_SHAPE}: " + json.dumps(timed))
+    torch.cuda.empty_cache()
+
+
+def check_prng(torch) -> None:
+    """The sampling bits on the card: ``serving.prng.uniform`` for keys of
+    ``PRNG_SEEDS`` (and keys split from them) on the device equal the CPU's
+    bit for bit, and one ``PRNG_DRAW`` draw's device time."""
+    from repro_torch.serving import prng
+
+    keys = [k for seed in PRNG_SEEDS
+            for k in (prng.PRNGKey(seed), prng.split(prng.PRNGKey(seed))[1])]
+    for key in keys:
+        on_card = prng.uniform(key, (3, 1027), device="cuda").cpu()
+        on_host = prng.uniform(key, (3, 1027), device="cpu")
+        if not torch.equal(on_card.view(torch.int32), on_host.view(torch.int32)):
+            raise SystemExit(f"prng: the device uniform of key {key.tolist()} differs from the "
+                             f"CPU's")
+    big = prng.uniform(keys[1], PRNG_DRAW, device="cuda")
+    if not torch.equal(big.cpu().view(torch.int32),
+                       prng.uniform(keys[1], PRNG_DRAW, device="cpu").view(torch.int32)):
+        raise SystemExit(f"prng: a {PRNG_DRAW} device draw differs from the CPU's")
+    ms, eager = cuda_time_ms(torch, lambda k: prng.uniform(k, PRNG_DRAW, device="cuda"),
+                             [(keys[1],)], reps=10)
+    # the pool's sampling on the card against the CPU, on near-flat logits
+    # where the draw decides: the same tokens, and the sampled slots off the argmax
+    import numpy as np
+
+    from repro_torch.serving.pool import Pool
+
+    pool = Pool.__new__(Pool)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn(PRNG_DRAW, generator=gen, device="cuda") * 0.1
+    temps = np.array([SAMPLED_TEMPERATURE if i % 2 == 0 else 0.0 for i in range(PRNG_DRAW[0])],
+                     np.float32)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    pool.device = logits.device
+    on_card = pool._sample(logits, greedy, temps, keys[1]).cpu()
+    pool.device = torch.device("cpu")
+    on_host = pool._sample(logits.cpu(), greedy.cpu(), temps, keys[1])
+    moved = int((on_card != greedy.cpu()).sum())
+    if not torch.equal(on_card, on_host) or moved == 0:
+        raise SystemExit(f"prng: sampled tokens on the card {on_card.tolist()} against the "
+                         f"CPU's {on_host.tolist()} (greedy {greedy.tolist()})")
+    print(f"[prng] device uniform == CPU uniform bit for bit over {len(keys)} keys and one "
+          f"{PRNG_DRAW} draw: ok; Pool._sample on the card == on the CPU ({moved} of "
+          f"{PRNG_DRAW[0] // 2} sampled slots off the argmax); one {PRNG_DRAW} draw "
+          f"{ms * 1e3:.1f} us device (CUDA graph), {eager * 1e3:.1f} us eager")
+
+
+def sampled_runs(torch, kmod, cfg, params, prompts, greedy) -> None:
+    """Phase 4's sampled gemma-2b runs: the same prompts with every third at
+    ``SAMPLED_TEMPERATURE`` (the key split as the reference splits it, the
+    uniform drawn on the card), dense, with the decode step replayed from a
+    CUDA graph and eager: the two sampled streams must be equal, since a
+    graph step's logits are eager's. Prints how many tokens of the sampled
+    requests part from ``greedy`` (the greedy graph run's streams)."""
+    temps = [SAMPLED_TEMPERATURE if i % 3 == 0 else 0.0 for i in range(len(prompts))]
+    streams, runs = {}, {}
+    for graphs in (True, False):
+        mode = "graph" if graphs else "eager"
+        engine, reqs, info = serve(torch, cfg, params, prompts, paged=False, max_new=32,
+                                   kmod=kmod, graphs=graphs, temps=temps)
+        check_launches(cfg.name, f"dense {mode} sampled", False, cfg, engine.stats, info)
+        streams[mode] = [r.output for r in reqs]
+        steps = info["step_ms_batch8"]
+        runs[mode] = {"decode_steps": engine.stats.decode_steps,
+                      "graph_replays": info["graph_replays"],
+                      "decode_step_ms_batch8_mean": sum(steps) / len(steps) if steps else None}
+        del engine
+    if streams["graph"] != streams["eager"]:
+        raise SystemExit(f"{cfg.name}: sampled streams differ between graph and eager")
+    parted = sum(a != b for i, (s, g) in enumerate(zip(streams["graph"], greedy)) if temps[i]
+                 for a, b in zip(s, g))
+    print(f"[serve] {cfg.name} dense bf16 sampled (every third request at "
+          f"{SAMPLED_TEMPERATURE}): " + json.dumps(runs) + ", graph and eager streams equal; "
+          f"{parted} tokens of the sampled requests part from the greedy run's")
+
+
 def check_scan_bwd_kernels(torch, kmod, records) -> None:
     """Phase 3 for the scans' backward kernels: every case in fp32 and bf16,
     with dfinal absent and present, against the twin (``*_scan_bwd_ref``)
@@ -1056,7 +1222,8 @@ def expected_launches(arch, paged, cfg, stats, *, decode_steps=None, prefill_cal
     return want
 
 
-def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, graphs=True, profile=False):
+def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, graphs=True, profile=False,
+          temps=None):
     """One engine run over ``prompts`` through ``ServingEngine.step``, its
     decode step replayed from a CUDA graph (``graphs``) or eager; returns
     (engine, requests, info). Every kernel's launch count is set to 0 just
@@ -1066,7 +1233,8 @@ def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, graphs=True, pro
     are its count plus replays x captured launches. With ``profile``, five
     full-batch decode steps run under ``torch.profiler`` (and are left out
     of the step times) to split their wall time into device busy and idle;
-    with a graph, five more time each replay with CUDA events."""
+    with a graph, five more time each replay with CUDA events. ``temps``
+    gives each prompt's sampling temperature (default all greedy)."""
     from repro_torch.core.energy import EnergyModel
     from repro_torch.hw.chips import H200_SXM
     from repro_torch.serving import ClockController, ServingEngine
@@ -1074,7 +1242,9 @@ def serve(torch, cfg, params, prompts, *, paged, max_new, kmod, graphs=True, pro
     controller = ClockController(EnergyModel(H200_SXM), cfg, mode="lock")
     engine = ServingEngine(cfg, params, max_batch=8, max_seq_len=1024, controller=controller,
                            paged=paged, kv_block_size=16, device="cuda", cuda_graphs=graphs)
-    reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    temps = temps or [0.0] * len(prompts)
+    reqs = [engine.submit(p, max_new_tokens=max_new, temperature=t)
+            for p, t in zip(prompts, temps)]
     step_ms, prof_info, replay_info = [], None, None
     n_full = 0
     torch.cuda.synchronize()
@@ -1662,6 +1832,8 @@ def smoke(torch, F, dry, pod) -> int:
     check_aliased_pages(torch, kmod)
     check_scan_kernels(torch, kmod, records)
     check_scan_bwd_kernels(torch, kmod, records)
+    check_ssd_groups(torch, kmod)
+    check_prng(torch)
 
     # ---- 4. full-width models through ServingEngine
     for arch in MODELS:
@@ -1781,6 +1953,8 @@ def serve_model(torch, kmod, cfg, records) -> None:
             raise SystemExit(f"{arch} {tag} bf16: graph and eager greedy streams differ")
         print(f"[serve] {arch} {tag} bf16 graph vs eager: " + json.dumps(side_by_side(side))
               + ", greedy streams equal")
+    if arch == SAMPLED_ARCH:
+        sampled_runs(torch, kmod, cfg, params, prompts, side["graph"][1])
     print(f"[serve] {arch} max_memory_allocated={torch.cuda.max_memory_allocated()} bytes; "
           f"bf16 serving {time.perf_counter() - t_bf16:.1f} s")
     longest = max(prompts, key=len)

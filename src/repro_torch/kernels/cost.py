@@ -85,12 +85,12 @@ def mla_paged_latent_decode(b, h, rank, rope, elem, keys, pages) -> Cost:
     return _mla(b, h, rank, rope, elem, keys, pages)
 
 
-def _ssd_ops(b, s, h, p, n) -> int:
-    """Per token 2 Q N for c.b (shared by the heads), and per token and head
-    (Q + 1) P for the causal intra-chunk term, 2 N P for the inter-chunk
-    term and 2 N P for the state pass."""
+def _ssd_ops(b, s, h, p, n, g=1) -> int:
+    """Per token and B/C group 2 Q N for c.b (shared by the group's heads),
+    and per token and head (Q + 1) P for the causal intra-chunk term, 2 N P
+    for the inter-chunk term and 2 N P for the state pass."""
     q = SCAN_CHUNK
-    return b * s * (2 * q * n + h * ((q + 1) * p + 4 * n * p))
+    return b * s * (2 * q * n * g + h * ((q + 1) * p + 4 * n * p))
 
 
 def _gdn_ops(b, s, h, k) -> int:
@@ -102,13 +102,13 @@ def _gdn_ops(b, s, h, k) -> int:
     return b * s * h * (5 * SCAN_CHUNK * k + 6 * k * k)
 
 
-def ssd_scan(b, s, h, p, n, elem) -> Cost:
-    """Kernel 3: x, dt, a, b, c read, y and the fp32 final state written;
-    bf16 inputs run the products on bf16 tensor cores, fp32 on the CUDA
-    cores."""
-    nbytes = 2 * b * s * h * p * elem + 4 * b * s * h + 4 * h + 2 * b * s * n * elem \
+def ssd_scan(b, s, h, p, n, elem, g=1) -> Cost:
+    """Kernel 3: x, dt, a, b, c read (G groups of B/C), y and the fp32
+    final state written; bf16 inputs run the products on bf16 tensor cores,
+    fp32 on the CUDA cores."""
+    nbytes = 2 * b * s * h * p * elem + 4 * b * s * h + 4 * h + 2 * b * s * g * n * elem \
         + 4 * b * h * p * n
-    return Cost(nbytes, _ssd_ops(b, s, h, p, n), _float(elem))
+    return Cost(nbytes, _ssd_ops(b, s, h, p, n, g), _float(elem))
 
 
 def gdn_scan(b, s, h, k, elem) -> Cost:
@@ -118,13 +118,14 @@ def gdn_scan(b, s, h, k, elem) -> Cost:
     return Cost(nbytes, _gdn_ops(b, s, h, k), "bfloat16" if elem == 2 else "tfloat32")
 
 
-def ssd_scan_bwd(b, s, h, p, n, elem) -> Cost:
+def ssd_scan_bwd(b, s, h, p, n, elem, g=1) -> Cost:
     """The SSD backward without dfinal: the forward's inputs and dy read,
-    every gradient written; three times the forward's operations (the states
-    are not among the inputs, so the forward is recomputed, and each of its
-    products has two products as its backward)."""
-    nbytes = 3 * b * s * h * p * elem + 4 * b * s * n * elem + 8 * b * s * h + 8 * h
-    return Cost(nbytes, 3 * _ssd_ops(b, s, h, p, n), _float(elem))
+    every gradient written (b, c, db and dc of G groups); three times the
+    forward's operations (the states are not among the inputs, so the
+    forward is recomputed, and each of its products has two products as its
+    backward)."""
+    nbytes = 3 * b * s * h * p * elem + 4 * b * s * g * n * elem + 8 * b * s * h + 8 * h
+    return Cost(nbytes, 3 * _ssd_ops(b, s, h, p, n, g), _float(elem))
 
 
 def gdn_scan_bwd(b, s, h, k, elem) -> Cost:

@@ -2,12 +2,13 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/ssd/ssd.py:ssd_scan
-// and computes what its oracle ref.py:ssd_scan_ref computes, for one B/C
-// group: per (batch, head) the recurrence
+// and computes what its oracle ref.py:ssd_scan_ref computes, for G B/C
+// groups (the Pallas kernel takes one): per (batch, head) the recurrence
 //   h_t = h_{t-1} * exp(dt_t * a) + dt_t * x_t (outer) b_t ,  y_t = h_t . c_t
 // over the (P, N) fp32 state, returning y (B, S, H, P) in x's dtype and the
 // final state (B, H, P, N) fp32. x, b and c come in the compute dtype
-// (fp32 or bf16), dt (B, S, H) and a (H,) in fp32. S is a multiple of the
+// (fp32 or bf16), dt (B, S, H) and a (H,) in fp32; b and c are (B, S, G, N)
+// and head h reads group g = h / (H / G) (G = 1: (B, S, N), the same launch). S is a multiple of the
 // chunk Q = 64: the wrapper pads with dt = 0 rows, which leave the state
 // alone (decay 1, weight 0).
 //
@@ -56,8 +57,8 @@
 //
 // 2. fp32: ssd_cb_kernel + ssd_scan_kernel, the first design on the CUDA
 //   cores (fp32 would need 3xTF32 to hold its 2e-4 tolerance on the tensor
-//   cores). A first kernel computes c_i . b_j once per chunk into a scratch
-//   buffer (the same for every head: one group); the scan kernel's grid is
+//   cores). A first kernel computes c_i . b_j once per chunk and group into a
+//   scratch buffer (the same for every head of the group); the scan kernel's grid is
 //   (P / 32, H, B), each chunk's b, c, x slice and c.b tile staged as fp32
 //   in shared memory, the intra- and inter-chunk terms register-tiled and
 //   each thread's 2 x N/16 block of the state in registers.
@@ -96,20 +97,22 @@ constexpr size_t scan_smem_bytes() {
                           + 4 * Q);      // cum, dt, u, exp(cum)
 }
 
-// cb[b, z, i, j] = c[b, zQ + i] . b[b, zQ + j]; grid (S / Q, B)
+// cb[b, g, z, i, j] = c[b, zQ + i, g] . b[b, zQ + j, g]; grid (S / Q, G, B)
 template <typename T, int N>
 __global__ void __launch_bounds__(THREADS) ssd_cb_kernel(const T* __restrict__ bm,
                                                          const T* __restrict__ cm,
-                                                         float* __restrict__ cb, int S) {
+                                                         float* __restrict__ cb, int S,
+                                                         int G) {
   extern __shared__ float smem[];
   float* sB = smem;                // Q x (N + 1)
   float* sC = smem + Q * (N + 1);  // Q x (N + 1)
-  const int z = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
-  const size_t base = ((size_t)bi * S + (size_t)z * Q) * N;
+  const int z = blockIdx.x, g = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const size_t tok0 = (size_t)bi * S + (size_t)z * Q;
   for (int e = tid; e < Q * N; e += THREADS) {
     const int r = e / N, n = e % N;
-    sB[r * (N + 1) + n] = to_f(bm[base + e]);
-    sC[r * (N + 1) + n] = to_f(cm[base + e]);
+    const size_t at = ((tok0 + r) * G + g) * N + n;
+    sB[r * (N + 1) + n] = to_f(bm[at]);
+    sC[r * (N + 1) + n] = to_f(cm[at]);
   }
   __syncthreads();
   // thread: column j (consecutive in a warp), rows i = ig + 4m
@@ -122,7 +125,7 @@ __global__ void __launch_bounds__(THREADS) ssd_cb_kernel(const T* __restrict__ b
 #pragma unroll
     for (int m = 0; m < Q / 4; ++m) acc[m] = fmaf(sC[(ig + 4 * m) * (N + 1) + n], bv, acc[m]);
   }
-  float* out = cb + ((size_t)bi * (S / Q) + z) * Q * Q;
+  float* out = cb + (((size_t)bi * G + g) * (S / Q) + z) * Q * Q;
 #pragma unroll
   for (int m = 0; m < Q / 4; ++m) out[(ig + 4 * m) * Q + j] = acc[m];
 }
@@ -132,7 +135,7 @@ template <typename T, int N>
 __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
     const T* __restrict__ bm, const T* __restrict__ cm, const float* __restrict__ cb,
-    T* __restrict__ y, float* __restrict__ fs, int S, int H, int P) {
+    T* __restrict__ y, float* __restrict__ fs, int S, int H, int P, int G) {
   constexpr int NV = N / 16;             // state columns per thread in the state pass
   constexpr int VW = NV < 4 ? NV : 4;    // ... read VW at a time
   constexpr int NM = NV / VW;
@@ -148,6 +151,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
   float* sE = sU + Q;                    // Q
 
   const int p_base = blockIdx.x * PS, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (H / G);  // this head's B/C group
   const int tid = threadIdx.x;
   const int nc = S / Q;
   const float a_h = a[h];
@@ -167,8 +171,9 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     if (tid < Q) sDt[tid] = dt[(tok0 + tid) * H + h];
     for (int e = tid; e < Q * N; e += THREADS) {
       const int r = e / N, n = e % N;
-      sB[e] = to_f(bm[tok0 * N + e]);
-      sC[r * (N + 1) + n] = to_f(cm[tok0 * N + e]);
+      const size_t at = ((tok0 + r) * G + g) * N + n;
+      sB[e] = to_f(bm[at]);
+      sC[r * (N + 1) + n] = to_f(cm[at]);
     }
     for (int e = tid; e < Q * PS; e += THREADS) {
       const int r = e / PS, p = e % PS;
@@ -192,7 +197,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     __syncthreads();
     const float cum_last = sCum[Q - 1];
     // ---- decay-weighted tile W[i][j] = cb[i][j] exp(cum_i - cum_j) dt_j, j <= i
-    const float* cbz = cb + ((size_t)bi * nc + z) * Q * Q;
+    const float* cbz = cb + (((size_t)bi * G + g) * nc + z) * Q * Q;
     for (int e = tid; e < Q * Q; e += THREADS) {
       const int i = e / Q, j = e % Q;
       float w = 0.f;
@@ -297,7 +302,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
 
 template <typename T, int N>
 int launch_n(const void* x, const void* dt, const void* a, const void* b, const void* c,
-             void* cb, void* y, void* fs, int B, int S, int H, int P, cudaStream_t stream) {
+             void* cb, void* y, void* fs, int B, int S, int H, int P, int G,
+             cudaStream_t stream) {
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr_cb = cudaFuncSetAttribute(
       ssd_cb_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cb_smem_bytes<N>());
@@ -306,26 +312,27 @@ int launch_n(const void* x, const void* dt, const void* a, const void* b, const 
                            (int)scan_smem_bytes<N>());
   if (attr_cb != cudaSuccess) return (int)attr_cb;
   if (attr_scan != cudaSuccess) return (int)attr_scan;
-  ssd_cb_kernel<T, N><<<dim3(S / Q, B), THREADS, cb_smem_bytes<N>(), stream>>>(
-      static_cast<const T*>(b), static_cast<const T*>(c), static_cast<float*>(cb), S);
+  ssd_cb_kernel<T, N><<<dim3(S / Q, G, B), THREADS, cb_smem_bytes<N>(), stream>>>(
+      static_cast<const T*>(b), static_cast<const T*>(c), static_cast<float*>(cb), S, G);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ssd_scan_kernel<T, N><<<dim3(P / PS, H, B), THREADS, scan_smem_bytes<N>(), stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<const float*>(cb),
-      static_cast<T*>(y), static_cast<float*>(fs), S, H, P);
+      static_cast<T*>(y), static_cast<float*>(fs), S, H, P, G);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c, void* cb,
-           void* y, void* fs, int B, int S, int H, int P, int N, cudaStream_t stream) {
-  if (B < 1 || S < Q || S % Q || H < 1 || P < PS || P % PS) return (int)cudaErrorInvalidValue;
+           void* y, void* fs, int B, int S, int H, int P, int N, int G, cudaStream_t stream) {
+  if (B < 1 || S < Q || S % Q || H < 1 || P < PS || P % PS || G < 1 || H % G)
+    return (int)cudaErrorInvalidValue;
   switch (N) {
-    case 16: return launch_n<T, 16>(x, dt, a, b, c, cb, y, fs, B, S, H, P, stream);
-    case 32: return launch_n<T, 32>(x, dt, a, b, c, cb, y, fs, B, S, H, P, stream);
-    case 64: return launch_n<T, 64>(x, dt, a, b, c, cb, y, fs, B, S, H, P, stream);
-    case 128: return launch_n<T, 128>(x, dt, a, b, c, cb, y, fs, B, S, H, P, stream);
+    case 16: return launch_n<T, 16>(x, dt, a, b, c, cb, y, fs, B, S, H, P, G, stream);
+    case 32: return launch_n<T, 32>(x, dt, a, b, c, cb, y, fs, B, S, H, P, G, stream);
+    case 64: return launch_n<T, 64>(x, dt, a, b, c, cb, y, fs, B, S, H, P, G, stream);
+    case 128: return launch_n<T, 128>(x, dt, a, b, c, cb, y, fs, B, S, H, P, G, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -371,13 +378,14 @@ template <int PS, int N>
 __global__ void __launch_bounds__(Tile<PS, N>::THREADS) ssd_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
     const bf16* __restrict__ bm, const bf16* __restrict__ cm, bf16* __restrict__ y,
-    float* __restrict__ fs, int S, int H, int P) {
+    float* __restrict__ fs, int S, int H, int P, int G) {
   using T = Tile<PS, N>;
   constexpr int WARPS = T::WARPS, THREADS = T::THREADS, LDN = T::LDN, LDX = T::LDX;
   constexpr int NT = T::NT, TPW = T::TPW, YN = PS / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   unsigned char* const smem = tc_smem;
   const int p_base = blockIdx.x * PS, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (H / G);  // this head's B/C group
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = S / Q;
   bf16* sH = reinterpret_cast<bf16*>(smem + 2 * T::BUF);  // (2, PS, LDN)
@@ -404,8 +412,8 @@ __global__ void __launch_bounds__(Tile<PS, N>::THREADS) ssd_tc_kernel(
       constexpr int CN = N / 8, CX = PS / 8;
       for (int e = lane; e < Q * CN; e += 32) {
         const int r = e / CN, c = e % CN;
-        cp_async16(tb + r * LDN + 8 * c, bm + (tok0 + r) * N + 8 * c);
-        cp_async16(tcm + r * LDN + 8 * c, cm + (tok0 + r) * N + 8 * c);
+        cp_async16(tb + r * LDN + 8 * c, bm + ((tok0 + r) * G + g) * N + 8 * c);
+        cp_async16(tcm + r * LDN + 8 * c, cm + ((tok0 + r) * G + g) * N + 8 * c);
       }
       for (int e = lane; e < Q * CX; e += 32) {
         const int r = e / CX, c = e % CX;
@@ -634,7 +642,7 @@ __global__ void __launch_bounds__(Tile<PS, N>::THREADS) ssd_tc_kernel(
 
 template <int PS, int N>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c, void* y,
-           void* fs, int B, int S, int H, int P, cudaStream_t stream) {
+           void* fs, int B, int S, int H, int P, int G, cudaStream_t stream) {
   using T = Tile<PS, N>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       ssd_tc_kernel<PS, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::BYTES);
@@ -642,26 +650,28 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
   ssd_tc_kernel<PS, N><<<dim3(P / PS, H, B), T::THREADS, T::BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const bf16*>(b), static_cast<const bf16*>(c), static_cast<bf16*>(y),
-      static_cast<float*>(fs), S, H, P);
+      static_cast<float*>(fs), S, H, P, G);
   return (int)cudaGetLastError();
 }
 
 // PS = 64 state rows a CTA where 64 divides P, else 32
 template <int N>
 int launch_n(const void* x, const void* dt, const void* a, const void* b, const void* c, void* y,
-             void* fs, int B, int S, int H, int P, cudaStream_t stream) {
-  return P % 64 ? launch<32, N>(x, dt, a, b, c, y, fs, B, S, H, P, stream)
-                : launch<64, N>(x, dt, a, b, c, y, fs, B, S, H, P, stream);
+             void* fs, int B, int S, int H, int P, int G, cudaStream_t stream) {
+  return P % 64 ? launch<32, N>(x, dt, a, b, c, y, fs, B, S, H, P, G, stream)
+                : launch<64, N>(x, dt, a, b, c, y, fs, B, S, H, P, G, stream);
 }
 
 int launch_bf16(const void* x, const void* dt, const void* a, const void* b, const void* c,
-                void* y, void* fs, int B, int S, int H, int P, int N, cudaStream_t stream) {
-  if (B < 1 || S < Q || S % Q || H < 1 || P < 32 || P % 32) return (int)cudaErrorInvalidValue;
+                void* y, void* fs, int B, int S, int H, int P, int N, int G,
+                cudaStream_t stream) {
+  if (B < 1 || S < Q || S % Q || H < 1 || P < 32 || P % 32 || G < 1 || H % G)
+    return (int)cudaErrorInvalidValue;
   switch (N) {
-    case 16: return launch_n<16>(x, dt, a, b, c, y, fs, B, S, H, P, stream);
-    case 32: return launch_n<32>(x, dt, a, b, c, y, fs, B, S, H, P, stream);
-    case 64: return launch_n<64>(x, dt, a, b, c, y, fs, B, S, H, P, stream);
-    case 128: return launch_n<128>(x, dt, a, b, c, y, fs, B, S, H, P, stream);
+    case 16: return launch_n<16>(x, dt, a, b, c, y, fs, B, S, H, P, G, stream);
+    case 32: return launch_n<32>(x, dt, a, b, c, y, fs, B, S, H, P, G, stream);
+    case 64: return launch_n<64>(x, dt, a, b, c, y, fs, B, S, H, P, G, stream);
+    case 128: return launch_n<128>(x, dt, a, b, c, y, fs, B, S, H, P, G, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -670,21 +680,21 @@ int launch_bf16(const void* x, const void* dt, const void* a, const void* b, con
 
 }  // namespace
 
-// x (B,S,H,P), dt (B,S,H) fp32, a (H,) fp32, b/c (B,S,N), cb scratch
-// (B, S/64, 64, 64) fp32 (fp32 only; bf16 takes none) -> y (B,S,H,P) in x's
-// dtype, fs (B,H,P,N) fp32. P is a multiple of 32. Returns
-// cudaGetLastError() after the launches (0 on success).
+// x (B,S,H,P), dt (B,S,H) fp32, a (H,) fp32, b/c (B,S,G,N) (G dividing H),
+// cb scratch (B, G, S/64, 64, 64) fp32 (fp32 only; bf16 takes none) -> y
+// (B,S,H,P) in x's dtype, fs (B,H,P,N) fp32. P is a multiple of 32.
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* a, const void* b,
                             const void* c, void* cb, void* y, void* fs, int B, int S, int H,
-                            int P, int N, void* stream) {
-  return launch<float>(x, dt, a, b, c, cb, y, fs, B, S, H, P, N,
+                            int P, int N, int G, void* stream) {
+  return launch<float>(x, dt, a, b, c, cb, y, fs, B, S, H, P, N, G,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a, const void* b,
                              const void* c, void* cb, void* y, void* fs, int B, int S, int H,
-                             int P, int N, void* stream) {
+                             int P, int N, int G, void* stream) {
   (void)cb;
-  return tc::launch_bf16(x, dt, a, b, c, y, fs, B, S, H, P, N,
+  return tc::launch_bf16(x, dt, a, b, c, y, fs, B, S, H, P, N, G,
                          static_cast<cudaStream_t>(stream));
 }

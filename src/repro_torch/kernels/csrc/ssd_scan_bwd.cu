@@ -5,13 +5,15 @@
 // (ssd_scan) has no backward, and the JAX package differentiates its jnp
 // scan (jax.grad of src/repro/models/ssm.py:ssd_chunked). The port's forward
 // on the card is the kernel of ssd_scan.cu, so its gradient is a kernel too:
-// this one computes what ref.py:ssd_scan_bwd_ref computes, for one B/C
-// group, per (batch, head) over the (P, N) state
+// this one computes what ref.py:ssd_scan_bwd_ref computes, for G B/C
+// groups (head h reads group h / (H / G); b and c (B, S, G, N)), per
+// (batch, head) over the (P, N) state
 //   G_t = exp(dt_{t+1} a) G_{t+1} + dy_t c_t^T   (G_{S-1} = dfinal + dy c^T)
 // and every input's gradient from G and the forward's states: dx (B,S,H,P)
 // in x's dtype, and fp32 partials the wrapper sums in a fixed order: ddt
-// (B,S,H,P/PS), da (B,H,P/PS), db and dc (B,S,H*P/PS,N). No float atomics:
-// two calls give the same bits.
+// (B,S,H,P/PS), da (B,H,P/PS), db and dc (B,S,H*P/PS,N), each head's
+// columns summed within its group by the wrapper. No float atomics: two
+// calls give the same bits.
 //
 // Both kernels take chunks of Q = 64 tokens, the forward's chunk, in the
 // closed form that ref.py:ssd_scan_bwd_chunked_ref writes out. A first
@@ -178,7 +180,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_kernel(
     const T* __restrict__ bm, const T* __restrict__ cm, const T* __restrict__ dy,
     const float* __restrict__ dfinal, float* hs, T* __restrict__ dx,
     float* __restrict__ ddt_part, float* __restrict__ da_part, float* __restrict__ db_part,
-    float* __restrict__ dc_part, int S, int H, int P) {
+    float* __restrict__ dc_part, int S, int H, int P, int G) {
   using L = Smem<N>;
   constexpr int NV = N / 16;           // state columns per thread
   extern __shared__ float smem[];
@@ -204,6 +206,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_kernel(
 
   const int pb = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
   const int p_base = pb * PS, npb = P / PS, nc = S / Q;
+  const int grp = h / (H / G);  // this head's B/C group
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const float a_h = a[h];
   // state registers: rows p2, p2 + 1; columns ng + 16 v
@@ -228,7 +231,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_kernel(
     }
     for (int e = tid; e < Q * N; e += THREADS) {
       const int i = e / N, n = e % N;
-      sB[i * L::NS + n] = to_f(bm[tok0 * N + e]);
+      sB[i * L::NS + n] = to_f(bm[((tok0 + i) * G + grp) * N + n]);
     }
     __syncthreads();
     if (warp == 0) chunk_cumsum(sDt, sCs, sCum, a_h, lane);
@@ -277,8 +280,9 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_kernel(
     }
     for (int e = tid; e < Q * N; e += THREADS) {
       const int i = e / N, n = e % N;
-      sB[i * L::NS + n] = to_f(bm[tok0 * N + e]);
-      sC[i * L::NS + n] = to_f(cm[tok0 * N + e]);
+      const size_t at = ((tok0 + i) * G + grp) * N + n;
+      sB[i * L::NS + n] = to_f(bm[at]);
+      sC[i * L::NS + n] = to_f(cm[at]);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -425,7 +429,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_kernel(
 template <typename T, int N>
 int launch_n(const void* x, const void* dt, const void* a, const void* b, const void* c,
              const void* dy, const void* dfinal, void* hs, void* dx, void* ddt, void* da,
-             void* db, void* dc, int B, int S, int H, int P, cudaStream_t stream) {
+             void* db, void* dc, int B, int S, int H, int P, int G, cudaStream_t stream) {
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr = cudaFuncSetAttribute(
       ssd_bwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<N>::BYTES);
@@ -435,19 +439,20 @@ int launch_n(const void* x, const void* dt, const void* a, const void* b, const 
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<const T*>(dy),
       static_cast<const float*>(dfinal), static_cast<float*>(hs), static_cast<T*>(dx),
       static_cast<float*>(ddt), static_cast<float*>(da), static_cast<float*>(db),
-      static_cast<float*>(dc), S, H, P);
+      static_cast<float*>(dc), S, H, P, G);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
            const void* dy, const void* dfinal, void* hs, void* dx, void* ddt, void* da, void* db,
-           void* dc, int B, int S, int H, int P, int N, cudaStream_t stream) {
-  if (B < 1 || S < Q || S % Q || H < 1 || P < PS || P % PS) return (int)cudaErrorInvalidValue;
+           void* dc, int B, int S, int H, int P, int N, int G, cudaStream_t stream) {
+  if (B < 1 || S < Q || S % Q || H < 1 || P < PS || P % PS || G < 1 || H % G)
+    return (int)cudaErrorInvalidValue;
 #define SSD_BWD_N(NN)                                                                        \
   case NN:                                                                                  \
     return launch_n<T, NN>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P,  \
-                           stream);
+                           G, stream);
   switch (N) {
     SSD_BWD_N(16)
     SSD_BWD_N(32)
@@ -606,13 +611,14 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_tc_kernel(
     const bf16* __restrict__ bm, const bf16* __restrict__ cm, const bf16* __restrict__ dy,
     const float* __restrict__ dfinal, bf16* hs, bf16* __restrict__ dx,
     float* __restrict__ ddt_part, float* __restrict__ da_part, float* __restrict__ db_part,
-    float* __restrict__ dc_part, int S, int H, int P) {
+    float* __restrict__ dc_part, int S, int H, int P, int G) {
   using T = Tile<PS, N>;
   constexpr int LDX = T::LDX, LDN = T::LDN, LDQ = T::LDQ, NT = T::NT, TPW = T::TPW;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   unsigned char* const smem = tc_smem;
   const int pb = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
   const int p_base = pb * PS, npb = P / PS, nc = S / Q;
+  const int grp = h / (H / G);  // this head's B/C group
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // step s runs the first pass over chunk s for s < nc - 1, then the second
   // over chunk 2 nc - 2 - s; its chunk is staged in buffer s & 1
@@ -650,8 +656,9 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_tc_kernel(
       constexpr int CN = N / 8, CX = PS / 8;
       for (int e = lane; e < Q * CN; e += 32) {
         const int r = e / CN, c = e % CN;
-        cp_async16(v.b + r * LDN + 8 * c, bm + (tok0 + r) * N + 8 * c);
-        if (second) cp_async16(v.c + r * LDN + 8 * c, cm + (tok0 + r) * N + 8 * c);
+        const size_t at = ((tok0 + r) * G + grp) * N + 8 * c;
+        cp_async16(v.b + r * LDN + 8 * c, bm + at);
+        if (second) cp_async16(v.c + r * LDN + 8 * c, cm + at);
       }
       for (int e = lane; e < Q * CX; e += 32) {
         const int r = e / CX, c = e % CX;
@@ -998,7 +1005,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_tc_kernel(
 template <int PS, int N>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
            const void* dy, const void* dfinal, void* hs, void* dx, void* ddt, void* da, void* db,
-           void* dc, int B, int S, int H, int P, cudaStream_t stream) {
+           void* dc, int B, int S, int H, int P, int G, cudaStream_t stream) {
   using T = Tile<PS, N>;
   // above 48 KB a kernel's dynamic shared memory must be opted into, once
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -1009,7 +1016,7 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
       static_cast<const bf16*>(b), static_cast<const bf16*>(c), static_cast<const bf16*>(dy),
       static_cast<const float*>(dfinal), static_cast<bf16*>(hs), static_cast<bf16*>(dx),
       static_cast<float*>(ddt), static_cast<float*>(da), static_cast<float*>(db),
-      static_cast<float*>(dc), S, H, P);
+      static_cast<float*>(dc), S, H, P, G);
   return (int)cudaGetLastError();
 }
 
@@ -1017,20 +1024,22 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
 template <int N>
 int launch_n(const void* x, const void* dt, const void* a, const void* b, const void* c,
              const void* dy, const void* dfinal, void* hs, void* dx, void* ddt, void* da,
-             void* db, void* dc, int B, int S, int H, int P, cudaStream_t stream) {
+             void* db, void* dc, int B, int S, int H, int P, int G, cudaStream_t stream) {
   return P % 64 ? launch<32, N>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P,
-                                stream)
+                                G, stream)
                 : launch<64, N>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P,
-                                stream);
+                                G, stream);
 }
 
 int launch_bf16(const void* x, const void* dt, const void* a, const void* b, const void* c,
                 const void* dy, const void* dfinal, void* hs, void* dx, void* ddt, void* da,
-                void* db, void* dc, int B, int S, int H, int P, int N, cudaStream_t stream) {
-  if (B < 1 || S < Q || S % Q || H < 1 || P < 32 || P % 32) return (int)cudaErrorInvalidValue;
+                void* db, void* dc, int B, int S, int H, int P, int N, int G,
+                cudaStream_t stream) {
+  if (B < 1 || S < Q || S % Q || H < 1 || P < 32 || P % 32 || G < 1 || H % G)
+    return (int)cudaErrorInvalidValue;
 #define SSD_BWD_TC_N(NN)                                                                     \
   case NN:                                                                                  \
-    return launch_n<NN>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P,     \
+    return launch_n<NN>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P, G,  \
                         stream);
   switch (N) {
     SSD_BWD_TC_N(16)
@@ -1046,7 +1055,7 @@ int launch_bf16(const void* x, const void* dt, const void* a, const void* b, con
 
 }  // namespace
 
-// x (B,S,H,P), dt (B,S,H) fp32, a (H,) fp32, b/c (B,S,N), dy (B,S,H,P) in
+// x (B,S,H,P), dt (B,S,H) fp32, a (H,) fp32, b/c (B,S,G,N), dy (B,S,H,P) in
 // x's dtype, dfinal (B,H,P,N) fp32 or null (a zero cotangent), hs scratch
 // (B,H,S/64,P,N) in x's dtype -> dx (B,S,H,P) in x's dtype and fp32 partials
 // over the P/PS row blocks: ddt (B,S,H,P/PS), da (B,H,P/PS), db and dc
@@ -1057,15 +1066,15 @@ int launch_bf16(const void* x, const void* dt, const void* a, const void* b, con
 extern "C" int ssd_scan_bwd_f32(const void* x, const void* dt, const void* a, const void* b,
                                 const void* c, const void* dy, const void* dfinal, void* hs,
                                 void* dx, void* ddt, void* da, void* db, void* dc, int B, int S,
-                                int H, int P, int N, void* stream) {
-  return launch<float>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P, N,
+                                int H, int P, int N, int G, void* stream) {
+  return launch<float>(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P, N, G,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ssd_scan_bwd_bf16(const void* x, const void* dt, const void* a, const void* b,
                                  const void* c, const void* dy, const void* dfinal, void* hs,
                                  void* dx, void* ddt, void* da, void* db, void* dc, int B, int S,
-                                 int H, int P, int N, void* stream) {
-  return tc::launch_bf16(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P, N,
+                                 int H, int P, int N, int G, void* stream) {
+  return tc::launch_bf16(x, dt, a, b, c, dy, dfinal, hs, dx, ddt, da, db, dc, B, S, H, P, N, G,
                          static_cast<cudaStream_t>(stream));
 }

@@ -18,17 +18,15 @@ def ssd_prefill(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H) fp32
     a: torch.Tensor,    # (H,) fp32
-    b: torch.Tensor,    # (B, S, N) or (B, S, 1, N)
+    b: torch.Tensor,    # (B, S, N) or (B, S, G, N)
     c: torch.Tensor,    # like b
     *,
     plain: bool = False,
 ):
     """-> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) fp32). A grouped
-    b/c (B,S,G,N) must have G == 1: the scan takes one B/C group."""
-    if b.dim() == 4:
-        if b.shape[2] != 1:
-            raise NotImplementedError(
-                f"ssm_groups={b.shape[2]} > 1: the SSD scan takes one B/C group")
+    b/c (B,S,G,N) goes to the scan as it is (head h reads group h // (H/G));
+    G = 1 as (B,S,N)."""
+    if b.dim() == 4 and b.shape[2] == 1:
         b, c = b[:, :, 0], c[:, :, 0]
     s = x.shape[1]
     if plain:
@@ -38,8 +36,9 @@ def ssd_prefill(
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, pad))
+        tail = (0, 0) * (b.dim() - 2) + (0, pad)
+        b = F.pad(b, tail)
+        c = F.pad(c, tail)
     y, fs = ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(),
                      c.contiguous())
     return y[:, :s], fs

@@ -14,6 +14,13 @@ gradient, the twin of ``torch.autograd`` through ``ssd_scan_ref``.
 ``ssd_scan_bwd_chunked_ref`` writes out the per-chunk closed form that the
 kernel evaluates instead, with the bf16 kernel's rounding points as an
 option; it lies on no path and serves the tests.
+
+Each takes b and c as (B, S, N), one group, or (B, S, G, N), G groups of
+B/C with head h reading group ``h // (H / G)`` (the reference model's
+``rep``). With groups, ``ssd_scan_ref`` and ``ssd_scan_bwd_ref`` give each
+head its group's row (one scan over the sequence whatever G is) and sum db
+and dc within each group; ``ssd_scan_bwd_chunked_ref`` runs its one-group
+form on each group's heads.
 """
 from __future__ import annotations
 
@@ -22,25 +29,62 @@ from typing import Optional, Tuple
 import torch
 
 
+def _per_head(t: torch.Tensor, h: int) -> torch.Tensor:
+    """A grouped b or c (B, S, G, N) as each head's row (B, S, H, N)."""
+    g = t.shape[2]
+    if h % g:
+        raise ValueError(f"ssd scan: H={h} not a multiple of the {g} B/C groups")
+    return t.repeat_interleave(h // g, dim=2)
+
+
+def _by_group(fn, x, dt, a, b, c, dy=None, dfinal=None, **kw):
+    """``fn`` (a one-group scan or its backward) on each of the G groups of
+    a grouped b / c (B, S, G, N): the heads ``[k rep, (k + 1) rep)`` with
+    group k's b and c. -> the per-group outputs, in group order."""
+    g, h = b.shape[2], x.shape[2]
+    if h % g:
+        raise ValueError(f"ssd scan: H={h} not a multiple of the {g} B/C groups")
+    rep = h // g
+    outs = []
+    for k in range(g):
+        sl = slice(k * rep, (k + 1) * rep)
+        extra = () if dy is None else (dy[:, :, sl],
+                                       None if dfinal is None else dfinal[:, sl])
+        outs.append(fn(x[:, :, sl], dt[:, :, sl], a[sl], b[:, :, k], c[:, :, k], *extra, **kw))
+    return outs
+
+
+def _join_bwd(outs):
+    """Per-group (dx, ddt, da, db, dc) -> the whole gradients, db and dc
+    (B, S, G, N)."""
+    dx, ddt, da, db, dc = zip(*outs)
+    return (torch.cat(dx, 2), torch.cat(ddt, 2), torch.cat(da, 0), torch.stack(db, 2),
+            torch.stack(dc, 2))
+
+
 def ssd_scan_ref(
     x: torch.Tensor,     # (B, S, H, P)
     dt: torch.Tensor,    # (B, S, H) — positive
     a: torch.Tensor,     # (H,)      — negative decay rates
-    b: torch.Tensor,     # (B, S, N) — single group
-    c: torch.Tensor,     # (B, S, N)
+    b: torch.Tensor,     # (B, S, N) — single group, or (B, S, G, N)
+    c: torch.Tensor,     # like b
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> y (B, S, H, P) fp32, final state (B, H, P, N) fp32."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
+    grouped = b.dim() == 4
+    if grouped:
+        b, c = (_per_head(t, h) for t in (b, c))
     x, dt, b, c = (t.float() for t in (x, dt, b, c))
     a = a.float()
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
     ys = []
     for t in range(s):
         decay = torch.exp(dt[:, t] * a[None, :])                        # (B,H)
-        upd = (dt[:, t, :, None] * x[:, t])[..., None] * b[:, t, None, None, :]
+        bt = b[:, t, :, None, :] if grouped else b[:, t, None, None, :]
+        upd = (dt[:, t, :, None] * x[:, t])[..., None] * bt
         state = state * decay[:, :, None, None] + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", state, c[:, t]))
+        ys.append(torch.einsum("bhpn,bhn->bhp" if grouped else "bhpn,bn->bhp", state, c[:, t]))
     return torch.stack(ys, dim=1), state
 
 
@@ -48,8 +92,8 @@ def ssd_scan_bwd_ref(
     x: torch.Tensor,     # (B, S, H, P)
     dt: torch.Tensor,    # (B, S, H)
     a: torch.Tensor,     # (H,)
-    b: torch.Tensor,     # (B, S, N)
-    c: torch.Tensor,     # (B, S, N)
+    b: torch.Tensor,     # (B, S, N), or (B, S, G, N)
+    c: torch.Tensor,     # like b
     dy: torch.Tensor,    # (B, S, H, P): the cotangent of y
     dfinal: Optional[torch.Tensor] = None,   # (B, H, P, N): of the final state, or 0
 ) -> Tuple[torch.Tensor, ...]:
@@ -61,16 +105,22 @@ def ssd_scan_bwd_ref(
     and with the recomputed states h_t of the forward, per token
     dx_t = dt_t G_t b_t, dc_t = sum_h h_t^T dy_t, db_t = sum_h dt_t G_t^T x_t,
     r_t = exp(dt_t a) <G_t, h_{t-1}>, ddt_t = a r_t + x_t . G_t b_t and
-    da = sum_t dt_t r_t (b and c sum over heads: one group)."""
+    da = sum_t dt_t r_t (b and c sum over the heads of their group)."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
+    groups = b.shape[2] if b.dim() == 4 else 0
+    if groups:
+        b, c = (_per_head(t, h) for t in (b, c))
+    # per head ("h" in b and c's subscripts) or one group shared by all
+    bs = "bhn" if groups else "bn"
+    row = (lambda t, i: t[:, i, :, None, :]) if groups else (lambda t, i: t[:, i, None, None, :])
     x, dt, b, c, dy = (t.float() for t in (x, dt, b, c, dy))
     a = a.float()
     decay = torch.exp(dt * a)                                         # (B,S,H)
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
     states = [state]
     for t in range(s):
-        upd = (dt[:, t, :, None] * x[:, t])[..., None] * b[:, t, None, None, :]
+        upd = (dt[:, t, :, None] * x[:, t])[..., None] * row(b, t)
         state = state * decay[:, t, :, None, None] + upd
         states.append(state)
     g = (torch.zeros_like(state) if dfinal is None else dfinal.float().clone())
@@ -79,14 +129,16 @@ def ssd_scan_bwd_ref(
     for t in reversed(range(s)):
         if t < s - 1:
             g = g * decay[:, t + 1, :, None, None]
-        g = g + dy[:, t, :, :, None] * c[:, t, None, None, :]
-        gb = torch.einsum("bhpn,bn->bhp", g, b[:, t])
+        g = g + dy[:, t, :, :, None] * row(c, t)
+        gb = torch.einsum(f"bhpn,{bs}->bhp", g, b[:, t])
         dx[:, t] = dt[:, t, :, None] * gb
-        dc[:, t] = torch.einsum("bhpn,bhp->bn", states[t + 1], dy[:, t])
-        db[:, t] = torch.einsum("bhpn,bhp,bh->bn", g, x[:, t], dt[:, t])
+        dc[:, t] = torch.einsum(f"bhpn,bhp->{bs}", states[t + 1], dy[:, t])
+        db[:, t] = torch.einsum(f"bhpn,bhp,bh->{bs}", g, x[:, t], dt[:, t])
         r = decay[:, t] * torch.einsum("bhpn,bhpn->bh", g, states[t])
         ddt[:, t] = a * r + torch.einsum("bhp,bhp->bh", x[:, t], gb)
         da = da + (dt[:, t] * r).sum(0)
+    if groups:      # each head's db / dc summed within its group
+        db, dc = (t.view(bsz, s, groups, h // groups, n).sum(3) for t in (db, dc))
     return dx, ddt, da, db, dc
 
 
@@ -94,8 +146,8 @@ def ssd_scan_bwd_chunked_ref(
     x: torch.Tensor,     # (B, S, H, P)
     dt: torch.Tensor,    # (B, S, H)
     a: torch.Tensor,     # (H,)
-    b: torch.Tensor,     # (B, S, N)
-    c: torch.Tensor,     # (B, S, N)
+    b: torch.Tensor,     # (B, S, N), or (B, S, G, N)
+    c: torch.Tensor,     # like b
     dy: torch.Tensor,    # (B, S, H, P)
     dfinal: Optional[torch.Tensor] = None,   # (B, H, P, N), or 0
     *,
@@ -121,11 +173,14 @@ def ssd_scan_bwd_chunked_ref(
         da += sum_i dcum_i sum_{k <= i} dt_k
         dH <- e_Q dH + dY^T diag(e) C
 
-    (b and c sum over heads: one group). With ``bf16`` it rounds where the
+    (b and c sum over the heads of their group). With ``bf16`` it rounds where the
     bf16 kernel does: x, b, c and dy (its inputs), each product's operands
     that are not inputs (M, Pm, dH, e dY and, in the first pass, w X), the
     entry states (kept in bf16 between the passes), and dx, db and dc (its
     outputs); the rest stays fp32."""
+    if b.dim() == 4:
+        return _join_bwd(_by_group(ssd_scan_bwd_chunked_ref, x, dt, a, b, c, dy, dfinal,
+                                   bf16=bf16, chunk=chunk))
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)

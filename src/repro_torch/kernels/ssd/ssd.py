@@ -18,7 +18,11 @@ Contract (as the Pallas kernel): x (B,S,H,P) and b, c (B,S,N) in one dtype
 (fp32 or bf16), dt (B,S,H) and a (H,) fp32, S a multiple of ``CHUNK``
 (``ops.ssd_prefill`` pads); returns y (B,S,H,P) in x's dtype and the final
 state (B,H,P,N) fp32. The kernels take P a multiple of ``ROWS_PER_CTA`` and
-N in ``STATE_DIMS``.
+N in ``STATE_DIMS``. Beyond the Pallas kernel, b and c may also come as
+(B,S,G,N), G groups of B/C (``ssm_groups``; H a multiple of G): head h
+reads group ``h // (H / G)``, as the reference model's jnp scan does. Each
+CTA of the kernels then loads its own head's group; G = 1 is the same
+launch as a (B,S,N) b and c.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ ROWS_PER_CTA = 32             # state rows per CTA (PS in the source; bf16: 64 w
 STATE_DIMS = (16, 32, 64, 128)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _LAUNCHERS = {}
 
 
@@ -52,16 +56,23 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
+def groups(b) -> int:
+    """The B/C groups of a (B,S,N) (one) or (B,S,G,N) b."""
+    return 1 if b.dim() == 3 else b.shape[2]
+
+
 def _check(x, dt, a, b, c) -> None:
-    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 3 or c.dim() != 3:
-        raise ValueError("ssd_scan: x (B,S,H,P), dt (B,S,H), a (H,), b and c (B,S,N)")
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() not in (3, 4) \
+            or c.dim() != b.dim():
+        raise ValueError("ssd_scan: x (B,S,H,P), dt (B,S,H), a (H,), b and c (B,S,N) or "
+                         "(B,S,G,N)")
     bsz, s, h, _ = x.shape
     if dt.shape != (bsz, s, h) or a.shape != (h,):
         raise ValueError(f"ssd_scan: dt {tuple(dt.shape)} / a {tuple(a.shape)} do not "
                          f"match x {tuple(x.shape)}")
-    if b.shape[:2] != (bsz, s) or c.shape != b.shape:
+    if b.shape[:2] != (bsz, s) or c.shape != b.shape or h % groups(b):
         raise ValueError(f"ssd_scan: b {tuple(b.shape)} and c {tuple(c.shape)} must be "
-                         f"({bsz}, {s}, N)")
+                         f"({bsz}, {s}, N) or ({bsz}, {s}, G, N) with G dividing H={h}")
     if s % CHUNK:
         raise ValueError(f"ssd_scan: S={s} not a multiple of the chunk {CHUNK} "
                          f"(ops.ssd_prefill pads)")
@@ -76,8 +87,9 @@ def _check(x, dt, a, b, c) -> None:
 
 
 def ssd_scan(x, dt, a, b, c):
-    """x (B,S,H,P), dt (B,S,H), a (H,), b, c (B,S,N) -> (y (B,S,H,P) in
-    x's dtype, final state (B,H,P,N) fp32), differentiable in every input."""
+    """x (B,S,H,P), dt (B,S,H), a (H,), b, c (B,S,N) or (B,S,G,N) -> (y
+    (B,S,H,P) in x's dtype, final state (B,H,P,N) fp32), differentiable in
+    every input."""
     _check(x, dt, a, b, c)
     return SsdScan.apply(x, dt, a, b, c)
 
@@ -112,9 +124,9 @@ def _forward(x, dt, a, b, c):
         y, fs = ssd_scan_ref(x, dt, a, b, c)
         return y.to(x.dtype), fs
     bsz, s, h, p = x.shape
-    n = b.shape[-1]
+    n, g = b.shape[-1], groups(b)
     if x.device.type == "meta":
-        cost.record("ssd_scan", cost.ssd_scan(bsz, s, h, p, n, x.element_size()))
+        cost.record("ssd_scan", cost.ssd_scan(bsz, s, h, p, n, x.element_size(), g=g))
         return torch.empty_like(x), x.new_empty((bsz, h, p, n), dtype=torch.float32)
     if p % ROWS_PER_CTA or n not in STATE_DIMS:
         raise ValueError(f"ssd_scan: P={p} must be a multiple of {ROWS_PER_CTA} and "
@@ -126,13 +138,13 @@ def _forward(x, dt, a, b, c):
     operands = [cuda_operand(t, what, "ssd_scan", dev,
                              align=16 if bf16 and what in ("x", "b", "c") else t.element_size())
                 for t, what in ((x, "x"), (dt, "dt"), (a, "a"), (b, "b"), (c, "c"))]
-    cb = None if bf16 else torch.empty((bsz, s // CHUNK, CHUNK, CHUNK), dtype=torch.float32,
-                                       device=dev)
+    cb = None if bf16 else torch.empty((bsz, g, s // CHUNK, CHUNK, CHUNK),
+                                       dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     fs = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher(x.dtype)(*operands, 0 if cb is None else cb.data_ptr(), y.data_ptr(),
-                            fs.data_ptr(), bsz, s, h, p, n, stream)
+                            fs.data_ptr(), bsz, s, h, p, n, g, stream)
     check_launch(rc, "ssd_scan")
     ssd_scan.launches += 1
     return y, fs

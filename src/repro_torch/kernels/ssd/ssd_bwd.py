@@ -18,7 +18,8 @@ in x's dtype and dfinal (B,H,P,N) fp32 or None (a zero cotangent) ->
 (dx, ddt, da, db, dc), each in its input's dtype. The kernels sum in fp32
 and write fp32 partials over blocks of state rows (``_rows_per_cta``:
 ddt, da, db, dc), which are summed here in a fixed order: two calls give
-the same bits.
+the same bits. With G groups of B/C (b, c (B,S,G,N)) the db and dc
+partials of each head are summed within its group.
 """
 from __future__ import annotations
 
@@ -29,10 +30,10 @@ import torch
 from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_launch, cuda_operand
 from repro_torch.kernels.ssd.ref import ssd_scan_bwd_ref
-from repro_torch.kernels.ssd.ssd import CHUNK, ROWS_PER_CTA, STATE_DIMS, _check
+from repro_torch.kernels.ssd.ssd import CHUNK, ROWS_PER_CTA, STATE_DIMS, _check, groups
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _LAUNCHERS = {}
 
 
@@ -60,7 +61,7 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dfinal=None):
     (dx, ddt, da, db, dc), each in its input's dtype."""
     _check(x, dt, a, b, c)
     bsz, s, h, p = x.shape
-    n = b.shape[-1]
+    n, g = b.shape[-1], groups(b)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -71,7 +72,7 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dfinal=None):
         grads = ssd_scan_bwd_ref(x, dt, a, b, c, dy, dfinal)
         return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, a, b, c)))
     if x.device.type == "meta":
-        cost.record("ssd_scan_bwd", cost.ssd_scan_bwd(bsz, s, h, p, n, x.element_size()))
+        cost.record("ssd_scan_bwd", cost.ssd_scan_bwd(bsz, s, h, p, n, x.element_size(), g=g))
         return tuple(torch.empty_like(t) for t in (x, dt, a, b, c))
     if p % ROWS_PER_CTA or n not in STATE_DIMS:
         raise ValueError(f"ssd_scan_bwd: P={p} must be a multiple of {ROWS_PER_CTA} and "
@@ -97,10 +98,15 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dfinal=None):
     dc = torch.empty_like(db)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher(x.dtype)(*operands, hs.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-                            da.data_ptr(), db.data_ptr(), dc.data_ptr(), bsz, s, h, p, n, stream)
+                            da.data_ptr(), db.data_ptr(), dc.data_ptr(), bsz, s, h, p, n, g,
+                            stream)
     check_launch(rc, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
-    return dx, ddt.sum(-1), da.sum((0, 2)), db.sum(2).to(b.dtype), dc.sum(2).to(c.dtype)
+    if b.dim() == 4:    # each head's partials (h * npb columns) summed within its group
+        db, dc = (t.view(bsz, s, g, (h // g) * npb, n).sum(3) for t in (db, dc))
+    else:
+        db, dc = db.sum(2), dc.sum(2)
+    return dx, ddt.sum(-1), da.sum((0, 2)), db.to(b.dtype), dc.to(c.dtype)
 
 
 ssd_scan_bwd.launches = 0

@@ -7,10 +7,9 @@ Counterpart of ``repro.models.model`` for configs whose blocks are
 ``cross_attn`` (llama-3.2-vision: gated attention to encoder states, whose
 k/v are encoded at prefill and cached slot-indexed, paged layout or not),
 ``mla`` (absorbed MLA), ``mla_moe`` (absorbed MLA, then the routed MoE MLP
-of ``models/moe.py``), ``ssm`` (Mamba2, one B/C group) or ``gdn`` (Gated
-DeltaNet), with token ids or (``cfg.input_is_embeddings``, musicgen)
-embedding rows as inputs. ``ssm_groups > 1`` raises
-``NotImplementedError``. The serving pool passes no encoder states and
+of ``models/moe.py``), ``ssm`` (Mamba2, ``ssm_groups`` B/C groups) or
+``gdn`` (Gated DeltaNet), with token ids or (``cfg.input_is_embeddings``,
+musicgen) embedding rows as inputs. The serving pool passes no encoder states and
 feeds token ids, as the reference's does, so ``cross_attn`` and embedding
 inputs are model-level paths: ``forward`` (training), ``prefill`` and the
 decode steps. The param and cache trees keep the JAX layout, so the tests
@@ -94,9 +93,6 @@ def _check_kinds(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {bad} are not ported yet (ported: "
             f"{', '.join(PORTED_KINDS)})")
-    if "ssm" in kinds and cfg.ssm_groups > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: ssm_groups={cfg.ssm_groups} is not ported yet (one B/C group)")
 
 
 def _map(fn, tree, name: str = ""):

@@ -88,15 +88,19 @@ def moe_mlp(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return out
 
 
-def _routed(xf, router, w_gate, w_up, w_down, cfg, e_lo: int = 0) -> torch.Tensor:
+def _routed(xf, router, w_gate, w_up, w_down, cfg, e_lo: int = 0,
+            shard=None) -> torch.Tensor:
     """The routed experts over tokens xf (T, d) -> (T, d). ``w_*`` may hold
     only experts ``[e_lo, e_lo + E_loc)`` (one rank's share): entries routed
     to other experts then weigh 0 here, and the ranks' outputs sum to the
-    whole."""
+    whole. ``shard`` makes xf one shard of a larger token batch (``(mesh,
+    mesh dims the tokens are split over)``): the capacity is then the whole
+    batch's and each entry's rank within its expert counts the entries of
+    the shards before this one (``_global_offsets``), so that exactly the
+    entries the unsplit batch drops are dropped."""
     t, d = xf.shape
     e, k = cfg.n_routed_experts, cfg.moe_top_k
     e_loc = w_gate.shape[0]
-    cap = _capacity(cfg, t)
     _, topw, topi = route({"router": router}, xf, cfg)
 
     # rank of each (token, slot) entry within its expert, in (token, slot)
@@ -104,6 +108,12 @@ def _routed(xf, router, w_gate, w_up, w_down, cfg, e_lo: int = 0) -> torch.Tenso
     flat_e = topi.reshape(-1)                                              # (T*k,)
     onehot = F.one_hot(flat_e, e).t()                                      # (E, T*k)
     pos = ((onehot.cumsum(1) - 1) * onehot).sum(0)                         # (T*k,)
+    if shard is None:
+        cap = _capacity(cfg, t)
+    else:
+        offsets, shards = _global_offsets(onehot.sum(1), *shard)
+        cap = _capacity(cfg, t * shards)
+        pos = pos + offsets[flat_e]
     keep = pos < cap
     if e_loc != e:                  # entries of other ranks' experts: dropped here
         flat_e = flat_e - e_lo
@@ -127,14 +137,38 @@ def _routed(xf, router, w_gate, w_up, w_down, cfg, e_lo: int = 0) -> torch.Tenso
     return combined
 
 
+def _global_offsets(counts: torch.Tensor, mesh, dims) -> Tuple[torch.Tensor, int]:
+    """Per expert, the entries routed to it by the token shards before this
+    rank's, in the unsplit batch's order (mesh order over ``dims``, the
+    first dim outermost), and the shard count: one all-gather of the (E,)
+    ``counts`` over each of ``dims``, innermost first. On meta tensors (the
+    dry run) the offsets are zeros."""
+    import torch.distributed as dist
+
+    offsets = torch.zeros_like(counts)
+    shards = 1
+    for dim in reversed(dims):
+        n = mesh.size(dim)
+        shards *= n
+        if counts.device.type == "meta":
+            continue
+        parts = [torch.empty_like(counts) for _ in range(n)]
+        dist.all_gather(parts, counts, group=mesh.get_group(dim))
+        offsets = offsets + sum(parts[:mesh.get_local_rank(dim)], torch.zeros_like(counts))
+        counts = sum(parts[1:], parts[0])
+    return offsets, shards
+
+
 def _routed_sharded(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """The routed experts over DTensors, as expert parallelism (``local_map``
     site ``moe.experts``): tokens split over the data axes as the batch is,
     the experts over the mesh dims that split their weights' expert dim.
-    Each rank routes its tokens (the capacity is its own shard's, as a
-    shard_map dispatch counts it), runs its own experts and weighs 0 the
-    entries of others: a partial sum over the experts' axes, which DTensor
-    completes.
+    Each rank routes its tokens with the whole batch's capacity, ranking
+    each entry within its expert after the entries of the token shards
+    before its own (one all-gather of per-expert counts: the reference's
+    GSPMD dispatch drops what one device drops), runs its own experts and
+    weighs 0 the entries of others: a partial sum over the experts' axes,
+    which DTensor completes.
     The weights' FSDP shards are gathered first. Gradients: the tokens'
     partial over the experts' axes, the weights' over the batch's (the
     router's over both)."""
@@ -146,12 +180,14 @@ def _routed_sharded(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     w_pl = tuple(Shard(0) if i in exp_dims else Replicate() for i in range(mesh.ndim))
     rep = dtm.replicate(w_pl)
 
+    batch = dtm.shard_dim_axes_of(x_pl, 0)
+
     def local(xl, router, wg, wu, wd):
         b, s, d = xl.shape
         e_lo = dtm.shard_index(mesh, exp_dims) * wg.shape[0]
-        return _routed(xl.reshape(b * s, d), router, wg, wu, wd, cfg, e_lo).reshape(b, s, d)
+        return _routed(xl.reshape(b * s, d), router, wg, wu, wd, cfg, e_lo,
+                       shard=(mesh, batch) if batch else None).reshape(b, s, d)
 
-    batch = dtm.shard_dim_axes_of(x_pl, 0)
     return dtm.site("moe.experts", local, out_placements=(dtm.partial_over(x_pl, exp_dims),),
                     in_placements=(x_pl, rep, w_pl, w_pl, w_pl), mesh=mesh,
                     in_grad_placements=(dtm.partial_over(x_pl, exp_dims),

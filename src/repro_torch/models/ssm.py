@@ -109,12 +109,19 @@ def _ssd_scan(x, dt, a, b, c, plain: bool):
     mesh, bsz, h = x.device_mesh, x.shape[0], x.shape[2]
     lay = lambda bd, hd: dtm.axis_layout(mesh, batch=None if bd is None else (bd, bsz),
                                          heads=None if hd is None else (hd, h))
-    ins = (lay(0, 2), lay(0, 2), lay(None, 0), lay(0, None), lay(0, None))
+    if b.shape[2] > 1:
+        # G > 1 groups: each head's own B / C row, so that a shard of the
+        # heads holds its groups (autograd sums the copies back per group)
+        rep = h // b.shape[2]
+        b, c = (t.repeat_interleave(rep, dim=2) for t in (b, c))
+        ins = (lay(0, 2), lay(0, 2), lay(None, 0), lay(0, 2), lay(0, 2))
+    else:
+        ins = (lay(0, 2), lay(0, 2), lay(None, 0), lay(0, None), lay(0, None))
     batch, heads = dtm.shard_dim_axes_of(ins[0], 0), dtm.shard_dim_axes_of(ins[0], 2)
-    # gradients: A's partial over the batch's axes, the shared B / C's over
+    # gradients: A's partial over the batch's axes, a shared B / C's over
     # the heads'
     grads = ins[:2] + (dtm.partial_over(ins[2], batch),) + tuple(
-        dtm.partial_over(p, heads) for p in ins[3:])
+        p if b.shape[2] > 1 else dtm.partial_over(p, heads) for p in ins[3:])
     fn = dtm.site("ssd.scan", lambda *t: ssd_prefill(*t, plain=plain),
                   out_placements=(lay(0, 2), lay(0, 1)), in_placements=ins, mesh=mesh,
                   in_grad_placements=grads)
@@ -132,8 +139,12 @@ def ssd_step(x, dt, a, b, c, state):
         mesh, (bsz, h) = state.device_mesh, state.shape[:2]
         lay = lambda hd: dtm.axis_layout(mesh, batch=None if hd == 0 else (0, bsz),
                                          heads=None if hd is None else (hd, h))
+        bc = lay(None)
+        if b.shape[1] > 1:      # G > 1 groups: each head's own row, split as the heads
+            b, c = (t.repeat_interleave(h // b.shape[1], dim=1) for t in (b, c))
+            bc = lay(1)
         return dtm.site("ssm.step", ssd_step, out_placements=(lay(1), lay(1)),
-                        in_placements=(lay(1), lay(1), lay(0), lay(None), lay(None), lay(1)),
+                        in_placements=(lay(1), lay(1), lay(0), bc, bc, lay(1)),
                         mesh=mesh)(x, dt, a, b, c, state)
     rep = x.shape[1] // b.shape[1]
     bh = b.repeat_interleave(rep, dim=1).float()          # (B,H,N)

@@ -18,7 +18,7 @@ dependencies are ready. Consequences:
   time a slow one needs for one.
 * **Fused homogeneous decode.** Decode events that pop at the same virtual
   time with the same model signature step in ONE fused dispatch; each pool
-  still samples from its own generator and keeps its own accounting, so
+  still splits its own sampling key and keeps its own accounting, so
   token streams are independent of grouping.
 * **Batched replica axis** (``batch_replicas``, default on). A fused group
   of K dense pools runs as ONE ``decode_step`` of batch ``p2 * B`` (p2 the
@@ -49,10 +49,19 @@ dependencies are ready. Consequences:
   replica. ``batch_replicas=False`` is the tuple dispatch: each member's
   own step (its own graph on a card) and K batch-1 prefills, the
   reference's tuple-of-K baseline. ``batch_layout="shard_map"`` runs the
-  bank too: the engine serves from one process, where the reference's
-  ``shard_map`` over one device is its ``vmap``. A replay over several
-  processes, whose bank would step through ``models.shard_map_replicas``,
-  is not ported.
+  bank too. In one process it is the whole bank, as the reference's
+  ``shard_map`` over one device is its ``vmap``. Under a
+  ``torch.distributed`` group of ``world > 1`` ranks (``process_group``,
+  default the default group), every rank replays the same trace, and a
+  bank whose p2 divides among the ranks is split over them
+  (``pool.BankShards``): rank r holds and steps only members ``[r p2 /
+  world, (r + 1) p2 / world)``, the local core of
+  ``models.shard_map_replicas``, and samples those members with their own
+  keys. Only the next tokens cross ranks on a coherent step (one
+  all-gather); a gather or rebuild moves only the rows whose owner changes
+  (point to point), and a pool that leaves its group takes its rows from
+  the rank that holds them (a broadcast). The counters keep the
+  reference's meaning on every rank.
 * **Fused admission prefill.** Admission events that pop at the same
   instant defer their prefills; the engine groups them by (config,
   params, prompt bucket) and issues each group as one dispatch (batched as
@@ -123,7 +132,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.pool import (
-    BankRow, CacheBank, Pool, Request, cache_rows, observe_latencies, requeue_front,
+    BankRow, BankShards, CacheBank, Pool, Request, cache_rows, observe_latencies, requeue_front,
 )
 
 BATCH_LAYOUTS = ("vmap", "shard_map")
@@ -176,10 +185,10 @@ class _BankSet:
     outside the new group still reads) and drops the other free ones, or
     allocates a bank when none is free."""
 
-    def __init__(self, pool: Pool, size: int):
+    def __init__(self, pool: Pool, size: int, shards: Optional[BankShards] = None):
         self.make = functools.partial(
             CacheBank, pool.cfg, pool.params, size, pool.max_batch, pool.max_seq_len,
-            device=pool.device, cuda_graphs=pool.cuda_graphs)
+            device=pool.device, cuda_graphs=pool.cuda_graphs, shards=shards)
         self.banks: List[CacheBank] = []
 
     def acquire(self) -> CacheBank:
@@ -284,7 +293,8 @@ class EventDrivenFleet:
                  batch_replicas: bool = True,
                  batch_layout: str = "vmap",
                  time_dispatch: bool = False,
-                 on_finish: Optional[Callable[[Request], None]] = None):
+                 on_finish: Optional[Callable[[Request], None]] = None,
+                 process_group: Any = None):
         if not fleet.virtual:
             raise ValueError("the event engine needs VirtualClock replicas")
         if fusion_quantum_s < 0:
@@ -306,6 +316,21 @@ class EventDrivenFleet:
         # serial-fused byte-identity baseline
         self.batch_replicas = bool(batch_replicas)
         self.batch_layout = batch_layout
+        # the ranks a "shard_map" bank is split over: the process group's,
+        # when torch.distributed runs more than one (every rank replays the
+        # same trace); None steps every bank whole in this process
+        self._group = process_group
+        self._ranks: Optional[Tuple[int, int]] = None
+        if batch_layout == "shard_map":
+            import torch.distributed as dist
+
+            if dist.is_available() and dist.is_initialized():
+                world = dist.get_world_size(process_group)
+                if world > 1:
+                    self._ranks = (dist.get_rank(process_group), world)
+        # member rows this rank received from another over the replay (a
+        # restack or gather of a sharded bank moves only those)
+        self.bank_rows_received = 0
         self.time_dispatch = bool(time_dispatch)
         self.on_finish = on_finish
         self.stats = EngineStats()
@@ -923,7 +948,7 @@ class EventDrivenFleet:
         p2 = self._pow2(len(pools))
         # the reference's program-cache entry; the program is each pool's step
         step = self._fused_fn(("decode", sig, p2), lambda: Pool._run_decode_fn)
-        toks = [p._sample(*step(p), pre["temps"]) for p, pre in zip(pools, pres)]
+        toks = [p._sample(*step(p), pre["temps"], pre["key"]) for p, pre in zip(pools, pres)]
         return [t.cpu().numpy() for t in toks], p2
 
     def _bank_coherent(self, pools: List[Pool], p2: int) -> Optional[CacheBank]:
@@ -955,20 +980,79 @@ class EventDrivenFleet:
             idx.append(c.index)
         return bank, idx
 
+    def _shards(self, p2: int) -> Optional[BankShards]:
+        """The split of a bank of p2 members over the ranks, as the
+        reference's ``_batched_core`` lays ``shard_map`` over its devices:
+        only where more than one rank runs and p2 divides among them."""
+        if self._ranks is None or p2 % self._ranks[1]:
+            return None
+        return BankShards(self._group, *self._ranks)
+
     @staticmethod
-    def _copy_rows(dst: CacheBank, src_tree, src_rows: List[int], dst_rows: List[int]):
-        """Member rows ``src_rows`` of ``src_tree`` (each ``dst.batch`` rows
-        of every leaf) into member rows ``dst_rows`` of ``dst``: one gather
-        and one scatter a leaf."""
+    def _leaf_list(tree) -> List[torch.Tensor]:
+        return [t for sc in tree["stages"] for blk in sc.values() for t in blk.values()]
+
+    def _move_rows(self, dst: CacheBank, src, src_rows: List[int], dst_rows: List[int]):
+        """Member rows ``src_rows`` of ``src`` (a ``CacheBank``, or one
+        pool's own cache tree: member 0, which every rank holds) into member
+        rows ``dst_rows`` of ``dst`` (each ``dst.batch`` rows of every
+        leaf). A pair whose both ends this process holds is one gather and
+        one scatter a leaf; on sharded banks a row whose owner changes moves
+        once, point to point from the rank holding it to the rank that needs
+        it, and nothing else crosses ranks."""
+        import torch.distributed as dist
+
         b = dst.batch
-        src_i = torch.tensor([i * b + s for i in src_rows for s in range(b)],
-                             device=dst.device)
-        dst_i = torch.tensor([i * b + s for i in dst_rows for s in range(b)],
-                             device=dst.device)
-        for sc, dc in zip(src_tree["stages"], dst.tree["stages"]):
-            for name, blk in sc.items():
-                for key, t in blk.items():
-                    dc[name][key].index_copy_(1, dst_i, t.index_select(1, src_i))
+        src_bank = src if isinstance(src, CacheBank) else None
+        src_leaves = self._leaf_list(src.tree if src_bank is not None else src)
+        dst_leaves = self._leaf_list(dst.tree)
+        shards = dst.shards or (src_bank.shards if src_bank is not None else None)
+        src_first = src_bank.first if src_bank is not None else 0
+        src_split = src_bank is not None and src_bank.shards is not None
+
+        def rows(members, first):
+            return torch.tensor([(m - first) * b + s for m in members for s in range(b)],
+                                dtype=torch.int64, device=dst.device)
+
+        local: List[Tuple[int, int]] = []
+        sends: Dict[int, List[Tuple[int, int]]] = {}
+        recvs: Dict[int, List[Tuple[int, int]]] = {}
+        for i, j in zip(src_rows, dst_rows):
+            have = not src_split or src_bank.holds(i)
+            if have and dst.holds(j):
+                local.append((i, j))
+            elif dst.holds(j):
+                recvs.setdefault(src_bank.shards.owner(i, src_bank.size), []).append((i, j))
+            if have and src_split:
+                needers = ([dst.shards.owner(j, dst.size)] if dst.shards is not None
+                           else range(shards.world))
+                for r in needers:
+                    if r != shards.rank:
+                        sends.setdefault(r, []).append((i, j))
+        if local:
+            si = rows([i for i, _ in local], src_first)
+            di = rows([j for _, j in local], dst.first)
+            for st, dt_ in zip(src_leaves, dst_leaves):
+                dt_.index_copy_(1, di, st.index_select(1, si))
+        if not (sends or recvs):
+            return
+        ops, landed = [], []
+        for r, pairs in sorted(sends.items()):
+            si = rows([i for i, _ in pairs], src_first)
+            for tag, st in enumerate(src_leaves):
+                ops.append(dist.P2POp(dist.isend, st.index_select(1, si).contiguous(),
+                                      shards.global_rank(r), shards.group, tag))
+        for r, pairs in sorted(recvs.items()):
+            di = rows([j for _, j in pairs], dst.first)
+            for tag, dt_ in enumerate(dst_leaves):
+                buf = dt_.new_empty((dt_.shape[0], len(di)) + tuple(dt_.shape[2:]))
+                ops.append(dist.P2POp(dist.irecv, buf, shards.global_rank(r), shards.group, tag))
+                landed.append((dt_, di, buf))
+            self.bank_rows_received += len(pairs)
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        for dt_, di, buf in landed:
+            dt_.index_copy_(1, di, buf)
 
     def _decode_chunk_batched(self, sig, pools: List[Pool],
                               pres: List[dict]) -> Tuple[List[Any], int]:
@@ -988,7 +1072,7 @@ class EventDrivenFleet:
         same way (``bank_rebuilds``), counting one dispatch per source bank
         on its first member, as the reference counts its row gathers.
 
-        Each member samples its own logits slice with its own generator and
+        Each member samples its own logits slice with its own key and
         temperatures; the tokens come back in ONE stacked transfer, and
         every member's cache becomes a ``BankRow`` of the bank."""
         st = self.stats
@@ -996,21 +1080,27 @@ class EventDrivenFleet:
         p2 = self._pow2(k)
         pool0 = pools[0]
 
+        shards = self._shards(p2)
+
         def bank_set():
-            return _program(("bank", sig, p2, pool0.cuda_graphs),
-                            lambda: _BankSet(pool0, p2))
+            return _program(("bank", sig, p2, pool0.cuda_graphs, shards),
+                            lambda: _BankSet(pool0, p2, shards))
 
         bank = self._bank_coherent(pools, p2)
+        if bank is not None and bank.shards != shards:
+            bank = None                     # another split: restack it below
         if bank is not None:
             self._fused_fn(("decode", sig, p2), bank_set)
             group = set(pools)
-            for p in list(bank.viewers):
+            # in row order: on a sharded bank every rank takes the same
+            # broadcasts in the same order
+            for p in sorted(bank.viewers, key=lambda v: v.cache.index):
                 if p not in group and p.occupancy() > 0:
                     p.materialize_cache()
         elif (common := self._bank_rows_common(pools)) is not None:
             src, idx = common
             bank = self._fused_fn(("decode_gather", sig, p2, src.size), bank_set).acquire()
-            self._copy_rows(bank, src.tree, idx, list(range(k)))
+            self._move_rows(bank, src, idx, list(range(k)))
             st.bank_gathers += 1
         else:
             bank = self._fused_fn(("decode_restack", sig, p2), bank_set).acquire()
@@ -1020,10 +1110,10 @@ class EventDrivenFleet:
                 if isinstance(c, BankRow):
                     sources.setdefault(c.bank, []).append(j)
                 else:
-                    self._copy_rows(bank, c, [0], [j])
+                    self._move_rows(bank, c, [0], [j])
             for src, js in sources.items():
                 pools[js[0]].jit_dispatches += 1
-                self._copy_rows(bank, src.tree, [pools[j].cache.index for j in js], js)
+                self._move_rows(bank, src, [pools[j].cache.index for j in js], js)
             st.bank_rebuilds += 1
         pad = [pool0] * (p2 - k)
         replays = bank.graph_replays
@@ -1032,13 +1122,26 @@ class EventDrivenFleet:
             np.concatenate([p._host_lengths for p in pools + pad]))
         self._count_bank_step(bank, replays)
         b = pool0.max_batch
-        toks = [p._sample(logits[j * b:(j + 1) * b], greedy[j * b:(j + 1) * b], pre["temps"])
-                for j, (p, pre) in enumerate(zip(pools, pres))]
+        # each member samples on the rank that holds its rows, with its own
+        # key (every rank split every member's key: the host loops agree)
+        own = lambda t, j: t[(j - bank.first) * b:(j - bank.first + 1) * b]
+        toks = {j: p._sample(own(logits, j), own(greedy, j), pre["temps"], pre["key"])
+                for j, (p, pre) in enumerate(zip(pools, pres)) if bank.holds(j)}
         for j, p in enumerate(pools):
             p.cache = BankRow(bank, j)
             p.bank_steps += 1
         st.batched_decode_calls += 1
-        return list(torch.stack(toks).cpu().numpy()), p2
+        if bank.shards is None:
+            return list(torch.stack([toks[j] for j in range(k)]).cpu().numpy()), p2
+        # the host loop reads the next tokens alone (the lengths are its own
+        # mirrors): one all-gather of (local, B) tokens, pad members' greedy
+        import torch.distributed as dist
+
+        mine = torch.stack([toks[j] if j in toks else own(greedy, j)
+                            for j in range(bank.first, bank.first + bank.local)])
+        parts = [torch.empty_like(mine) for _ in range(bank.shards.world)]
+        dist.all_gather(parts, mine, group=bank.shards.group)
+        return list(torch.cat(parts)[:k].cpu().numpy()), p2
 
     def _batched(self, cfg_name: str) -> Dict[str, Any]:
         return self._batched_calls.setdefault(cfg_name, {

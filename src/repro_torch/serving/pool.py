@@ -66,8 +66,11 @@ pool steps on its own again.
 Differences from the reference: caches are updated in place; the bucketed
 prefill runs eagerly (no graph per bucket yet); greedy sampling is
 ``argmax`` (first maximum, as ``jnp.argmax``), and a temperature above 0
-samples from the pool's own ``torch.Generator``, outside the step, which
-gives other bits than ``jax.random``. The process-wide program cache that
+samples outside the step, with the reference's Gumbel-max over
+``jax.random``'s threefry bits (``serving/prng.py``): the key stays on the
+host and splits where the reference's does, once a decode step and once a
+sampled prefill, and the (B, vocab) draw runs on the device only in a step
+where some slot samples. The process-wide program cache that
 ``clear_program_caches`` empties holds the event engine's banks and their
 graphs (the reference's holds jitted programs); prefill and placement run
 eagerly, so there is no per-pool program cache.
@@ -104,6 +107,7 @@ from repro_torch.models import (
     recurrent_state_bytes,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving import prng
 from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
 from repro_torch.serving.prefix import PrefixHit, PrefixIndex, PrefixStats
 
@@ -244,6 +248,28 @@ class _GraphedStep:
         self.graph_capture_ms = (time.perf_counter() - t0) * 1e3
 
 
+@dataclasses.dataclass(frozen=True)
+class BankShards:
+    """The ranks a bank's members are split over: ``world`` ranks of the
+    ``torch.distributed`` process ``group`` (None: the default group), this
+    process being ``rank`` in it. A bank of ``size`` members gives each rank
+    ``size // world`` consecutive members, rank r members ``[r * size /
+    world, (r + 1) * size / world)``: the reference's ``shard_map`` over the
+    replica axis."""
+
+    group: Any
+    rank: int
+    world: int
+
+    def owner(self, index: int, size: int) -> int:
+        return index // (size // self.world)
+
+    def global_rank(self, rank: int) -> int:
+        import torch.distributed as dist
+
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
+
 class CacheBank(_GraphedStep):
     """The dense caches of one batched fused-decode group: one
     ``init_cache`` tree of batch ``size * batch`` (``size`` a power of two),
@@ -256,26 +282,41 @@ class CacheBank(_GraphedStep):
     the bank's own (eager first, captured at the second step, replayed
     after). The graph binds the tree, so the tree is never reallocated: a
     restack copies rows into it. ``viewers`` are the live pools whose
-    ``cache`` is a ``BankRow`` of this bank."""
+    ``cache`` is a ``BankRow`` of this bank.
+
+    With ``shards`` the members are split over ranks (``BankShards``): this
+    process's tree holds only its own ``local`` members, from member
+    ``first`` on (``holds``), and ``decode`` steps those rows alone: the
+    local core of ``models.shard_map_replicas``, with no cache leaf crossing
+    ranks."""
 
     def __init__(self, cfg: ModelConfig, params: Any, size: int, batch: int,
-                 max_seq_len: int, *, device, cuda_graphs: bool = True):
+                 max_seq_len: int, *, device, cuda_graphs: bool = True,
+                 shards: Optional[BankShards] = None):
         self.cfg, self.params = cfg, params
         self.size, self.batch = size, batch
+        self.shards = shards
+        self.local = size if shards is None else size // shards.world
+        self.first = 0 if shards is None else shards.rank * self.local
         self.device = resolve_device(device)
-        self.tree = init_cache(cfg, size * batch, max_seq_len, device=self.device)
+        self.tree = init_cache(cfg, self.local * batch, max_seq_len, device=self.device)
         self.viewers: "weakref.WeakSet[Pool]" = weakref.WeakSet()
         on_card = self.device.type == "cuda"
-        n = size * batch
+        n = self.local * batch
         self._step_host = {k: torch.zeros(n, dtype=torch.int32, pin_memory=on_card)
                            for k in ("tokens", "lengths")}
         self._step_in = ({k: torch.zeros(n, dtype=torch.int32, device=self.device)
                           for k in self._step_host} if on_card else self._step_host)
         self._init_graph(cuda_graphs)
 
+    def holds(self, index: int) -> bool:
+        """Whether member ``index``'s rows are in this process's tree."""
+        return self.first <= index < self.first + self.local
+
     def rows(self, index: int) -> Dict:
-        """Views of member ``index``'s rows of every leaf."""
-        return cache_rows(self.tree, index * self.batch, (index + 1) * self.batch)
+        """Views of member ``index``'s rows of every leaf (held here)."""
+        j = index - self.first
+        return cache_rows(self.tree, j * self.batch, (j + 1) * self.batch)
 
     def _decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
         s = self._step_in
@@ -285,12 +326,14 @@ class CacheBank(_GraphedStep):
 
     def decode(self, tokens: np.ndarray, lengths: np.ndarray
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One step of every row: (logits (size * batch, V) fp32, greedy).
+        """One step of every row held here, from the tokens and lengths of
+        all ``size * batch`` rows: (logits (local * batch, V) fp32, greedy).
         The staging buffers are written again only after the previous
         step's tokens were read back, as a pool's are."""
         host = self._step_host
-        host["tokens"].numpy()[:] = tokens
-        host["lengths"].numpy()[:] = lengths
+        lo, hi = self.first * self.batch, (self.first + self.local) * self.batch
+        host["tokens"].numpy()[:] = tokens[lo:hi]
+        host["lengths"].numpy()[:] = lengths[lo:hi]
         if self._step_in is not host:
             for key, dst in self._step_in.items():
                 dst.copy_(host[key], non_blocking=True)
@@ -301,12 +344,14 @@ class BankRow(dict):
     """A member pool's cache between batched steps: row ``index`` of
     ``bank``, as a cache tree (``{"stages": ...}``) whose leaves are views
     of that member's rows, so the pool's own indexing writes through to
-    the bank."""
+    the bank. A row another rank holds (a sharded bank) is a tree with no
+    stages: a placement into it writes nothing here, and its owner writes
+    the same rows."""
 
     __slots__ = ("bank", "index")
 
     def __init__(self, bank: CacheBank, index: int):
-        super().__init__(bank.rows(index))
+        super().__init__(bank.rows(index) if bank.holds(index) else {"stages": []})
         self.bank = bank
         self.index = index
 
@@ -612,9 +657,10 @@ class Pool(_GraphedStep):
         self.bank_steps = 0                 # decode steps taken inside a bank
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.peak_occupancy = 0
-        # sampling draws (temperature > 0) come from this generator only
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(rng_seed)
+        # the sampling key (temperature > 0), held on the host as the
+        # reference's ``PRNGKey(rng_seed)``: split once a decode step and
+        # once a sampled prefill, at the reference's points
+        self._key = prng.PRNGKey(rng_seed)
 
         # paged-cache side: allocator + per-slot block tables (host side;
         # the stacked (B, nb) table goes to the device once per step)
@@ -710,6 +756,15 @@ class Pool(_GraphedStep):
         for (dst, key, _), (src, _, _) in zip(_leaves(self._own_cache, self._layout),
                                               _leaves(row, self._layout)):
             dst[key].copy_(src[key])
+        shards = row.bank.shards
+        if shards is not None:
+            # a sharded bank's rows come from the rank that holds them: every
+            # rank runs this pool's steps, so every rank takes its cache
+            import torch.distributed as dist
+
+            src = shards.global_rank(shards.owner(row.index, row.bank.size))
+            for dst, key, _ in _leaves(self._own_cache, self._layout):
+                dist.broadcast(dst[key], src=src, group=shards.group)
         self.cache = self._own_cache
         self.jit_dispatches += 1
 
@@ -718,15 +773,16 @@ class Pool(_GraphedStep):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _sample(self, logits: torch.Tensor, greedy: torch.Tensor,
-                temperature: np.ndarray) -> torch.Tensor:
-        """Per-slot sampling: ``temperature`` is a (B,) host vector; slots at
-        0 take ``greedy`` (the step's argmax), the rest draw Gumbel-max at
-        their own temperature from ``self.generator``. The all-greedy batch
-        skips the draw."""
+                temperature: np.ndarray, key: np.ndarray) -> torch.Tensor:
+        """Per-slot sampling, the reference's ``_sample``: ``temperature`` is
+        a (B,) host vector; slots at 0 take ``greedy`` (the step's argmax),
+        the rest draw Gumbel-max at their own temperature over
+        ``jax.random.uniform(key, logits.shape)``'s bits (``prng``). The
+        all-greedy batch skips the draw: no device work, no sync."""
         if not (temperature > 0.0).any():
             return greedy
         t = self._tensor(np.maximum(temperature, 1e-6))[:, None]
-        u = torch.rand(logits.shape, generator=self.generator, device=self.device)
+        u = prng.uniform(key, logits.shape, device=logits.device)
         gumbel = -torch.log(-torch.log(u + 1e-9) + 1e-9)
         s = torch.argmax(logits / t + gumbel, dim=-1).to(torch.int32)
         return torch.where(self._tensor(temperature > 0.0), s, greedy)
@@ -1203,9 +1259,11 @@ class Pool(_GraphedStep):
                 self.jit_dispatches += 1
             row = logits[0]
             if req.temperature > 0.0:
-                u = torch.rand(row.shape, generator=self.generator, device=self.device)
-                gumbel = -torch.log(-torch.log(u + 1e-9) + 1e-9)
-                first = int(torch.argmax(row / req.temperature + gumbel))
+                # the reference's host-side draw: numpy over the row
+                self._key, sub = prng.split(self._key)
+                u = prng.uniform(sub, row.shape, device=row.device).cpu().numpy()
+                gumbel = -np.log(-np.log(u + 1e-9) + 1e-9)
+                first = int(np.argmax(row.cpu().numpy() / req.temperature + gumbel))
             else:
                 first = int(torch.argmax(row))   # waits for the device
             if self.virtual and self.prefill_op is not None:
@@ -1367,9 +1425,11 @@ class Pool(_GraphedStep):
         if not keep_view:
             self.materialize_cache()
         self._ensure_decode_state()
+        self._key, sub = prng.split(self._key)
         t0 = self.clock()
+        pre = {"active": active, "t0": t0, "temps": self._slot_temp.copy(), "key": sub}
         if keep_view:
-            return {"active": active, "t0": t0, "temps": self._slot_temp.copy()}
+            return pre
         # ship the host mirrors once per step (placements only wrote numpy).
         # The staging buffers are written again only after the step's
         # result was read back (``_decode_finish`` waits for the device),
@@ -1383,7 +1443,7 @@ class Pool(_GraphedStep):
         if self._step_in is not host:
             for key, dst in self._step_in.items():
                 dst.copy_(host[key], non_blocking=True)
-        return {"active": active, "t0": t0, "temps": self._slot_temp.copy()}
+        return pre
 
     def _decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The decode step over the static inputs and the pool's cache
@@ -1411,7 +1471,7 @@ class Pool(_GraphedStep):
         # the cache is updated in place
         logits, greedy = self._run_decode_fn()
         self.jit_dispatches += 1
-        next_tok = self._sample(logits, greedy, pre["temps"])
+        next_tok = self._sample(logits, greedy, pre["temps"], pre["key"])
         return self._decode_finish(pre, next_tok.cpu().numpy())   # waits for the device
 
     def _decode_finish(self, pre: dict, next_np: np.ndarray) -> List[Request]:

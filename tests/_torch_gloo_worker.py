@@ -14,7 +14,14 @@ never JAX), runs each on its shard of the world and writes what it got to
   twins with their log-sum-exp), gathered whole;
 * ``gemma``: reduced gemma-2b (fp32) greedy decode steps on a 2 x 2
   ``("data", "model")`` mesh, params, cache and inputs laid out by the
-  rules: each step's logits and tokens;
+  rules: each step's logits and tokens; ``kinds``: the same for reduced
+  minitron-4b-mla, deepseek-v2-lite-16b, gdn-4b, zamba2-1.2b and
+  llama-3.2-vision-11b (the ``local_map`` sites of the other block kinds);
+* ``moe``: deepseek-v2-lite-16b's first routed MoE block and a whole
+  prefill on the 2 x 2 mesh, tokens split over ``data``, where the
+  capacity binds;
+* ``replay``: the event engine's ``shard_map`` replay on 2-rank groups
+  (ranks 0-1, 2-3): rows, counters and the banks' local rows;
 * ``replicas``: one ``decode_step`` over a fold of 4 members x 2 rows laid
   out by ``shard_map_replicas`` on a 1-D replica mesh: its logits and new
   cache (the test holds them to the reference's ``vmap_replicas``), and the
@@ -50,9 +57,12 @@ def main(rank: int, world: int, workdir: str) -> None:
     from repro_torch.models import (
         cache_from_numpy,
         decode_step,
+        init_cache,
         params_from_numpy,
+        prefill,
         shard_map_replicas,
     )
+    from repro_torch.models.moe import moe_mlp
     from repro_torch.models.attention import decode_over_split_cache
     from repro_torch.training import tree as T
     from repro_torch.training.compression import compressed_psum
@@ -87,27 +97,47 @@ def main(rank: int, world: int, workdir: str) -> None:
         out[name] = {"ctx": ctx.full_tensor().numpy(),
                      "caches": [b.full_tensor().numpy() for b in caches]}
 
-    g = cases["gemma"]
-    cfg = g["cfg"]
     mesh = M.make_host_mesh(model_axis=2)
-    params = params_from_numpy(g["params"], cfg, device="cpu")
-    cache = cache_from_numpy(g["cache"], device="cpu")
-    fsdp = S.needs_fsdp(cfg, mesh)
-    params = S.distribute(params, S.param_shardings(params, mesh, fsdp=fsdp), mesh)
+
+    def on_mesh(params, cfg):
+        fsdp = S.needs_fsdp(cfg, mesh)
+        return S.distribute(params, S.param_shardings(params, mesh, fsdp=fsdp), mesh)
+
+    def greedy_steps(g):
+        cfg = g["cfg"]
+        params = on_mesh(params_from_numpy(g["params"], cfg, device="cpu"), cfg)
+        cache = cache_from_numpy(g["cache"], device="cpu")
+        cache = S.distribute(cache, S.cache_shardings(cache, mesh), mesh)
+        token, lengths = _t(g["token"]), _t(g["lengths"])
+        logits, tokens = [], []
+        with torch.no_grad():
+            for _ in range(g["steps"]):
+                b = S.distribute({"t": token, "l": lengths},
+                                 S.batch_shardings({"t": token, "l": lengths}, mesh), mesh)
+                lg, cache, _ = decode_step(params, cfg, b["t"], cache, b["l"])
+                lg = lg.full_tensor()
+                token = torch.argmax(lg, dim=-1).to(torch.int32)
+                lengths = lengths + 1
+                logits.append(lg.numpy())
+                tokens.append(token.numpy())
+        return {"logits": logits, "tokens": tokens}
+
+    out["gemma"] = greedy_steps(cases["gemma"])
+    out["kinds"] = {arch: greedy_steps(g) for arch, g in cases["kinds"].items()}
+
+    m = cases["moe"]
+    cfg = m["cfg"]
+    block = S.distribute(T.map(_t, m["block"]),
+                         S.param_shardings(T.map(_t, m["block"]), mesh, fsdp=False), mesh)
+    params = on_mesh(params_from_numpy(m["params"], cfg, device="cpu"), cfg)
+    cache = init_cache(cfg, 4, 32, device="cpu")
     cache = S.distribute(cache, S.cache_shardings(cache, mesh), mesh)
-    token, lengths = _t(g["token"]), _t(g["lengths"])
-    logits, tokens = [], []
+    inputs = S.distribute({"x": _t(m["x"]), "t": _t(m["tokens"])},
+                          S.batch_shardings({"x": _t(m["x"]), "t": _t(m["tokens"])}, mesh), mesh)
     with torch.no_grad():
-        for _ in range(g["steps"]):
-            b = S.distribute({"t": token, "l": lengths},
-                             S.batch_shardings({"t": token, "l": lengths}, mesh), mesh)
-            lg, cache, _ = decode_step(params, cfg, b["t"], cache, b["l"])
-            lg = lg.full_tensor()
-            token = torch.argmax(lg, dim=-1).to(torch.int32)
-            lengths = lengths + 1
-            logits.append(lg.numpy())
-            tokens.append(token.numpy())
-    out["gemma"] = {"logits": logits, "tokens": tokens}
+        y = moe_mlp(block, inputs["x"], cfg).full_tensor()
+        lg, _, _ = prefill(params, cfg, inputs["t"], cache)
+    out["moe"] = {"block": y.numpy(), "prefill": lg.full_tensor().numpy()}
 
     r = cases["replicas"]
     cfg = r["cfg"]
@@ -142,10 +172,55 @@ def main(rank: int, world: int, workdir: str) -> None:
                               "tree": T.map(lambda t: t.numpy(), g1),
                               "rel_err": max(errs), "leaves": len(errs),
                               "worst": max(zip(errs, T.paths(g0)))}
+    if "replay" in cases:
+        out["replay"] = _replay(cases["replay"], rank, world)
     with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _replay(c, rank: int, world: int) -> dict:
+    """The event engine's replay with ``batch_layout="shard_map"`` on a group
+    of 2 ranks (ranks 2k and 2k + 1 of the world): four reduced gemma-2b
+    replicas, the bank split over the two. -> the finished requests' rows
+    ``[output, finish_s, energy_j]``, the engine's counters and, for every
+    bank it stepped, its members, the rows this rank holds and the batch."""
+    import json
+
+    import numpy as np
+
+    from repro_torch.core import EnergyModel
+    from repro_torch.core.traces import TracedRequest
+    from repro_torch.hw import H200_SXM
+    from repro_torch.models import params_from_numpy
+    from repro_torch.serving import (ClockSpec, EventDrivenFleet, Fleet, FleetSpec, PoolSpec,
+                                     ReplicaSpec)
+    from repro_torch.serving import events as ev
+
+    groups = [dist.new_group([r, r + 1]) for r in range(0, world, 2)]
+    group = groups[rank // 2]
+    cfg = c["cfg"]
+    spec = FleetSpec(replicas=tuple(
+        ReplicaSpec(name=f"r{i}", arch=c["arch"], clock=ClockSpec(mode="lock"),
+                    decode=PoolSpec(batch=2), max_seq_len=64, prefill_chunk_tokens=64)
+        for i in range(4)), router="jsq")
+    params = params_from_numpy(c["params"], cfg, device="cpu")
+    fleet = Fleet.from_spec(spec, emodel=EnergyModel(H200_SXM), params_for={c["arch"]: params},
+                            device="cpu")
+    trace = [TracedRequest(arrival_s=0.0, prompt=np.asarray(p), max_new_tokens=4,
+                           bucket="mixed", temperature=t) for p, t in c["requests"]]
+    eng = EventDrivenFleet(fleet, fast_path_min=2, batch_layout="shard_map",
+                           process_group=group)
+    done = eng.run(trace)
+    rows = [[r.output, r.ledger.finish_s, r.energy_j] for r in sorted(done, key=lambda r: r.uid)]
+    banks = [(b.size, b.first, b.local, b.tree["stages"][0]["b0"]["k"].shape[1], b.batch)
+             for entry in ev._PROGRAM_CACHE.values() if isinstance(entry, ev._BankSet)
+             for b in entry.banks]
+    stats = eng.stats.as_dict()
+    stats.pop("fused_decode_wall")
+    return {"rows": json.dumps(rows), "stats": stats, "banks": banks,
+            "received": eng.bank_rows_received}
 
 
 if __name__ == "__main__":

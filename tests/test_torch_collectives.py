@@ -16,6 +16,18 @@ makes the cases from numpy seeds and computes the reference's answers:
 * reduced gemma-2b (fp32) on a 2 x 2 gloo mesh, params, cache and inputs by
   the rules, is within 1e-4 of ``repro.models.decode_step`` over three
   greedy steps, with the tokens equal;
+* the last five ``local_map`` sites: reduced minitron-4b-mla
+  (``mla.decode``), deepseek-v2-lite-16b (``moe.experts``), gdn-4b
+  (``gdn.scan``), zamba2-1.2b (``ssm.step``) and llama-3.2-vision-11b
+  (``attention.cross``) decode on the same 2 x 2 mesh within 1e-4 of
+  ``repro.models.decode_step``, the greedy tokens equal;
+* deepseek-v2-lite-16b's routed MoE where the capacity binds (a block on
+  4 x 32 tokens and a whole prefill): the port on DTensors drops what the
+  reference's one global capacity drops (the dropped counts are printed);
+* the event engine with ``batch_layout="shard_map"`` on 2-rank groups
+  replays ``tests/test_batched_dispatch.py``'s mixed-temperature scenario
+  with the reference's rows and ``EngineStats``, each rank's banks holding
+  half the rows;
 * ``shard_map_replicas`` over a 1-D replica mesh steps a fold of 4 members
   as the reference's ``vmap_replicas(decode_step)`` steps the same 4
   replicas (logits and cache within fp32 1e-5), and as the whole fold does
@@ -29,6 +41,7 @@ makes the cases from numpy seeds and computes the reference's answers:
   should be).
 """
 import dataclasses
+import json
 import os
 import pickle
 import subprocess
@@ -43,6 +56,11 @@ import torch
 
 import repro.configs as jconfigs
 import repro.models as jmodels
+import repro.serving as jserving
+from repro.core import EnergyModel as JEnergyModel
+from repro.core.traces import TracedRequest as JTracedRequest
+from repro.hw import H200_SXM as J_H200
+from repro.models import moe as jmoe
 from repro.kernels.decode_attn.ref import decode_attention_ref as j_decode_ref
 from repro.kernels.mla_decode.ref import mla_latent_decode_ref as j_mla_ref
 from repro.models.model import vmap_replicas as j_vmap_replicas
@@ -54,6 +72,9 @@ from repro_torch.kernels.decode_attn import decode_attention_ref
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 ARCH = "gemma-2b"
+# the reduced configs whose decode runs the last five local_map sites
+KINDS = ("minitron-4b-mla", "deepseek-v2-lite-16b", "gdn-4b", "zamba2-1.2b",
+         "llama-3.2-vision-11b")
 
 
 def _fp32(cfg):
@@ -89,17 +110,23 @@ def _written(c):
     return bufs
 
 
-def _gemma_case(rng):
-    jcfg = _fp32(jconfigs.reduced_config(ARCH))
+def _gemma_case(rng, arch=ARCH):
+    """Reduced ``arch`` (fp32) prefilled by the reference over ragged
+    prompts (with encoder states for ``cross_attn``), and its next three
+    greedy decode steps: the logits and tokens."""
+    jcfg = _fp32(jconfigs.reduced_config(arch))
     params = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
     b, l = 4, 64
     prompts = rng.integers(1, jcfg.vocab_size, (b, 40)).astype(np.int32)
     plens = np.array([5, 20, 33, 40], np.int32)
     cache = jmodels.init_cache(jcfg, b, l)
+    enc = ({"enc_states": jnp.asarray(rng.standard_normal(
+        (b, jcfg.n_media_tokens, jcfg.d_model)).astype(np.float32))}
+        if jcfg.n_media_tokens else {})
     lg, cache, lengths = jmodels.prefill(params, jcfg, jnp.asarray(prompts), cache,
-                                         prompt_lengths=jnp.asarray(plens))
+                                         prompt_lengths=jnp.asarray(plens), **enc)
     token = jnp.argmax(lg, axis=-1).astype(jnp.int32)
-    case = {"cfg": _fp32(reduced_config(ARCH)), "params": _to_numpy(params),
+    case = {"cfg": _fp32(reduced_config(arch)), "params": _to_numpy(params),
             "cache": _to_numpy(cache), "token": np.asarray(token),
             "lengths": np.asarray(lengths), "steps": 3}
     want_logits, want_tokens = [], []
@@ -109,6 +136,82 @@ def _gemma_case(rng):
         want_logits.append(np.asarray(lg))
         want_tokens.append(np.asarray(token))
     return case, {"logits": want_logits, "tokens": want_tokens}
+
+
+def _drops(params, x, cfg, shards=1):
+    """The (token, slot) entries the reference's capacity dispatch drops in
+    ``moe_mlp(params, x)`` (its routing in numpy on its own gates), with one
+    capacity over the whole batch, or (``shards`` > 1) with each batch shard
+    ranking and capping its own entries, as a per-shard dispatch would."""
+    b, s, d = x.shape
+    gates = np.asarray(jax.nn.softmax(jnp.asarray(x.reshape(b * s, d)) @ params["router"],
+                                      axis=-1))
+    topi = np.asarray(jax.lax.top_k(jnp.asarray(gates), cfg.moe_top_k)[1])
+    dropped = set()
+    per = b * s // shards
+    for r in range(shards):
+        flat = topi[r * per:(r + 1) * per].reshape(-1)
+        cap = jmoe._capacity(cfg, per)
+        seen = np.zeros(cfg.n_routed_experts, int)
+        for i, e in enumerate(flat):
+            if seen[e] >= cap:
+                dropped.add(r * per * cfg.moe_top_k + i)
+            seen[e] += 1
+    return dropped
+
+
+def _moe_case(rng):
+    """deepseek-v2-lite-16b (fp32, reduced: 8 experts, top 2) where the
+    capacity binds: its first routed MoE block on 4 x 32 tokens (capacity
+    40 over the batch, 20 a data shard), and a whole prefill of the same
+    token count. -> the case, the reference's outputs and its dropped
+    entries (and those a per-shard capacity would drop)."""
+    arch = "deepseek-v2-lite-16b"
+    jcfg = _fp32(jconfigs.reduced_config(arch))
+    params = jmodels.init_params(jcfg, jax.random.PRNGKey(3))
+    block = next(jax.tree.map(lambda a: a[0], st[name]["moe"])
+                 for st in params["stages"] for name in st if "moe" in st[name])
+    x = (rng.standard_normal((4, 32, jcfg.d_model)) * 2.0).astype(np.float32)
+    out, _ = jmoe.moe_mlp(block, jnp.asarray(x), jcfg)
+    tokens = rng.integers(1, jcfg.vocab_size, (4, 32)).astype(np.int32)
+    lg, _, _ = jmodels.prefill(params, jcfg, jnp.asarray(tokens),
+                               jmodels.init_cache(jcfg, 4, 32))
+    case = {"cfg": _fp32(reduced_config(arch)), "params": _to_numpy(params),
+            "block": _to_numpy(block), "x": x, "tokens": tokens}
+    blk = _to_numpy(block)
+    return case, {"block": np.asarray(out), "prefill": np.asarray(lg),
+                  "dropped": _drops(blk, x, jcfg), "dropped_per_shard": _drops(blk, x, jcfg, 2)}
+
+
+def _replay_case(rng):
+    """``tests/test_batched_dispatch.py``'s multi-device scenario: four
+    reduced gemma-2b replicas of batch 2, ``max_seq_len`` 64, jsq,
+    ``fast_path_min`` 2, 8 requests of 16 tokens, every third at
+    temperature 0.7; the reference's rows ``[output, finish_s, energy_j]``
+    and ``EngineStats`` from its in-process (vmap) replay, which that test
+    holds equal to its ``shard_map`` replay."""
+    jcfg = jconfigs.reduced_config(ARCH)
+    params = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    reqs = []
+    for i in range(8):
+        r = np.random.default_rng(10 + i + 16)
+        reqs.append((r.integers(1, 100, 16).astype(np.int32), 0.7 if i % 3 == 0 else 0.0))
+    spec = jserving.FleetSpec(replicas=tuple(
+        jserving.ReplicaSpec(name=f"r{i}", arch=ARCH, clock=jserving.ClockSpec(mode="lock"),
+                             decode=jserving.PoolSpec(batch=2), max_seq_len=64,
+                             prefill_chunk_tokens=64)
+        for i in range(4)), router="jsq")
+    fleet = jserving.Fleet.from_spec(spec, emodel=JEnergyModel(J_H200), params_for={ARCH: params})
+    trace = [JTracedRequest(arrival_s=0.0, prompt=p, max_new_tokens=4, bucket="mixed",
+                            temperature=t) for p, t in reqs]
+    done = fleet.run_trace(trace, engine_opts={"fast_path_min": 2, "batch_layout": "vmap"})
+    rows = json.dumps([[r.output, r.ledger.finish_s, r.energy_j]
+                       for r in sorted(done, key=lambda r: r.uid)])
+    stats = fleet.last_engine_stats.as_dict()
+    stats.pop("fused_decode_wall")
+    case = {"arch": ARCH, "cfg": reduced_config(ARCH), "params": _to_numpy(params),
+            "requests": reqs}
+    return case, {"rows": rows, "stats": stats, "temps": [t for _, t in reqs]}
 
 
 def _replica_case(rng):
@@ -158,11 +261,15 @@ def gloo_run(tmp_path_factory):
     rng = np.random.default_rng(0)
     work = tmp_path_factory.mktemp("gloo")
     gemma, gemma_want = _gemma_case(rng)
+    kinds = {a: _gemma_case(rng, a) for a in KINDS}
+    moe, moe_want = _moe_case(rng)
+    replay, replay_want = _replay_case(rng)
     replicas, replicas_want = _replica_case(rng)
     grads = {a: _grad_case(rng, a) for a in (ARCH, "mamba2-780m")}
     cases = {"psum": [rng.standard_normal((WORLD, n)).astype(np.float32) * s
                       for n, s in ((1000, 1.0), (37, 1e-3), (4096, 50.0))],
              "attn": _attn_cases(rng), "gemma": gemma, "replicas": replicas,
+             "kinds": {a: c for a, (c, _) in kinds.items()}, "moe": moe, "replay": replay,
              "grads": {a: c for a, (c, _) in grads.items()}}
     with open(work / "cases.pkl", "wb") as f:
         pickle.dump(cases, f)
@@ -179,7 +286,8 @@ def gloo_run(tmp_path_factory):
         with open(work / f"rank{r}.pkl", "rb") as f:
             got.append(pickle.load(f))
     want = {"gemma": gemma_want, "replicas": replicas_want,
-            "grads": {a: w for a, (_, w) in grads.items()}}
+            "kinds": {a: w for a, (_, w) in kinds.items()}, "moe": moe_want,
+            "replay": replay_want, "grads": {a: w for a, (_, w) in grads.items()}}
     return cases, got, want
 
 
@@ -228,6 +336,61 @@ def test_gemma_decode_on_a_2x2_mesh_matches_the_reference(gloo_run):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
         for g, w in zip(got[r]["gemma"]["tokens"], want["gemma"]["tokens"]):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("arch", KINDS)
+def test_block_kinds_decode_on_a_2x2_mesh_match_the_reference(gloo_run, arch):
+    """The last five ``local_map`` sites on DTensors (``mla.decode``,
+    ``moe.experts``, ``gdn.scan``, ``ssm.step``, ``attention.cross``):
+    three greedy decode steps of reduced ``arch`` on the 2 x 2 mesh within
+    fp32 1e-4 of ``repro.models.decode_step``, the tokens equal."""
+    _, got, want = gloo_run
+    for r in range(WORLD):
+        g = got[r]["kinds"][arch]
+        for lg, w in zip(g["logits"], want["kinds"][arch]["logits"]):
+            np.testing.assert_allclose(lg, w, rtol=0, atol=1e-4)
+        for t, w in zip(g["tokens"], want["kinds"][arch]["tokens"]):
+            np.testing.assert_array_equal(t, w)
+
+
+def test_moe_capacity_binds_and_drops_what_the_reference_drops(gloo_run, capsys):
+    """deepseek-v2-lite-16b's routed MoE on DTensors, tokens split over the
+    data axis, where the capacity binds: the reference drops entries, a
+    per-shard capacity would drop another set, and the port (one capacity
+    over the whole batch, entries ranked after the shards before) gives the
+    reference's block output and prefill logits within fp32 1e-4."""
+    _, got, want = gloo_run
+    ref = want["moe"]
+    with capsys.disabled():
+        print(f"\nMoE capacity: the reference drops {len(ref['dropped'])} of "
+              f"{4 * 32 * 2} entries; a per-shard capacity would drop "
+              f"{len(ref['dropped_per_shard'])}, {len(ref['dropped'] ^ ref['dropped_per_shard'])} "
+              f"of them other entries")
+    assert ref["dropped"] and ref["dropped"] != ref["dropped_per_shard"]
+    for r in range(WORLD):
+        np.testing.assert_allclose(got[r]["moe"]["block"], ref["block"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(got[r]["moe"]["prefill"], ref["prefill"], rtol=0, atol=1e-4)
+
+
+def test_sharded_bank_replay_gives_the_reference_rows(gloo_run):
+    """``batch_layout="shard_map"`` on two gloo ranks (ranks 0-1 and 2-3
+    each replay on their own group): a mixed-temperature trace of four
+    reduced gemma-2b replicas gives the reference's rows and
+    ``EngineStats``, key for key, on every rank; each rank's banks hold
+    ``p2 / 2 x B`` rows of their members, and the restacks moved rows
+    across ranks."""
+    _, got, want = gloo_run
+    ref = want["replay"]
+    assert 0.7 in ref["temps"] and ref["stats"]["batched_decode_calls"] > 0
+    for r in range(WORLD):
+        g = got[r]["replay"]
+        assert g["rows"] == ref["rows"]
+        assert g["stats"] == ref["stats"]
+        assert g["banks"]
+        for size, first, local, rows, batch in g["banks"]:
+            assert local == size // 2 and rows == local * batch
+            assert first == (r % 2) * local
+        assert g["received"] > 0
 
 
 def test_shard_map_replicas_steps_the_fold(gloo_run):

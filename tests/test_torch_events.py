@@ -16,7 +16,9 @@ fused and serial, batched and tuple, with and without a quantum. The
 batched decode fold is bitwise equal to the member steps on the CPU; the
 batched admission prefill is not (another GEMM shape), so batched replays
 are held to the tuple and serial ones in tokens, stamps and joules. Sampled replays (temperature
-> 0) draw from ``torch.Generator`` and are held port against port. Then
+> 0) draw on ``jax.random``'s threefry bits (``repro_torch.serving.prng``),
+so mixed-temperature traces are held to the reference's replay in the same
+way, beside the greedy ones (``PARITY``'s ``sampled`` and ``mixed``). Then
 ``serve_trace``'s smoke replay and ``serve_events``' recipe against the
 reference's sha256.
 """
@@ -200,15 +202,20 @@ PARITY = {
 }
 
 
-@pytest.mark.parametrize("trace", ["drifted", "aligned", "poisson"])
+@pytest.mark.parametrize("trace", ["drifted", "aligned", "poisson", "sampled", "mixed"])
 @pytest.mark.parametrize("opts", list(PARITY))
 def test_split_clock_replay_matches_reference(weights, opts, trace):
     """Split pool clocks (``Fleet.from_spec``), four replicas: the port's
     replay equals the reference's in every byte of the fingerprint and in
     every ``EngineStats`` counter, the bank and program counters and the
-    pools' dispatches (bank rows copied back included) among them."""
+    pools' dispatches (bank rows copied back included) among them. The
+    ``sampled`` and ``mixed`` traces put every third request at temperature
+    0.7 (an aligned burst; same-instant bursts of mixed lengths): the
+    sampled tokens are the reference's, drawn on ``jax.random``'s bits."""
     fn = {"drifted": _drifted, "aligned": _aligned,
-          "poisson": lambda side: _poisson(side, 12, rate=400.0)}[trace]
+          "poisson": lambda side: _poisson(side, 12, rate=400.0),
+          "sampled": lambda side: _aligned(side, temps=True),
+          "mixed": lambda side: _mixed_trace(side=side)}[trace]
     (ref, ref_st, _), (got, st, fleet) = _both(fn, **PARITY[opts])
     assert got == ref
     assert st == ref_st
@@ -318,11 +325,11 @@ def test_fused_decode_token_identical_to_sequential(weights):
 
 
 # ------------------------------------------------------- fused admission path
-def _mixed_trace(n=24):
+def _mixed_trace(n=24, side=PORT):
     """Same-instant bursts with mixed temperatures (so the sampling order
     is load-bearing), plus staggered stragglers."""
     rng = np.random.default_rng(5)
-    return [_req(PORT, int(rng.integers(4, 24)), (i // 8) * 0.002, 4, seed=100 + i,
+    return [_req(side, int(rng.integers(4, 24)), (i // 8) * 0.002, 4, seed=100 + i,
                  temp=0.7 if i % 3 == 0 else 0.0) for i in range(n)]
 
 

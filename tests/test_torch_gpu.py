@@ -591,8 +591,16 @@ def test_scan_kernels_reject_bad_operands():
         ssd_scan(x, dt.bfloat16(), a, bm, cm)
     with pytest.raises(TypeError):                       # b, c in x's dtype
         ssd_scan(x, dt, a, bm.bfloat16(), cm.bfloat16())
-    with pytest.raises(NotImplementedError):             # ssm_groups > 1
-        ssd_prefill(x, dt, a, torch.stack([bm, bm], 2), torch.stack([cm, cm], 2))
+    b2, c2 = torch.stack([bm, bm.flip(1)], 2), torch.stack([cm, -cm], 2)   # ssm_groups 2
+    before = ssd_scan.launches
+    y2, fs2 = ssd_prefill(x, dt, a, b2, c2)
+    assert ssd_scan.launches == before + 1               # the kernel, not the twin
+    wy, wfs = ssd_scan_ref(x, dt, a, b2, c2)
+    tol = SCAN_TOL[torch.float32]
+    torch.testing.assert_close(y2, wy, rtol=tol, atol=tol)
+    torch.testing.assert_close(fs2, wfs, rtol=tol, atol=tol)
+    with pytest.raises(ValueError):                      # 3 groups do not divide 2 heads
+        ssd_scan(x, dt, a, torch.stack([bm] * 3, 2), torch.stack([cm] * 3, 2))
     with pytest.raises(ValueError):                      # a CPU operand for the kernel
         ssd_scan(x, dt.cpu(), a, bm, cm)
     with pytest.raises(ValueError):                      # P = 16: not a multiple of 32

@@ -97,8 +97,16 @@ def test_wrapper_contract():
         ssd_scan(x, dt.double(), a, bm, cm)
     with pytest.raises(TypeError):
         ssd_scan(x, dt, a, bm.bfloat16(), cm)
-    with pytest.raises(NotImplementedError, match="ssm_groups"):
-        ssd_prefill(x, dt, a, torch.stack([bm, bm], 2), torch.stack([cm, cm], 2))
+    # ssm_groups > 1: two B/C groups, heads 0 and 1 on group 0, 2 and 3 on
+    # group 1, as the reference's ssd_chunked reads them
+    b2, c2 = torch.stack([bm, bm.flip(1)], 2), torch.stack([cm, -cm], 2)
+    y2, fs2 = ssd_prefill(x, dt, a, b2, c2)
+    jy2, jfs2 = jax_ssm.ssd_chunked(*(jnp.asarray(t.numpy()) for t in (x, dt, a, b2, c2)),
+                                    chunk=16)
+    np.testing.assert_allclose(y2.numpy(), np.asarray(jy2), **TOL)
+    np.testing.assert_allclose(fs2.numpy(), np.asarray(jfs2), **TOL)
+    with pytest.raises(ValueError, match="G dividing"):
+        ssd_scan(x, dt, a, torch.stack([bm] * 3, 2), torch.stack([cm] * 3, 2))
     y, fs = ssd_scan(x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16())
     assert y.dtype == torch.bfloat16 and fs.dtype == torch.float32
 

@@ -371,9 +371,32 @@ def test_params_and_cache_layout_match_reference(arch):
     ("zamba2-1.2b", {"ssm_groups": 2}, "ssm_groups=2"),
 ])
 def test_unported_kinds_still_raise(arch, change, match):
-    """``ssm_groups > 1`` still raises; ``cross_attn`` and embedding inputs
-    are ported now, with the reference's param and cache shapes."""
+    """``cross_attn``, embedding inputs and ``ssm_groups > 1`` are ported
+    now, with the reference's param and cache shapes; zamba2-1.2b with two
+    B/C groups also prefills and decodes as ``repro.models`` does (fp32
+    1e-4, greedy tokens equal)."""
     cfg = dataclasses.replace(reduced_config(arch), **change)
+    if match == "ssm_groups=2":
+        jcfg = dataclasses.replace(jax_reduced_config(arch), **change)
+        shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
+        jp = R.init_params(jcfg, jax.random.PRNGKey(0))
+        tp = T.params_from_numpy(_np_tree(jp), cfg, device="cpu")
+        assert shapes(tp) == shapes(R.abstract_params(jcfg))
+        assert shapes(T.init_cache(cfg, 2, 32, device="cpu")) == \
+            shapes(R.abstract_cache(jcfg, 2, 32))
+        toks = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 12)).astype(np.int32)
+        jl, jc, jlen = R.prefill(jp, jcfg, jnp.asarray(toks), R.init_cache(jcfg, 2, 32))
+        tl, tc, tlen = T.prefill(tp, cfg, torch.from_numpy(toks),
+                                 T.init_cache(cfg, 2, 32, device="cpu"))
+        for _ in range(3):
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+            jtok = jnp.argmax(jl, -1).astype(jnp.int32)
+            ttok = torch.argmax(tl, -1).to(torch.int32)
+            np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+            jl, jc, jlen = R.decode_step(jp, jcfg, jtok, jc, jlen)
+            tl, tc, tlen = T.decode_step(tp, cfg, ttok, tc, tlen)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+        return
     if match in ("cross_attn", "embedding inputs"):
         jcfg = jax_reduced_config(arch)
         shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
