@@ -10,7 +10,10 @@ and ``from_spec`` builds it from a ``ReplicaSpec``. On a card the pool
 replays its decode step from a CUDA graph; ``cuda_graphs=False`` runs it
 eagerly, as the comparison for the graph (``Pool``). With
 ``prefix_sharing=True`` admission prefills only the suffix a prefix hit
-leaves, the one pool being donor and target alike.
+leaves, the one pool being donor and target alike. With ``trace=True`` the
+engine and its pool record spans, device regions and counters into one
+``Tracer`` (``tracer``; ``serving/tracing.py``), read by
+``tracer.summary(t0, t1)``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.serving.pool import (
     requeue_front,
 )
 from repro_torch.serving.spec import ReplicaSpec
+from repro_torch.serving.tracing import Tracer
 
 __all__ = ["EOS", "PhaseStats", "Request", "ServingEngine"]
 
@@ -55,6 +59,7 @@ class ServingEngine:
         prefix_sharing: bool = False,
         device="cuda",
         cuda_graphs: bool = True,
+        trace: bool = False,
     ):
         self.cfg = cfg
         self.params = params
@@ -70,6 +75,8 @@ class ServingEngine:
             prefix_sharing=prefix_sharing, device=device, cuda_graphs=cuda_graphs,
         )
         self.controller = controller
+        self.tracer: Optional[Tracer] = Tracer(clock, self.pool.device) if trace else None
+        self.pool.tracer = self.tracer
         self.waiting: Deque[Request] = deque()
         self._uid = 0
         self._step_no = 0
@@ -135,11 +142,15 @@ class ServingEngine:
         *,
         temperature: float = 0.0,
         eos_token_id: Optional[int] = None,
+        arrival_s: Optional[float] = None,
     ) -> Request:
+        """Queue a request. ``arrival_s`` (on the engine's clock) is when it
+        arrived, for a caller that submits it later than that; by default,
+        now."""
         req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32),
                       max_new_tokens=max_new_tokens,
                       temperature=temperature, eos_token_id=eos_token_id)
-        req.ledger.mark_arrival(self.clock())
+        req.ledger.mark_arrival(self.clock() if arrival_s is None else arrival_s)
         self._uid += 1
         self.waiting.append(req)
         return req
@@ -147,6 +158,12 @@ class ServingEngine:
     def _admit(self) -> List[Request]:
         if not self.waiting:
             return []
+        if self.tracer is not None:
+            with self.tracer.span("serve.admit"):
+                return self._admit_waiting()
+        return self._admit_waiting()
+
+    def _admit_waiting(self) -> List[Request]:
         validated_head = head_validator(self.waiting, self.pool)
         validated_head()    # fail fast even when admission is impossible
         admitted: List[Request] = []
@@ -163,6 +180,12 @@ class ServingEngine:
     @torch.inference_mode()
     def step(self) -> List[Request]:
         """Admit waiting requests, run one decode step, return finished ones."""
+        if self.tracer is not None:
+            with self.tracer.span("serve.step"):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> List[Request]:
         self._step_no += 1
         if self.controller is not None:
             self.controller.tick({"mixed": self.pool}, self._step_no)

@@ -74,6 +74,11 @@ where some slot samples. The process-wide program cache that
 ``clear_program_caches`` empties holds the event engine's banks and their
 graphs (the reference's holds jitted programs); prefill and placement run
 eagerly, so there is no per-pool program cache.
+
+A ``ServingEngine`` built with ``trace=True`` hands the pool its
+``Tracer`` (``serving/tracing.py``): spans, device regions and counters
+around ``prefill_request``, ``place`` and ``decode_once``; ``tracer`` is
+None otherwise.
 """
 from __future__ import annotations
 
@@ -110,6 +115,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving import prng
 from repro_torch.serving.paged_cache import NULL_PAGE, BlockAllocator, TrafficCounter
 from repro_torch.serving.prefix import PrefixHit, PrefixIndex, PrefixStats
+from repro_torch.serving.tracing import Tracer
 
 # Attention paradigms whose KV rows depend only on their own prefix — the
 # precondition for sharing cached pages across requests. Recurrent/MoE-state
@@ -725,6 +731,9 @@ class Pool(_GraphedStep):
         self._step_host: dict = {}          # staging (pinned on a card)
         self._step_in: dict = {}            # what the step reads
         self._init_graph(cuda_graphs)
+        # spans, device regions and counters (``serving/tracing.py``); set
+        # by a ``ServingEngine`` built with ``trace=True``
+        self.tracer: Optional[Tracer] = None
 
     # ----------------------------------------------------- bank-view cache
     @property
@@ -1240,6 +1249,14 @@ class Pool(_GraphedStep):
         joules scale to the un-shared tokens, and the avoided prefill is
         banked in the donor's ``prefix_stats.saved_*`` side-channel — never
         added to any energy total, so conservation is untouched."""
+        tr = self.tracer
+        if tr is None:
+            return self._prefill_request(req, precomputed, shared, donor, None)
+        with tr.span("serve.prefill", req.uid):
+            return self._prefill_request(req, precomputed, shared, donor, tr)
+
+    def _prefill_request(self, req: Request, precomputed, shared: Optional[PrefixHit],
+                         donor: Optional["Pool"], tr: Optional[Tracer]) -> Tuple[int, Any]:
         l = len(req.prompt)
         work = l if shared is None else l - shared.prefix_tokens
         self._in_phase_call = True
@@ -1247,25 +1264,20 @@ class Pool(_GraphedStep):
         t0 = self.clock()
         req.ledger.mark_admitted(t0)
         try:
-            if precomputed is not None:
-                logits, cache1 = precomputed
-            elif shared is not None:
-                dp = donor if donor is not None else self
-                toks, true_len, _ = self.suffix_tokens(req, shared.prefix_tokens)
-                logits, cache1 = dp.shared_prefill(self.params, toks, true_len, shared)
-                self.jit_dispatches += 1
+            if tr is None:
+                logits, cache1, _ = self._prefill_issue(req, precomputed, shared, donor)
+                first = self._first_token(req, logits[0])
             else:
-                logits, cache1 = self.prefill_rows(*self.prefill_tokens(req)[:2])
-                self.jit_dispatches += 1
-            row = logits[0]
-            if req.temperature > 0.0:
-                # the reference's host-side draw: numpy over the row
-                self._key, sub = prng.split(self._key)
-                u = prng.uniform(sub, row.shape, device=row.device).cpu().numpy()
-                gumbel = -np.log(-np.log(u + 1e-9) + 1e-9)
-                first = int(np.argmax(row.cpu().numpy() / req.temperature + gumbel))
-            else:
-                first = int(torch.argmax(row))   # waits for the device
+                with tr.span("serve.prefill.issue", req.uid), tr.region("prefill", req.uid):
+                    logits, cache1, bucket = self._prefill_issue(req, precomputed, shared,
+                                                                 donor)
+                    greedy = None if req.temperature > 0.0 else torch.argmax(logits[0])
+                with tr.span("serve.prefill.wait", req.uid):
+                    first = (self._first_token(req, logits[0]) if greedy is None
+                             else int(greedy))
+                if bucket is not None:
+                    tr.count(prefill_calls=1, prefill_tokens=work,
+                             prefill_bucket_tokens=bucket)
             if self.virtual and self.prefill_op is not None:
                 # modelled prefill duration: the operating point's profile
                 # is per prefill_seq tokens — scale to the tokens actually
@@ -1289,6 +1301,34 @@ class Pool(_GraphedStep):
             dp.prefix_stats.saved_prefill_tokens += shared.prefix_tokens
             dp.prefix_stats.saved_prefill_j += saved_j
         return first, cache1
+
+    def _prefill_issue(self, req: Request, precomputed, shared: Optional[PrefixHit],
+                       donor: Optional["Pool"]) -> Tuple[Any, Any, Optional[int]]:
+        """Enqueue ``req``'s prefill (or take the event engine's
+        ``precomputed`` pair): (logits, cache row, the positions computed,
+        None for a precomputed pair)."""
+        if precomputed is not None:
+            return (*precomputed, None)
+        if shared is not None:
+            dp = donor if donor is not None else self
+            toks, true_len, bucket = self.suffix_tokens(req, shared.prefix_tokens)
+            logits, cache1 = dp.shared_prefill(self.params, toks, true_len, shared)
+        else:
+            toks, true_len, bucket = self.prefill_tokens(req)
+            logits, cache1 = self.prefill_rows(toks, true_len)
+        self.jit_dispatches += 1
+        return logits, cache1, bucket
+
+    def _first_token(self, req: Request, row: torch.Tensor) -> int:
+        """The first token from the prefill's last logits row; waits for
+        the device."""
+        if req.temperature > 0.0:
+            # the reference's host-side draw: numpy over the row
+            self._key, sub = prng.split(self._key)
+            u = prng.uniform(sub, row.shape, device=row.device).cpu().numpy()
+            gumbel = -np.log(-np.log(u + 1e-9) + 1e-9)
+            return int(np.argmax(row.cpu().numpy() / req.temperature + gumbel))
+        return int(torch.argmax(row))
 
     def _place_bookkeeping(self, req: Request, first_token: int, length: int,
                            first_token_s: Optional[float]) -> int:
@@ -1336,7 +1376,21 @@ class Pool(_GraphedStep):
         leading table entries are the hit's pages — already referenced by
         ``req.uid``, so nothing is allocated or copied for them, and the
         bytes the migration avoided are banked in ``prefix_stats``."""
-        slot = self._place_bookkeeping(req, first_token, length, first_token_s)
+        tr = self.tracer
+        if tr is None:
+            slot = self._place_bookkeeping(req, first_token, length, first_token_s)
+            self._place_row(req, slot, cache1, length, shared)
+            return slot
+        with tr.span("serve.place", req.uid):
+            slot = self._place_bookkeeping(req, first_token, length, first_token_s)
+            with tr.region("place", req.uid):
+                self._place_row(req, slot, cache1, length, shared)
+            return slot
+
+    def _place_row(self, req: Request, slot: int, cache1: Any, length: int,
+                   shared: Optional[PrefixHit]) -> None:
+        """``place``'s copy of the row into ``slot`` (its pages first, for
+        the paged cache)."""
         if self.paged:
             if shared is None and self._prefix is not None:
                 shared = self._pending_hits.get(req.uid)
@@ -1372,7 +1426,6 @@ class Pool(_GraphedStep):
                     _leaves(self.cache, self._layout), _leaves(cache1, self._layout)):
                 big_blk[key][:, slot] = small_blk[key][:, 0]
         self.jit_dispatches += 1
-        return slot
 
     @torch.inference_mode()
     def place_many(self, items: Sequence[Tuple[Request, Any, int, int,
@@ -1404,7 +1457,7 @@ class Pool(_GraphedStep):
     def _req_eos(self, req: Request) -> int:
         return self.eos_token_id if req.eos_token_id is None else req.eos_token_id
 
-    def _decode_begin(self, *, keep_view: bool = False) -> Optional[dict]:
+    def _decode_begin(self, *, keep_view: bool = False, ship: bool = True) -> Optional[dict]:
         """Host-side first half of ``decode_once``: block-table growth,
         copy-on-write splits, active mask, and the host mirrors copied into
         the step's static inputs. ``None`` when no slot is live. The event
@@ -1414,7 +1467,8 @@ class Pool(_GraphedStep):
         A cache held as a ``BankRow`` view is materialised here by default,
         so that the pool's own step reads its own cache; the batched engine
         path passes ``keep_view=True``, steps the bank itself and reads the
-        host mirrors, so nothing is shipped to the pool's inputs."""
+        host mirrors, so nothing is shipped to the pool's inputs. With
+        ``ship=False`` the caller ships them (``_ship_step_inputs``)."""
         if self.paged and any(r is not None for r in self.slot_req):
             self._grow_tables()
             if self._prefix is not None:
@@ -1428,8 +1482,12 @@ class Pool(_GraphedStep):
         self._key, sub = prng.split(self._key)
         t0 = self.clock()
         pre = {"active": active, "t0": t0, "temps": self._slot_temp.copy(), "key": sub}
-        if keep_view:
-            return pre
+        if ship and not keep_view:
+            self._ship_step_inputs(active)
+        return pre
+
+    def _ship_step_inputs(self, active: np.ndarray) -> None:
+        """Copy the host mirrors into the step's static inputs."""
         # ship the host mirrors once per step (placements only wrote numpy).
         # The staging buffers are written again only after the step's
         # result was read back (``_decode_finish`` waits for the device),
@@ -1443,7 +1501,6 @@ class Pool(_GraphedStep):
         if self._step_in is not host:
             for key, dst in self._step_in.items():
                 dst.copy_(host[key], non_blocking=True)
-        return pre
 
     def _decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The decode step over the static inputs and the pool's cache
@@ -1464,6 +1521,8 @@ class Pool(_GraphedStep):
 
         Paged pools grow/evict block tables first, then account the step's
         traffic block-accurately and derive decode joules from it."""
+        if self.tracer is not None:
+            return self._decode_once_traced(self.tracer)
         pre = self._decode_begin()
         if pre is None:
             return []
@@ -1473,6 +1532,29 @@ class Pool(_GraphedStep):
         self.jit_dispatches += 1
         next_tok = self._sample(logits, greedy, pre["temps"], pre["key"])
         return self._decode_finish(pre, next_tok.cpu().numpy())   # waits for the device
+
+    def _decode_once_traced(self, tr: Tracer) -> List[Request]:
+        """``decode_once`` in spans, its device work in one region. The
+        region opens once the input copies are enqueued: enqueueing them
+        one by one is host time the device waits through (about 0.1 ms a
+        step on an H100's host), and counts as a gap."""
+        with tr.span("serve.decode"):
+            with tr.span("serve.decode.begin"):
+                pre = self._decode_begin(ship=False)
+            if pre is None:
+                return []
+            with tr.span("serve.decode.replay"):
+                graph = self._graph
+                self._ship_step_inputs(pre["active"])
+                with tr.region("decode"):
+                    logits, greedy = self._run_decode_fn()
+                    next_tok = self._sample(logits, greedy, pre["temps"], pre["key"])
+                self.jit_dispatches += 1
+                next_np = next_tok.cpu().numpy()
+            tr.count(decode_steps=1, decode_rows=int(pre["active"].sum()),
+                     graph_captures=int(self._graph is not graph))
+            with tr.span("serve.decode.finish"):
+                return self._decode_finish(pre, next_np)
 
     def _decode_finish(self, pre: dict, next_np: np.ndarray) -> List[Request]:
         """Second half of ``decode_once``: take the step's sampled tokens

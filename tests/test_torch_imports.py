@@ -31,6 +31,7 @@ SERVING_MODULES = (
     "repro_torch.serving.autoscaler", "repro_torch.serving.prefix",
     "repro_torch.serving.pool", "repro_torch.serving.fleet", "repro_torch.serving.cluster",
     "repro_torch.serving.engine", "repro_torch.serving.events", "repro_torch.serving.prng",
+    "repro_torch.serving.tracing",
     "repro_torch.benchmarks.common", "repro_torch.benchmarks.serve_cluster",
     "repro_torch.benchmarks.serve_trace", "repro_torch.benchmarks.serve_prefix",
     "repro_torch.benchmarks.serve_events", "repro_torch.benchmarks.serve_fleet",
