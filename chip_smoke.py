@@ -28,7 +28,11 @@ Phases; any failure exits non-zero:
    starting past L); kernel 3 and its backward with ``ssm_groups`` B/C
    groups (G 8 and 80 at mamba2-4b's widths and 512-token bucket, fp32 and
    bf16, launched once each and held against the plain versions; bf16
-   device ms of G 1, 8 and 80 beside their bounds); the sampling bits
+   device ms of G 1, 8 and 80 beside their bounds); the causal
+   prefill-attention kernel in bf16 against its twin at minitron-4b's 4096
+   and 2048 buckets, gemma2-9b's softcapped and windowed local layers over
+   8192 tokens, gemma-2b's and minicpm-2b's heads and a batch of 3, timed
+   beside its bound, the plain path and SDPA; the sampling bits
    (``serving.prng.uniform``) on the card equal the CPU's for several keys
    and one (8, 256000) draw, and that draw's device time;
 4. for each served model -- full-width gemma-2b (GQA), minitron-4b-mla
@@ -45,7 +49,8 @@ Phases; any failure exits non-zero:
    profiles and capture cost side by side, kernel launches counted (a model's decode kernel
    once per attention layer and decode step, as eager launches plus graph
    replays x the launches captured; its prefill scan once per recurrent
-   layer and prefill call; every other kernel never); one decode step's
+   layer and prefill call, ``prefill_attention`` once per self-attention
+   layer and bf16 prefill call; every other kernel never); one decode step's
    logits graph vs eager on copies of one cache, and kernel path vs plain
    path (for the recurrent models the prefill logits, the final states and
    one decode step after them); then fp32 graph engines (dense, paged)
@@ -226,7 +231,7 @@ MLA_SCALE = 1.0 / math.sqrt(128 + 64)      # minitron-4b-mla: 1/sqrt(nope + rope
 # every kernel whose launches a main path counts
 COUNTED = ("decode_attention", "paged_decode_attention",
            "mla_latent_decode", "mla_paged_latent_decode", "ssd_scan", "gdn_scan",
-           "ssd_scan_bwd", "gdn_scan_bwd")
+           "ssd_scan_bwd", "gdn_scan_bwd", "prefill_attention")
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn/decode_attn.py:162"),
@@ -245,25 +250,36 @@ SOURCES = {
                      "src/repro/models/ssm.py:74"),
     "gdn_scan_bwd": ("src/repro_torch/kernels/csrc/gdn_scan_bwd.cu",
                      "src/repro/models/gdn.py:64"),
+    # no Pallas kernel: the jnp blocked attention the reference's prefill
+    # takes for long prompts
+    "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attn.cu",
+                          "src/repro/models/flash.py:64"),
 }
 # served model -> its kernels: "decode" (dense kernel, paged kernel), launched
-# once per block of a decode kind and decode step; "prefill", launched once
-# per block of a scan kind and prefill call (``_n_layers``)
+# once per block of a decode kind and decode step; "prefill", each launched
+# once per prefill call and block of its kinds: a scan per block of a scan
+# kind, ``prefill_attention`` per self-attention block where the kernel
+# takes the call (bf16, a head dim it was built for: ``_n_layers``)
+ATTN_PREFILL = ("prefill_attention",)
 MODELS = {
-    "gemma-2b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
+    "gemma-2b": {"decode": ("decode_attention", "paged_decode_attention"),
+                 "prefill": ATTN_PREFILL},
     "minitron-4b-mla": {"decode": ("mla_latent_decode", "mla_paged_latent_decode"),
-                        "prefill": None},
-    "mamba2-4b": {"decode": None, "prefill": "ssd_scan"},
-    "gdn-4b": {"decode": None, "prefill": "gdn_scan"},
-    "qwen3-4b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
-    "minitron-4b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
-    "gemma2-9b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
+                        "prefill": ()},
+    "mamba2-4b": {"decode": None, "prefill": ("ssd_scan",)},
+    "gdn-4b": {"decode": None, "prefill": ("gdn_scan",)},
+    "qwen3-4b": {"decode": ("decode_attention", "paged_decode_attention"),
+                 "prefill": ATTN_PREFILL},
+    "minitron-4b": {"decode": ("decode_attention", "paged_decode_attention"),
+                    "prefill": ATTN_PREFILL},
+    "gemma2-9b": {"decode": ("decode_attention", "paged_decode_attention"),
+                  "prefill": ATTN_PREFILL},
     "deepseek-v2-lite-16b": {"decode": ("mla_latent_decode", "mla_paged_latent_decode"),
-                             "prefill": None},
+                             "prefill": ()},
     "zamba2-1.2b": {"decode": ("decode_attention", "paged_decode_attention"),
-                    "prefill": "ssd_scan"},
+                    "prefill": ("ssd_scan",) + ATTN_PREFILL},
     "nemotron-4-15b": {"decode": ("decode_attention", "paged_decode_attention"),
-                       "prefill": None},
+                       "prefill": ATTN_PREFILL},
 }
 # the long-context check of the windowed model (phase 4): two requests of
 # ~4200 tokens in a cache of max_seq_len, past the 4096 window of its local
@@ -272,8 +288,9 @@ LONG_CONTEXT = {"gemma2-9b": {"max_seq_len": 8192, "prompt_tokens": (4150, 4250)
 # phases 5-7 (the disaggregated serving stack): the archs served there that
 # phase 4 does not serve, with their kernels as in MODELS
 STACK_MODELS = {
-    "minicpm-2b": {"decode": ("decode_attention", "paged_decode_attention"), "prefill": None},
-    "mamba2-780m": {"decode": None, "prefill": "ssd_scan"},
+    "minicpm-2b": {"decode": ("decode_attention", "paged_decode_attention"),
+                   "prefill": ATTN_PREFILL},
+    "mamba2-780m": {"decode": None, "prefill": ("ssd_scan",)},
 }
 KERNELS_OF = {**MODELS, **STACK_MODELS}
 # serve_fleet's claim that energy-aware routing spends no more joules than
@@ -711,7 +728,8 @@ TENSOR_CORE_KERNELS = {"decode_attn": ("tc_split_kernel",),
                        "gdn_scan": ("gdn_prep_kernel", "gdn_chain_kernel"),
                        "ssd_scan_bwd": ("ssd_bwd_tc_kernel",),
                        "gdn_scan_bwd": ("gdn_bwd_prep_kernel", "gdn_bwd_chain_kernel",
-                                        "gdn_bwd_post_kernel")}
+                                        "gdn_bwd_post_kernel"),
+                       "prefill_attn": ("prefill_attn_kernel",)}
 
 
 def tensor_core_check(info) -> list:
@@ -985,6 +1003,96 @@ def check_scan_kernels(torch, kmod, records) -> None:
                 del sets
 
 
+# the causal prefill-attention kernel: (arch, B, S, H, KV, D, softcap,
+# window, main), bf16; the main case is minitron-4b's 4096 bucket (the
+# prefill cell's p95), then its 2048 bucket, gemma2-9b's local layers
+# (softcap 50, window 4096) over a prompt in the 8192 bucket, gemma-2b
+# (MQA, D 256) and minicpm-2b (G 1, D 64) at the 4096 bucket, and a batched
+# admission (B 3) off the 64-key tile
+PrefillAttn = collections.namedtuple("PrefillAttn", "arch b s h kv d softcap window main")
+PREFILL_ATTN_CASES = (
+    PrefillAttn("minitron-4b", 1, 4096, 24, 8, 128, 0.0, 0, True),
+    PrefillAttn("minitron-4b", 1, 2048, 24, 8, 128, 0.0, 0, False),
+    PrefillAttn("gemma2-9b", 1, 8192, 16, 8, 256, 50.0, 4096, False),
+    PrefillAttn("gemma-2b", 1, 4096, 8, 1, 256, 0.0, 0, False),
+    PrefillAttn("minicpm-2b", 1, 4096, 36, 36, 64, 0.0, 0, False),
+    PrefillAttn("minitron-4b", 3, 333, 24, 8, 128, 0.0, 0, False),
+)
+PLAIN_ATTN_REPS = 3      # the plain path holds (S, S) fp32 scores a head
+
+
+def prefill_attn_case(torch, case) -> tuple:
+    """(dtype name, (q, k, v) bf16 on the card, keyword arguments) of a
+    PREFILL_ATTN_CASES case."""
+    g = torch.Generator(device="cuda").manual_seed(case_seed(case))
+    inputs = tuple(torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((case.b, case.s, case.h, case.d),
+                                 (case.b, case.s, case.kv, case.d),
+                                 (case.b, case.s, case.kv, case.d)))
+    kw = {"scale": 1.0 / math.sqrt(case.d), "softcap": case.softcap, "window": case.window}
+    return "bfloat16", inputs, kw
+
+
+def check_prefill_attention(torch, F, kmod, records) -> None:
+    """Phase 3 for ``prefill_attention``: each PREFILL_ATTN_CASES case in
+    bf16 launched once and held against its plain twin (TOL, both outputs
+    bf16) and reported beside the model's plain path
+    (``attention_prefill(plain=True)``), every output finite; then each
+    case's device ms: the kernel, its bound (``kernels.cost``), the plain
+    path, and as the yardstick ``F.scaled_dot_product_attention(is_causal=
+    True)`` (no softcap or window: null for gemma2-9b's case)."""
+    from repro_torch.kernels import cost
+    from repro_torch.models.attention import attention_prefill
+
+    name = "prefill_attention"
+    kernel, twin = kmod.prefill_attention, kmod.prefill_attention_ref
+    for case in PREFILL_ATTN_CASES:
+        b, s, h, kv, d = case.b, case.s, case.h, case.kv, case.d
+        _, inputs, kw = prefill_attn_case(torch, case)
+        label = f"{case.arch} B={b} S={s} H={h} KV={kv} D={d} softcap={case.softcap} " \
+                f"window={case.window}"
+        with torch.inference_mode():
+            n0 = kernel.launches
+            out = kernel(*inputs, **kw)
+            launched = kernel.launches - n0
+            want = twin(*inputs, kw["scale"], softcap=case.softcap, window=case.window)
+            plain = attention_prefill(*inputs, plain=True, **kw)
+            torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        err_plain = (out.float() - plain.float()).abs().max().item()
+        ok = (launched == 1 and bool(torch.isfinite(out.float()).all())
+              and torch.allclose(out.float(), want.float(), **TOL["bfloat16"]))
+        print(f"[kernels] {name} {label} bfloat16: max_abs_err={err:.3e} (twin), "
+              f"{err_plain:.3e} (plain path) tol={TOL['bfloat16']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} {label} disagrees with its plain twin")
+        del out, want, plain
+        sets = cold_sets(inputs)
+        ms, ms_eager = cuda_time_ms(torch, lambda *a: kernel(*a, **kw), sets)
+        plain_ms, _ = cuda_time_ms(torch, lambda *a: attention_prefill(*a, plain=True, **kw),
+                                   sets[:1], reps=PLAIN_ATTN_REPS)
+        library_ms = None
+        if not (case.softcap or case.window):
+            sdpa = lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                scale=kw["scale"], enable_gqa=True)
+            library_ms = cuda_time_ms(torch, sdpa, sets)[0]
+        bound_ms, bound_by = cost.bound_ms(cost.prefill_attention(
+            b, s, s, h, kv, d, d, 2, case.window))
+        print(f"[kernels] {name} {label} bfloat16, device ms (CUDA graph): kernel {ms:.5f} "
+              f"({ms / bound_ms:.2f}x the bound), plain {plain_ms:.5f}, sdpa {library_ms}, "
+              f"bound {bound_ms:.5f} ({bound_by}); eager ms per call: kernel {ms_eager:.5f}")
+        if case.main:
+            source, replaces = SOURCES[name]
+            records[name] = {
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            }
+        del sets, inputs
+        torch.cuda.empty_cache()
+
+
 def check_ssd_groups(torch, kmod) -> None:
     """Phase 3 for ``ssm_groups > 1``: kernel 3 (``ssd_scan``) and its
     backward (``ssd_scan_bwd``) at ``SSD_GROUP_SHAPE`` with G in
@@ -1204,21 +1312,26 @@ def check_scan_bwd_kernels(torch, kmod, records) -> None:
                 torch.cuda.empty_cache()
 
 
-def expected_launches(arch, paged, cfg, stats, *, decode_steps=None, prefill_calls=None
-                      ) -> dict:
+def expected_launches(arch, paged, cfg, stats, *, decode_steps=None, prefill_calls=None,
+                      suffix_prefills=0) -> dict:
     """Each counted kernel's launches in one serving run of ``arch``: its
-    decode kernel once per attention layer and decode step, its prefill scan
-    once per recurrent layer and prefill call (``stats``' counts, unless
-    ``decode_steps`` / ``prefill_calls`` give the steps and calls that ran
-    the model)."""
+    decode kernel once per attention layer and decode step, its prefill
+    scan once per recurrent layer and prefill call, ``prefill_attention``
+    once per self-attention layer the kernel takes and prefill call but
+    the ``suffix_prefills`` (prefix hits: the suffix prefill attends in
+    plain PyTorch) (``stats``' counts, unless ``decode_steps`` /
+    ``prefill_calls`` give the steps and calls that ran the model)."""
     want = dict.fromkeys(COUNTED, 0)
     kernels = KERNELS_OF[arch]
     steps = stats.decode_steps if decode_steps is None else decode_steps
     calls = stats.prefill_calls if prefill_calls is None else prefill_calls
     if kernels["decode"]:
         want[kernels["decode"][paged]] = _n_layers(cfg, "decode") * steps
-    if kernels["prefill"]:
-        want[kernels["prefill"]] = _n_layers(cfg, "scan") * calls
+    for name in kernels["prefill"]:
+        if name == "prefill_attention":
+            want[name] = _n_layers(cfg, "prefill_attn") * (calls - suffix_prefills)
+        else:
+            want[name] = _n_layers(cfg, "scan") * calls
     return want
 
 
@@ -1490,15 +1603,17 @@ def prefill_kernel_vs_plain(torch, cfg, params, prompts) -> dict:
     """For each prompt, padded to its bucket as the pool pads it: the
     prefill kernel path against the plain path (last-token logits and every
     final state), then one decode step from each path's state with the
-    kernel path's greedy token. At bf16 also: every layer's scan, kernel
-    against plain on the same inputs (``ScanTee``), and the noise floor of
-    the plain path itself (layer 0's scan output perturbed by a quarter of
-    a bf16 ulp)."""
+    kernel path's greedy token (the kernel path: the prefill scans and,
+    in bf16, ``prefill_attention``). At bf16, for a model with scans, also:
+    every layer's scan, kernel against plain on the same inputs
+    (``ScanTee``), and the noise floor of the plain path itself (layer 0's
+    scan output perturbed by a quarter of a bf16 ulp; 0 without scans)."""
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(cfg, params, max_batch=1, max_seq_len=1024, device="cuda")
     bf16 = cfg.compute_dtype == "bfloat16"
+    scans = _n_layers(cfg, "scan") > 0
     out = {"logits_err": 0.0, "decode_err": 0.0, "state_err": 0.0, "state_max": 0.0,
            "logit_max": 0.0, "argmax_equal": True, "buckets": []}
     if bf16:
@@ -1515,7 +1630,7 @@ def prefill_kernel_vs_plain(torch, cfg, params, prompts) -> dict:
                 runs.append((lg.float(), cache))
             tok = torch.argmax(runs[0][0], -1).to(torch.int32)
             decoded = [decode_step(params, cfg, tok, cache, ln)[0].float() for _, cache in runs]
-            if bf16:
+            if bf16 and scans:
                 with ScanTee(torch, cfg) as tee:
                     prefill(params, cfg, toks, fresh(), prompt_lengths=ln)
                 with ScanTee(torch, cfg, perturb=gen):
@@ -1543,11 +1658,20 @@ def prefill_kernel_vs_plain(torch, cfg, params, prompts) -> dict:
 
 def _n_layers(cfg, family=None) -> int:
     """The blocks of ``cfg``: all of them, or those of the model's decode
-    kinds (``"decode"``: a decode-attention launch each decode step) or its
-    scan kinds (``"scan"``: a scan launch each prefill)."""
+    kinds (``"decode"``: a decode-attention launch each decode step), its
+    scan kinds (``"scan"``: a scan launch each prefill) or its
+    self-attention kinds where the prefill kernel takes their calls
+    (``"prefill_attn"``: bf16 and a head dim it was built for; a launch
+    each prefill, none in fp32)."""
+    from repro_torch.kernels.prefill_attn import HEAD_DIMS
     from repro_torch.models.model import DECODE_KINDS, SCAN_KINDS
 
-    kinds = {"decode": DECODE_KINDS, "scan": SCAN_KINDS}.get(family)
+    if family == "prefill_attn":
+        if cfg.compute_dtype != "bfloat16" or cfg.head_dim not in HEAD_DIMS:
+            return 0
+        kinds = ("attn", "attn_global", "shared_attn")
+    else:
+        kinds = {"decode": DECODE_KINDS, "scan": SCAN_KINDS}.get(family)
     return sum(kinds is None or k in kinds for k in cfg.block_kinds_flat())
 
 
@@ -1626,6 +1750,8 @@ def main_case(torch, name) -> tuple:
             make = make_mla_inputs if isinstance(case, Mla) else make_inputs
             return ("bfloat16", make(torch, case, torch.bfloat16, seed=case_seed(case)),
                     case_kwargs(case))
+    if name == "prefill_attention":
+        return prefill_attn_case(torch, next(c for c in PREFILL_ATTN_CASES if c.main))
     if name in SCAN_BWD_TIMED_DTYPE:
         dname = SCAN_BWD_TIMED_DTYPE[name]
         case = next(c for c in (SSD_BWD_CASES if name == "ssd_scan_bwd" else GDN_BWD_CASES)
@@ -1832,6 +1958,7 @@ def smoke(torch, F, dry, pod) -> int:
     check_aliased_pages(torch, kmod)
     check_scan_kernels(torch, kmod, records)
     check_scan_bwd_kernels(torch, kmod, records)
+    check_prefill_attention(torch, F, kmod, records)
     check_ssd_groups(torch, kmod)
     check_prng(torch)
 
@@ -1967,7 +2094,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
         cmp = prefill_kernel_vs_plain(torch, cfg, params, short_long)
         print(f"[serve] {arch} bf16 prefill kernel vs plain: " + json.dumps(cmp)
               + f" (every layer's scan at {SCAN_TOL}; logits within max({atol}, 2 x the "
-              f"noise floor))")
+              f"noise floor), the floor 0 without scans)")
         if not (cmp["layers_ok"]
                 and cmp["logits_err"] <= max(atol, 2 * cmp["noise_floor_logits_err"])):
             raise SystemExit(f"{arch}: kernel-path prefill disagrees with the plain path")
@@ -2005,7 +2132,7 @@ def serve_model(torch, kmod, cfg, records) -> None:
         raise SystemExit(f"{arch}: fp32 greedy streams differ between dense / paged")
     print(f"[serve] {arch} fp32 greedy streams equal, dense == paged: ok; fp32 serving "
           f"{time.perf_counter() - t_fp32:.1f} s")
-    if MODELS[arch]["prefill"]:
+    if _n_layers(cfg32, "scan"):
         cmp = prefill_kernel_vs_plain(torch, cfg32, params32, short_long)
         print(f"[serve] {arch} fp32 prefill kernel vs plain: " + json.dumps(cmp)
               + f" (atol {LOGIT_ATOL_FP32}, states within {LOGIT_ATOL_FP32} x max |state|)")
@@ -2064,8 +2191,9 @@ def check_stack_launches(torch, kmod, replicas, what, records=None, graphs=True,
     bank step (the whole group's step) and the launches the bank graphs'
     replays ran; a pool that stepped inside a bank took its other steps
     itself, and may have taken none (no eager step). A batched prefill call
-    prefills several requests with one launch per scan layer. Adds the
-    launches to ``records``' main-path counts when given."""
+    prefills several requests with one launch per scan or attention layer;
+    a prefix hit's suffix prefill launches no ``prefill_attention``. Adds
+    the launches to ``records``' main-path counts when given."""
     torch.cuda.synchronize()
     got = {name: getattr(kmod, name).launches for name in COUNTED}
     want = dict.fromkeys(COUNTED, 0)
@@ -2078,8 +2206,9 @@ def check_stack_launches(torch, kmod, replicas, what, records=None, graphs=True,
             for name, n in pool.captured_launches.items():
                 got[name] += pool.graph_replays * n
         own = dp._decode_steps_run
+        hits = sum(p.prefix_stats.hits for p in {id(p): p for p in r.pools().values()}.values())
         for name, n in expected_launches(r.arch, dp.paged, r.cfg, r.stats,
-                                         decode_steps=own).items():
+                                         decode_steps=own, suffix_prefills=hits).items():
             want[name] += n
         steps, replays = r.decode_stats.decode_steps, dp.graph_replays
         if (own + dp.bank_steps != steps or replays != (max(own - 1, 0) if graphs else 0)
@@ -2874,8 +3003,10 @@ def train_phase(torch, kmod, records) -> None:
         ld, cache, ln = decode_step(params, cfg, toks[:, -1], cache, ln)
     n_attn = _n_layers(cfg, "decode")
     got = check_no_launches(torch, kmod, "forward vs served path",
-                            {"decode_attention": n_attn})
-    records["decode_attention"]["launches"] += got["decode_attention"]
+                            {"decode_attention": n_attn,
+                             "prefill_attention": _n_layers(cfg, "prefill_attn")})
+    for name in ("decode_attention", "prefill_attention"):
+        records[name]["launches"] += got[name]
     err = {"prefill": (lp - lg[:, 0]).abs().max().item(),
            "decode_step": (ld - lg[:, 1]).abs().max().item(),
            "max_logit": lg.abs().max().item(),
@@ -3035,8 +3166,10 @@ def full_width_steps(torch, kmod, records, arch) -> None:
             errs.append((lg.float() - lp.float()).abs().max().item())
     n_attn = _n_layers(cfg, "decode")
     got = check_no_launches(torch, kmod, f"{arch} full-width steps",
-                            {"decode_attention": n_attn * steps})
-    records["decode_attention"]["launches"] += got["decode_attention"]
+                            {"decode_attention": n_attn * steps,
+                             "prefill_attention": _n_layers(cfg, "prefill_attn")})
+    for name in ("decode_attention", "prefill_attention"):
+        records[name]["launches"] += got[name]
     atol = LOGIT_ATOL_BF16[arch]
     print(f"[train] {arch} full width bf16 ({n_params / 1e9:.3f} B params; "
           f"{'embedding inputs' if cfg.input_is_embeddings else 'token ids'}"
@@ -3082,7 +3215,7 @@ def recurrent_train(torch, kmod, records, arch, shape, steps, smi) -> None:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
-    fwd = KERNELS_OF[arch]["prefill"]
+    fwd = KERNELS_OF[arch]["prefill"][0]      # the scan
     layers = _n_layers(cfg, "scan")
     want = lambda n: {fwd: RECURRENT_LAUNCHES[0] * layers * n,
                       f"{fwd}_bwd": RECURRENT_LAUNCHES[1] * layers * n}

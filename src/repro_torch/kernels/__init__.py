@@ -13,6 +13,9 @@ PyTorch version.
 * gdn         — the gated-delta-rule prefill scan, and the padded prefill
                 around it; the counterpart of ``repro.kernels.gdn``; and the
                 scan's backward kernel, behind ``GdnScan``.
+* prefill_attn — causal GQA flash attention for prefill (no TPU
+                counterpart: the JAX package computes it in jnp,
+                ``repro.models.flash.flash_attention``).
 
 Sources live in ``csrc/``; ``build.py`` compiles them with ``nvcc`` at first
 use. Every Pallas kernel of ``repro.kernels`` has its counterpart here.
@@ -39,6 +42,7 @@ from repro_torch.kernels.mla_decode import (
     mla_paged_latent_decode,
     mla_paged_latent_decode_ref,
 )
+from repro_torch.kernels.prefill_attn import prefill_attention, prefill_attention_ref
 from repro_torch.kernels.ssd import (
     ssd_prefill,
     ssd_scan,
@@ -49,7 +53,8 @@ from repro_torch.kernels.ssd import (
 
 # every wrapper that counts its kernel launches in ``<wrapper>.launches``
 COUNTED_KERNELS = (decode_attention, paged_decode_attention, mla_latent_decode,
-                   mla_paged_latent_decode, ssd_scan, gdn_scan, ssd_scan_bwd, gdn_scan_bwd)
+                   mla_paged_latent_decode, ssd_scan, gdn_scan, ssd_scan_bwd, gdn_scan_bwd,
+                   prefill_attention)
 
 __all__ = [
     "decode_attention", "decode_attention_ref",
@@ -60,5 +65,6 @@ __all__ = [
     "ssd_scan", "ssd_scan_ref", "ssd_prefill", "ssd_scan_bwd", "ssd_scan_bwd_ref",
     "gdn_scan", "gdn_scan_ref", "gdn_prefill", "gdn_chunked_ref", "gdn_scan_bwd",
     "gdn_scan_bwd_ref",
+    "prefill_attention", "prefill_attention_ref",
     "COUNTED_KERNELS",
 ]

@@ -1,6 +1,7 @@
 """The work of one call of each hand-written kernel: the bytes it must move
 and the operations it must do, as functions of the call's shapes, element
-size and (for the decode kernels) the keys it attends.
+size and (for the decode kernels) the keys it attends or (for the prefill
+attention kernel) its causal window.
 
 One count per kernel, read by everything that prices a kernel's work: the
 wrappers' meta branch (a dry run on ``device="meta"`` adds the count of each
@@ -21,6 +22,8 @@ chunk cannot move its count.
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
+
+import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
@@ -83,6 +86,23 @@ def mla_latent_decode(b, h, rank, rope, elem, keys) -> Cost:
 def mla_paged_latent_decode(b, h, rank, rope, elem, keys, pages) -> Cost:
     """Kernel 5, paged absorbed-MLA decode."""
     return _mla(b, h, rank, rope, elem, keys, pages)
+
+
+def causal_pairs(s: int, l: int, window: int = 0) -> int:
+    """The (query, key) pairs a causal prefill of ``s`` queries over ``l``
+    keys attends: query ``i`` takes keys ``max(0, i - window + 1)`` to
+    ``min(i, l - 1)`` (from 0 when ``window`` is 0)."""
+    i = np.arange(s, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else 0
+    return int(np.clip(np.minimum(i, l - 1) - lo + 1, 0, None).sum())
+
+
+def prefill_attention(b, s, l, h, kv, dk, dv, elem, window=0) -> Cost:
+    """The causal prefill-attention kernel: q, k, v read and the output
+    written once; 2 (Dk + Dv) operations a query head and attended (query,
+    key) pair (``causal_pairs``) over the inputs' peak."""
+    nbytes = (b * s * h * (dk + dv) + b * l * kv * (dk + dv)) * elem
+    return Cost(nbytes, 2 * b * h * (dk + dv) * causal_pairs(s, l, window), _float(elem))
 
 
 def _ssd_ops(b, s, h, p, n, g=1) -> int:

@@ -19,6 +19,11 @@ logit softcap (``cfg.attn_softcap``) and, on the local ``attn`` layers only,
 the sliding window (``cfg.sliding_window``) are applied inside the kernels
 (``softcap=``, ``window=``), where the reference applies both in jnp around
 its attention (``_decode_attend``).
+
+Prefill attention (``attention_prefill``) takes the causal flash kernel of
+``repro_torch.kernels.prefill_attn`` where it applies (``prefill_kernel_takes``:
+bf16 on the card, equal head dims the kernel was built for, no gradient
+wanted), and otherwise its plain PyTorch code.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.prefill_attn import HEAD_DIMS, prefill_attention
 from repro_torch.models.layers import (
     apply_rope,
     normal_init,
@@ -105,16 +111,34 @@ def _out_project(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return ctx.flatten(-2) @ wo.reshape(h * k, d)
 
 
+def prefill_kernel_takes(q, k, v) -> bool:
+    """Whether ``attention_prefill`` hands (q, k, v) to the prefill kernel:
+    all three bf16 on the card (or on meta, the dry run's stand-in for it),
+    Dk == Dv among the kernel's ``HEAD_DIMS``, and no gradient wanted. The
+    training forward, MLA's asymmetric prefill (Dk = latent + rope, Dv =
+    latent), fp32 models and CPU tensors keep the plain code."""
+    return (q.device.type in ("cuda", "meta")
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] == k.shape[-1] == v.shape[-1] in HEAD_DIMS
+            and not (torch.is_grad_enabled()
+                     and (q.requires_grad or k.requires_grad or v.requires_grad)))
+
+
 def attention_prefill(q, k, v, *, scale: float, window: int = 0,
-                      softcap: float = 0.0) -> torch.Tensor:
-    """Causal grouped attention for prefill, in plain PyTorch: the
-    counterpart of ``repro.models.flash.attention_prefill_auto`` (its naive
-    branch; the blocked custom-VJP branch computes the same function).
+                      softcap: float = 0.0, plain: bool = False) -> torch.Tensor:
+    """Causal grouped attention for prefill: the counterpart of
+    ``repro.models.flash.attention_prefill_auto``. Where
+    ``prefill_kernel_takes`` (and not ``plain``), the kernel
+    ``prefill_attention`` (the function of the reference's blocked branch);
+    else plain PyTorch (its naive branch; both compute the same function).
     q (B,S,H,Dk), k (B,L,KV,Dk), v (B,L,KV,Dv) -> (B,S,H,Dv). On DTensors it
     runs per shard (``_per_head_shard``, site ``attention.prefill``)."""
     if dtm.is_dtensor(q):
         return _per_head_shard("attention.prefill", lambda *t: attention_prefill(
-            *t, scale=scale, window=window, softcap=softcap), q, k, v)
+            *t, scale=scale, window=window, softcap=softcap, plain=plain), q, k, v)
+    if not plain and prefill_kernel_takes(q, k, v):
+        return prefill_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+                                 softcap=softcap, window=window)
     b, s, h, dk = q.shape
     l, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -152,6 +176,7 @@ def self_attention_prefill(
     *,
     is_global: bool,
     cache: Optional[Dict] = None,    # written at [0:S] in place when given
+    plain: bool = False,             # the plain attention core, never the kernel
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     b, s, _ = x.shape
     positions = dtm.arange(s, x)[None, :]
@@ -160,7 +185,7 @@ def self_attention_prefill(
     v = _project(x, params["wv"])
     window = 0 if is_global else cfg.sliding_window
     ctx = attention_prefill(q, k, v, scale=_attn_scale(cfg), window=window,
-                            softcap=cfg.attn_softcap).to(x.dtype)
+                            softcap=cfg.attn_softcap, plain=plain).to(x.dtype)
     out = _out_project(ctx, params["wo"])
     if cache is not None:
         write_prefix(cache["k"], k)

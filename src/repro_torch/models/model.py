@@ -291,7 +291,7 @@ def _block(kind: str, bp: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 bp["attn"], h, bc, prefix_len, cfg, is_global=is_global)
         elif mode != "decode":
             a_out, _ = attn.self_attention_prefill(
-                bp["attn"], h, cfg, is_global=is_global, cache=bc)
+                bp["attn"], h, cfg, is_global=is_global, cache=bc, plain=plain)
         elif block_tables is not None:
             a_out, _ = attn.self_attention_decode_paged(
                 bp["attn"], h, bc, block_tables, lengths, active, cfg,
@@ -407,7 +407,8 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict, *
             ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Process the prompt, fill caches, return last-valid-token logits.
     ``enc_states`` (B, n_media, d) feed the ``cross_attn`` blocks.
-    ``plain=True`` scans (ssm, gdn) with the kernels' plain versions. As in
+    ``plain=True`` scans (ssm, gdn) and attends (the self-attention blocks'
+    causal core) with the kernels' plain versions. As in
     the reference, a recurrent block runs every position, padding past
     ``prompt_lengths`` included, so its state holds the padding too."""
     b, s = inputs.shape[0], inputs.shape[1]

@@ -99,7 +99,7 @@ from repro_torch.core.latency import LatencyLedger
 from repro_torch.core.metering import GaugeSource, PowerSampler
 from repro_torch.core.workload import weight_stream_bytes
 from repro_torch.device import resolve_device
-from repro_torch.kernels import COUNTED_KERNELS
+from repro_torch.kernels import COUNTED_KERNELS, prefill_attention
 from repro_torch.models import (
     decode_step,
     decode_step_paged,
@@ -1268,6 +1268,7 @@ class Pool(_GraphedStep):
                 logits, cache1, _ = self._prefill_issue(req, precomputed, shared, donor)
                 first = self._first_token(req, logits[0])
             else:
+                launches = prefill_attention.launches
                 with tr.span("serve.prefill.issue", req.uid), tr.region("prefill", req.uid):
                     logits, cache1, bucket = self._prefill_issue(req, precomputed, shared,
                                                                  donor)
@@ -1277,7 +1278,8 @@ class Pool(_GraphedStep):
                              else int(greedy))
                 if bucket is not None:
                     tr.count(prefill_calls=1, prefill_tokens=work,
-                             prefill_bucket_tokens=bucket)
+                             prefill_bucket_tokens=bucket,
+                             prefill_attn_launches=prefill_attention.launches - launches)
             if self.virtual and self.prefill_op is not None:
                 # modelled prefill duration: the operating point's profile
                 # is per prefill_seq tokens — scale to the tokens actually

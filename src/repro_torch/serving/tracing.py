@@ -41,12 +41,14 @@ region (the step's input copies, the read-backs, copy-on-write copies)
 counts as idle.
 
 Counters, at the same boundaries: prefills this pool issued with their
-true and bucketed positions, decode steps with their live rows, and graph
-captures. Everything stays in memory until the tracer is dropped, in flat
-lists of numbers and strings (one list a field): a record of its own for
-each span would be a container the garbage collector walks at every full
-collection, which more than doubled a span's cost. ``summary`` reads a
-window of it into a plain dict.
+true and bucketed positions and the prefill-attention kernel's launches
+inside them (``prefill_attn_launches``: one a self-attention layer where
+the kernel takes the call, 0 where the plain code does), decode steps with
+their live rows, and graph captures. Everything stays in memory until the
+tracer is dropped, in flat lists of numbers and strings (one list a
+field): a record of its own for each span would be a container the garbage
+collector walks at every full collection, which more than doubled a span's
+cost. ``summary`` reads a window of it into a plain dict.
 """
 from __future__ import annotations
 

@@ -37,6 +37,8 @@ ENTRY_POINTS = [
 ] + [
     ("repro_torch.kernels.gdn.gdn_bwd", "gdn_scan_bwd", f"gdn_scan_bwd_{sfx}")
     for sfx in ("f32", "bf16")
+] + [
+    ("repro_torch.kernels.prefill_attn.prefill_attn", "prefill_attn", "prefill_attention_bf16"),
 ]
 
 

@@ -4,9 +4,9 @@ On the CPU, on a reduced minitron-4b, dense and paged: tracing off holds no
 tracer and enters no ``record_function`` range, even under the profiler;
 tracing on leaves the served tokens and ``PhaseStats`` as they were; spans
 nest and carry their request's uid; one ``serve.decode`` span a decode
-step; the padding counter; ``summary``'s window; the gap labels and the
-gap accounting on synthetic device regions; the arrival stamp a caller
-sets. On a card (marked ``gpu``): device regions timed by CUDA events and
+step; the padding counter; the prefill-attention kernel's launches;
+``summary``'s window; the gap labels and the gap accounting on synthetic
+device regions; the arrival stamp a caller sets. On a card (marked ``gpu``): device regions timed by CUDA events and
 mapped onto the host clock, against events around the graph's replays.
 
 This file imports neither jax nor ``repro``, so it runs on a machine
@@ -139,6 +139,30 @@ def test_one_decode_span_a_step_and_the_counters(params, paged):
     assert c["prefill_tokens"] == sum(LENGTHS)
     assert c["prefill_bucket_tokens"] - c["prefill_tokens"] \
         == sum(_bucket(n) - n for n in LENGTHS) == 15 + 27 + 31 + 24 + 23 + 0
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
+def test_prefill_counts_the_attention_kernel_launches(params, monkeypatch, kernel):
+    """``prefill_attn_launches``: the prefill-attention kernel's launches
+    inside each traced prefill. On the CPU the plain code attends (0); with
+    the dispatch rule taking every call, one launch a self-attention layer
+    (the wrapper's CPU branch counts none, so a stand-in counts them)."""
+    from repro_torch.kernels import prefill_attention, prefill_attention_ref
+    from repro_torch.models import attention as attn
+
+    if kernel:
+        def counted(q, k, v, *, scale, softcap, window):
+            prefill_attention.launches += 1
+            return prefill_attention_ref(q, k, v, scale, softcap=softcap, window=window)
+
+        monkeypatch.setattr(attn, "prefill_kernel_takes", lambda *t: True)
+        monkeypatch.setattr(attn, "prefill_attention", counted)
+    before = prefill_attention.launches
+    eng, reqs = _serve(params, True, trace=True)
+    c = eng.tracer.summary(float("-inf"), float("inf"))["counters"]
+    layers = sum(st.n_units * len(st.unit) for st in CFG.stages)
+    assert c["prefill_attn_launches"] == prefill_attention.launches - before \
+        == (layers * len(reqs) if kernel else 0)
 
 
 def test_summary_clips_to_its_window(params):
@@ -309,6 +333,9 @@ def test_device_regions_on_the_card(monkeypatch):
     assert dev["busy_s"]["prefill"] > 0 and dev["busy_s"]["place"] > 0
     assert out["counters"]["decode_steps"] == 40 and out["counters"]["graph_captures"] == 0
     assert all(p["device_ms"] is not None and p["device_ms"] > 0 for p in out["prefills"])
+    # every prefill of the window attends through the kernel, once a layer
+    assert out["counters"]["prefill_calls"] > 0
+    assert out["counters"]["prefill_attn_launches"] == 16 * out["counters"]["prefill_calls"]
 
     steps = [b - a for k, a, b in zip(tr.kinds[first:], tr.dev_starts[first:],
                                       tr.dev_ends[first:]) if k == "decode"]
